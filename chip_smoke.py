@@ -10,15 +10,26 @@ Phases (any failure exits non-zero before the result line):
    ``nvcc`` each, in parallel) and print ptxas registers / smem / spills;
 3. hold each kernel against its plain torch version on the card, bit for
    bit: a 600-predicate store (two-level DAC, 2-byte predicate ids), a
-   cap-overflow case, and the single-tree (P=1) check;
+   20-predicate store (1-byte ids), cap-overflow cases, predicates out of
+   range on both sides, dead X slots of the re-bind, and the single-tree
+   (P=1) check;
 4. build the geonames-sized store (paper Table 1) from ``--seed``, capture
    the kernel inputs of one 256-lane serve step, and hold every kernel
    against its plain version on exactly those main-path inputs;
 5. the main path: ``Engine`` + ``ServeBroker`` (cap 1024, batch 256, 2 ms
    deadline) serve a 4096-query, 8-tenant Zipf(1.1) trace after warmup,
    with every launch counter reset just before; every query must be
-   answered, every kernel launched, and 512 sampled lanes must match a
-   numpy oracle over the dataset's id triples;
+   answered, every serve kernel launched, and 512 sampled lanes must match
+   a numpy oracle over the dataset's id triples;
+5b. the pattern and join path over the same store, run once with every
+   kernel call held against its plain version, then again with the launch
+   counters reset just before: the six serve-lane triple patterns batched
+   at 256 queries under both SP/OP index layouts, (?S,P,?O) for every
+   predicate in one batch and the dump at cap 2^20, and join categories
+   A-F over the four (vpos1, vpos2) pairs, 8 queries each (cap 1024,
+   cap_y 256); every answer must match the numpy oracle, every kernel of
+   the path must have launched, and each shape's and category's host-clock
+   latency is printed;
 6. time each kernel at the main-path shapes (CUDA events around calls
    enqueued behind a sleep kernel, so host launch overhead is excluded;
    the wrapper's back-to-back time is reported beside it), time its plain
@@ -43,13 +54,23 @@ GEONAMES_TRIPLES = 9_415_253
 # rate stands in as the peak of 32-bit integer ALU operations
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# 32-bit operations a traversal needs per child bit it tests: the bit's
+# position, the word shift, the mask and the compaction's prefix-sum add
+OPS_PER_CANDIDATE = 4
 CSRC = "src/repro_torch/kernels/csrc"
 KERNELS = {
     "k2_scan": dict(source=f"{CSRC}/k2_scan.cu", replaces="src/repro/kernels/k2_scan.py:169"),
     "k2_check": dict(source=f"{CSRC}/k2_check.cu", replaces="src/repro/kernels/k2_check.py:85"),
     "pred_gather_dac": dict(source=f"{CSRC}/pred_gather_dac.cu",
                             replaces="src/repro/kernels/pred_gather.py:218"),
+    "pred_gather": dict(source=f"{CSRC}/pred_gather.cu",
+                        replaces="src/repro/kernels/pred_gather.py:85"),
+    "k2_range": dict(source=f"{CSRC}/k2_range.cu", replaces="src/repro/kernels/k2_range.py:128"),
+    "k2_scan_rebind": dict(source=f"{CSRC}/k2_scan_rebind.cu",
+                           replaces="src/repro/kernels/k2_scan.py:269"),
 }
+SERVE_KERNELS = ("k2_scan", "k2_check", "pred_gather_dac")  # the broker's path
+PAIR_CAP = 1 << 20  # holds the largest geonames predicate (775,682 pairs)
 
 
 def fail(msg: str):
@@ -81,28 +102,39 @@ def gpu_line() -> str:
 
 
 def plain_of(name, meta_or_pmeta, store_part, args, kw):
-    """Run the plain version of kernel ``name`` on a wrapper's arguments."""
+    """Run the plain version of kernel ``name`` on a wrapper's arguments.
+
+    ``k2_range`` runs one lane at a time: at cap 2^20 its cap·k²
+    temporaries for a whole batch would not fit on the card.
+    """
+    import torch
+
     from repro_torch.kernels import ref
 
+    if name in ("pred_gather", "pred_gather_dac"):
+        pm, ix = meta_or_pmeta, store_part
+        (rows,) = args
+        if name == "pred_gather":
+            return ref.pred_gather_ref(rows, ix.offsets, ix.words,
+                                       bytes_per_pred=pm.bytes_per_pred, cap=kw["cap"])
+        return ref.pred_gather_dac_ref(
+            rows, ix.offsets, ix.words, ix.degs, ix.flags, ix.frank,
+            levels=pm.levels, level_byte_start=pm.level_byte_start,
+            flag_word_start=pm.flag_word_start, deg_width=pm.deg_width,
+            rows_per_block=pm.rows_per_block, cap=kw["cap"],
+        )
+    meta, f = meta_or_pmeta, store_part
+    arenas = (f.t_words, f.t_rank, f.l_words, f.ones_before, f.level_start)
     if name == "k2_scan":
-        f = store_part
-        preds, keys, axes = args
-        return ref.k2_scan_ref(meta_or_pmeta, f.t_words, f.t_rank, f.l_words,
-                               f.ones_before, f.level_start, preds, keys, axes,
-                               cap=kw["cap"])
+        return ref.k2_scan_ref(meta, *arenas, *args, cap=kw["cap"])
     if name == "k2_check":
-        f = store_part
-        preds, rows, cols = args
-        return ref.k2_check_ref(meta_or_pmeta, f.t_words, f.t_rank, f.l_words,
-                                f.ones_before, f.level_start, preds, rows, cols)
-    pm, ix = meta_or_pmeta, store_part
-    (rows,) = args
-    return ref.pred_gather_dac_ref(
-        rows, ix.offsets, ix.words, ix.degs, ix.flags, ix.frank,
-        levels=pm.levels, level_byte_start=pm.level_byte_start,
-        flag_word_start=pm.flag_word_start, deg_width=pm.deg_width,
-        rows_per_block=pm.rows_per_block, cap=kw["cap"],
-    )
+        return ref.k2_check_ref(meta, *arenas, *args)
+    if name == "k2_scan_rebind":
+        return ref.k2_scan_rebind_ref(meta, *arenas, *args, **kw)
+    (preds,) = args
+    lanes = [ref.k2_range_ref(meta, *arenas, preds[i:i + 1], cap=kw["cap"])
+             for i in range(preds.shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*lanes))
 
 
 def max_abs_err(got, want) -> int:
@@ -120,8 +152,8 @@ def max_abs_err(got, want) -> int:
 
 
 class Recorder:
-    """Wraps the three ops wrappers: records every call's inputs and holds
-    the kernel's output against the plain version on the same inputs."""
+    """Wraps the ops wrappers: records every call's inputs and holds the
+    kernel's output against the plain version on the same inputs."""
 
     def __init__(self):
         from repro_torch.kernels import ops
@@ -157,7 +189,8 @@ class Recorder:
 
 
 def small_store_checks(device, seed: int) -> dict[str, int]:
-    """600-predicate store (two-level DAC, bpp=2), cap overflow, and P=1."""
+    """600-predicate store (two-level DAC, bpp=2), 20-predicate store
+    (bpp=1), cap overflow, out-of-range predicates, dead X slots, P=1."""
     import numpy as np
     import torch
 
@@ -197,6 +230,41 @@ def small_store_checks(device, seed: int) -> dict[str, int]:
         n_rows = st.n_subjects + st.n_objects
         for cap in (pm.max_degree, 3):
             ops.pred_gather_dac(pm, dev, lanes(0, n_rows, q), cap=cap)
+        # fixed-layout gather at 2 bytes per predicate, then range and
+        # re-bind with predicates out of range on both sides
+        fdev, fpm = st.pred_index.select("fixed")
+        if fpm.bytes_per_pred != 2:
+            fail(f"600-predicate store has fixed bytes_per_pred={fpm.bytes_per_pred}")
+        for cap in (fpm.max_degree, 3):
+            ops.pred_gather(fpm, fdev, lanes(0, n_rows, q), cap=cap)
+        wild = lanes(-1300, 1300, 256)
+        largest = int(np.bincount(ds.ids[:, 1]).max())
+        for cap in (largest, 16):  # exact fit, then overflow
+            r = ops.k2_range(meta, f, wild, cap=cap)
+            if bool(r[4].any()) != (cap == 16):
+                fail(f"k2_range overflow flags at cap {cap}: {int(r[4].sum())} lanes")
+        rows = ds.ids[rng.integers(0, ds.n_triples, 256)]
+        t = torch.from_numpy((rows - 1).astype(np.int32)).to(device)
+        axes1 = lanes(0, 2, 256)
+        keys1 = torch.where(axes1 == 0, t[:, 0], t[:, 2]).contiguous()
+        for cap_x, cap_y in ((64, 16), (8, 2)):  # cap_y 2 < k0: Y overflow
+            r = ops.k2_scan_rebind(meta, f, t[:, 1].contiguous(), keys1, axes1,
+                                   lanes(-1300, 1300, 256), lanes(0, 2, 256),
+                                   cap_x=cap_x, cap_y=cap_y)
+            if not (bool((~r[1]).any()) and bool(r[1].any())):
+                fail("the re-bind case has no dead (or no live) X slots")
+            if cap_y == 2 and not bool(r[7].any()):
+                fail("the cap_y-overflow case did not overflow")
+        ds20, st20 = build(20, 40_000)
+        fdev, fpm = st20.pred_index.select("fixed")
+        if fpm.bytes_per_pred != 1:
+            fail(f"20-predicate store has bytes_per_pred={fpm.bytes_per_pred}")
+        n_rows = st20.n_subjects + st20.n_objects
+        for cap in (fpm.max_degree, 2):
+            ops.pred_gather(fpm, fdev, lanes(-5, n_rows + 5, q).clamp(0, n_rows - 1), cap=cap)
+        r = ops.k2_range(st20.meta, st20.forest, lanes(-45, 45, 64), cap=64)
+        if not bool(r[4].any()):
+            fail("k2_range at cap 64 on the 20-predicate store did not overflow")
         ds1, st1 = build(1, 20_000)
         rows = ds1.ids[rng.integers(0, ds1.n_triples, q)]
         t = torch.from_numpy((rows - 1).astype(np.int32)).to(device)
@@ -214,12 +282,17 @@ def small_store_checks(device, seed: int) -> dict[str, int]:
 
 
 class Oracle:
+    """Answers from the dataset's id triples with numpy: the serve ops, the
+    pair patterns and the join categories, independent of the port."""
+
     def __init__(self, ids):
         import numpy as np
 
         self.np = np
         self.by_s = ids[np.lexsort((ids[:, 2], ids[:, 1], ids[:, 0]))]
         self.by_o = ids[np.lexsort((ids[:, 0], ids[:, 1], ids[:, 2]))]
+        self.by_p = ids[np.lexsort((ids[:, 2], ids[:, 0], ids[:, 1]))]
+        self.n_preds = int(ids[:, 1].max())
 
     def _slice(self, arr, col, v):
         lo, hi = self.np.searchsorted(arr[:, col], [v, v + 1])
@@ -241,17 +314,180 @@ class Oracle:
             return r[r[:, 1] == p, 0]
         return {int(q): r[r[:, 1] == q, 0] for q in np.unique(r[:, 1])}
 
+    def pairs(self, p):
+        """(s, o) pairs of predicate ``p``, sorted by (s, o)."""
+        return self._slice(self.by_p, 1, p)[:, [0, 2]]
+
+    # join categories (paper Table 4): ?X sits at vpos of each pattern
+    def _side(self, p, c, vpos):
+        if vpos == "s":  # (?X, p, c)
+            return self.answer(2, 0, p, c)
+        return self.answer(1, c, p, 0)  # (c, p, ?X)
+
+    def _side_any(self, c, vpos):
+        if vpos == "s":
+            return self.np.unique(self._slice(self.by_o, 2, c)[:, 0])
+        return self.np.unique(self._slice(self.by_s, 0, c)[:, 2])
+
+    def _rebind(self, p, x, vpos2):
+        # ?X at vpos2 of pattern 2, ?Y at the other end
+        return self.answer(1, x, p, 0) if vpos2 == "s" else self.answer(2, 0, p, x)
+
+    def join(self, q):
+        np = self.np
+        preds = range(1, self.n_preds + 1)
+        if q.category == "A":
+            return np.intersect1d(self._side(q.p1, q.c1, q.vpos1), self._side(q.p2, q.c2, q.vpos2))
+        if q.category == "B":
+            a = self._side(q.p1, q.c1, q.vpos1)
+            out = {pp: np.intersect1d(a, self._side(pp, q.c2, q.vpos2)) for pp in preds}
+            return {pp: v for pp, v in out.items() if v.size}
+        if q.category == "C":
+            return np.intersect1d(self._side_any(q.c1, q.vpos1), self._side_any(q.c2, q.vpos2))
+        xs = self._side_any(q.c1, q.vpos1) if q.category == "F" else self._side(q.p1, q.c1, q.vpos1)
+
+        def bind(pp):
+            out = {int(x): self._rebind(pp, x, q.vpos2) for x in xs}
+            return {x: y for x, y in out.items() if y.size}
+
+        if q.category == "D":
+            return bind(q.p2)
+        out = {pp: bind(pp) for pp in preds}
+        return {pp: d for pp, d in out.items() if d}
+
 
 def same_answer(a, b) -> bool:
+    """Equal answers: bools, id arrays, or (nested) dicts of them."""
     import numpy as np
 
     if isinstance(b, dict):
         return isinstance(a, dict) and a.keys() == b.keys() and all(
-            np.array_equal(a[k], b[k]) for k in b
+            same_answer(a[k], b[k]) for k in b
         )
     if isinstance(b, bool):
         return bool(a) == b
     return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def same_pairs(got, want) -> bool:
+    """Pair arrays equal as sets (the port emits Morton order)."""
+    import numpy as np
+
+    got = np.asarray(got)
+    if got.ndim != 2 or got.shape[1:] != (2,) or got.shape[0] != want.shape[0]:
+        return False
+    got = got[np.lexsort((got[:, 1], got[:, 0]))]
+    return np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the pattern and join path
+# ---------------------------------------------------------------------------
+
+# (name, bound mask of (s, p, o), serve op the oracle answers it with)
+PATTERN_SHAPES = (
+    ("(S,P,O)", (True, True, True), 0), ("(S,P,?O)", (True, True, False), 1),
+    ("(?S,P,O)", (False, True, True), 2), ("(S,?P,O)", (True, False, True), 5),
+    ("(S,?P,?O)", (True, False, False), 3), ("(?S,?P,O)", (False, False, True), 4),
+)
+JOIN_FIELDS = {
+    "A": ("p1", "c1", "p2", "c2"), "B": ("p1", "c1", "c2"), "C": ("c1", "c2"),
+    "D": ("p1", "c1", "p2"), "E": ("p1", "c1"), "F": ("c1",),
+}
+VPOS = (("s", "s"), ("s", "o"), ("o", "s"), ("o", "o"))
+
+
+def query_work(ds, oracle, seed: int, batch: int = 256, per_join: int = 8) -> list:
+    """The pattern and join workload: ``(label, query, config, batch)``
+    items with constants drawn from real triples (join constants so that
+    pattern 2 can bind pattern 1's X: most answers are non-empty)."""
+    import numpy as np
+
+    from repro_torch.core.query import ExecConfig, JoinQ, TriplePatternQ
+
+    rng = np.random.default_rng(seed)
+    ids = ds.ids
+    work = []
+    for layout in ("dac", "fixed"):
+        cfg = ExecConfig(cap=1024, pred_index_layout=layout)
+        for name, bound, _ in PATTERN_SHAPES:
+            rows = ids[rng.integers(0, ds.n_triples, batch)]
+            q = TriplePatternQ(*(1 if b else f"?{k}" for k, b in zip("spo", bound)))
+            b = {k: rows[:, i] for i, k in enumerate("spo") if bound[i]}
+            work.append((f"pattern {name} {layout}", q, cfg, b))
+    big = ExecConfig(cap=PAIR_CAP)
+    work.append(("pattern (?S,P,?O) all preds", TriplePatternQ("?s", 1, "?o"), big,
+                 {"p": np.arange(1, ds.n_preds + 1)}))
+    work.append(("pattern (?S,?P,?O) dump", TriplePatternQ("?s", "?p", "?o"), big, None))
+
+    jcfg = ExecConfig(cap=1024, cap_y=256)
+    extent = max(ds.n_subjects, ds.n_objects) + 1
+    is_s = np.zeros(extent, np.bool_)
+    is_o = np.zeros(extent, np.bool_)
+    is_s[ids[:, 0]] = True
+    is_o[ids[:, 2]] = True
+    for v1, v2 in VPOS:
+        x_all = ids[:, 0] if v1 == "s" else ids[:, 2]
+        cand = np.nonzero((is_s if v2 == "s" else is_o)[x_all])[0]
+        for cat in "ABCDEF":
+            for row in ids[rng.choice(cand, per_join)]:
+                s1, p1, o1 = (int(v) for v in row)
+                x = s1 if v1 == "s" else o1
+                arr, col = (oracle.by_s, 0) if v2 == "s" else (oracle.by_o, 2)
+                s2, p2, o2 = (int(v) for v in oracle._slice(arr, col, x)[0])
+                kw = dict(p1=p1, c1=o1 if v1 == "s" else s1, p2=p2,
+                          c2=o2 if v2 == "s" else s2)
+                q = JoinQ(cat, v1, v2, **{k: kw[k] for k in JOIN_FIELDS[cat]})
+                work.append((f"join {cat} {v1}{v2}", q, jcfg, None))
+    return work
+
+
+def run_work(engine, work) -> list:
+    """Run every item through ``Engine.compile(query, config)(batch)``;
+    returns ``(answer, host seconds, effective cap)`` per item (a plan
+    keeps a cap grown by an earlier overflow of its shape)."""
+    import torch
+
+    out = []
+    for _, q, cfg, batch in work:
+        plan = engine.compile(q, cfg.replace(device=str(engine.device)))
+        t0 = time.perf_counter()
+        ans = plan(batch)
+        torch.cuda.synchronize()
+        out.append((ans, time.perf_counter() - t0, plan.effective_cap))
+    return out
+
+
+def check_work(work, results, oracle, n_unique: int) -> dict:
+    """Every answer against the oracle; returns ``{label: [seconds, ...]}``
+    and the per-label count of non-empty answers."""
+    lat, nonempty = {}, {}
+    for (label, q, _, batch), (ans, sec, cap) in zip(work, results):
+        lat.setdefault(label, []).append((sec, cap))
+        if label.startswith("join"):
+            want = oracle.join(q)
+            if not same_answer(ans, want):
+                fail(f"{label} {q} disagrees with the oracle")
+            nonempty[label] = nonempty.get(label, 0) + bool(len(want))
+        elif label.endswith("all preds"):
+            for p, got in zip(batch["p"], ans):
+                if not same_pairs(got, oracle.pairs(int(p))):
+                    fail(f"(?S,{p},?O) disagrees with the oracle")
+        elif label.endswith("dump"):
+            total = sum(v.shape[0] for v in ans.values())
+            if total != n_unique:
+                fail(f"the dump returned {total} triples, not {n_unique}")
+            for p in range(1, oracle.n_preds + 1):
+                if not same_pairs(ans.get(p, oracle.pairs(p)[:0]), oracle.pairs(p)):
+                    fail(f"the dump of predicate {p} disagrees with the oracle")
+        else:
+            op = next(op for name, _, op in PATTERN_SHAPES if label.split()[1] == name)
+            n = len(ans)
+            for i in range(n):
+                args = [int(batch[k][i]) if k in batch else 0 for k in "spo"]
+                if not same_answer(ans[i], oracle.answer(op, *args)):
+                    fail(f"{label} lane {i} {args} disagrees with the oracle")
+    return lat, nonempty
 
 
 # ---------------------------------------------------------------------------
@@ -302,34 +538,144 @@ def time_ms(fn, iters: int) -> float:
     fail("could not hold the stream while enqueuing the timed calls")
 
 
-def bound(name, meta_or_pmeta, out) -> tuple[float, str, int, int]:
+def iters_for(fn, budget_ms: float, most: int) -> int:
+    """How many timed calls of ``fn`` fit a budget (one call measured after
+    a warmup, host clock around a synchronised call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return max(1, min(most, int(budget_ms / max(ms, 1e-3))))
+
+
+def _scan_work(meta, ids, valid) -> tuple[float, int]:
+    """Arena bytes and child candidates of a batch of scan lanes: a 4 B
+    root word per lane, then per 1-node on a result path its 4 B rank
+    entry and k²/8 B of child bits (nodes = distinct result prefixes)."""
+    import numpy as np
+
+    ids, valid = ids.cpu().numpy(), valid.cpu().numpy()
+    q = ids.shape[0]
+    lane = np.nonzero(valid)[0].astype(np.int64)
+    vid = ids[valid].astype(np.int64)
+    arena, cand = 4 * q, 0
+    for lvl in range(meta.n_levels - 1):
+        sub = meta.subsides[lvl]
+        n_l = np.unique(lane * (meta.side // sub + 1) + vid // sub).size
+        arena += n_l * (4 + meta.radices[lvl + 1] / 8)
+        cand += n_l * meta.ks[lvl + 1]
+    return arena, cand
+
+
+def _word_span(ranges) -> int:
+    """Number of distinct words covered by inclusive ``(lo, hi)`` ranges."""
+    n, end = 0, -1
+    for lo, hi in sorted(ranges):
+        lo = max(lo, end + 1)
+        if hi >= lo:
+            n += hi - lo + 1
+            end = hi
+    return n
+
+
+def _range_nodes(meta, level_start, p, rows, cols):
+    """Per depth of tree ``p``, the bit positions of the 1-nodes above the
+    given pairs.  Pairs come out in Morton order, so the nodes of a depth
+    are runs of equal prefixes in level order, and the children of node i
+    of depth j sit at ``level_start[p, j + 1] + i·k² + digit``."""
+    import numpy as np
+
+    out, parent = [], None
+    for j in range(meta.n_levels):
+        sub, k = meta.subsides[j], meta.ks[j]
+        rq, cq = rows // sub, cols // sub
+        key = rq * (meta.side // sub + 1) + cq
+        start = np.ones(key.size, np.bool_)
+        start[1:] = key[1:] != key[:-1]
+        digit = (rq % k) * k + cq % k
+        pos = digit if j == 0 else level_start[p, j] + parent * meta.radices[j] + digit
+        out.append(pos[start])
+        parent = np.cumsum(start) - 1
+    return out
+
+
+def _range_work(meta, f, preds, rows, cols, valid) -> tuple[float, int]:
+    """Arena bytes and child candidates of range lanes: the distinct 32-bit
+    words of ``t_words`` and ``l_words`` whose bits a lane tests (every
+    root child, then the k² child bits of every expanded 1-node) and the
+    distinct ``t_rank`` entries its expanded 1-nodes read, counted from
+    the pairs it returned."""
+    import numpy as np
+
+    H, P = meta.n_levels, f.n_preds
+    level_start = f.level_start.cpu().numpy().astype(np.int64)
+    preds = preds.cpu().numpy()
+    rows, cols, valid = (a.cpu().numpy() for a in (rows, cols, valid))
+    arena, cand = 0, 0
+    for i in range(preds.shape[0]):
+        p = int(preds[i]) + (P if preds[i] < 0 else 0)
+        p = min(max(p, 0), P - 1)  # the kernels' pred_row
+        root = [(0, (meta.radices[0] - 1) >> 5)]
+        t_ranges, l_ranges = ([], root) if H == 1 else (root, [])
+        rank_words = [np.zeros(0, np.int64)]
+        cand += meta.radices[0]
+        r, c = rows[i][valid[i]].astype(np.int64), cols[i][valid[i]].astype(np.int64)
+        if r.size:
+            nodes = _range_nodes(meta, level_start, p, r, c)
+            for j in range(H - 1):
+                n = nodes[j].size
+                lo = int(level_start[p, j + 1])
+                hi = lo + n * meta.radices[j + 1] - 1
+                (l_ranges if j + 2 == H else t_ranges).append((lo >> 5, hi >> 5))
+                rank_words.append(nodes[j] >> 5)
+                cand += n * meta.radices[j + 1]
+        n_rank = np.unique(np.concatenate(rank_words)).size
+        arena += 4 * (_word_span(t_ranges) + _word_span(l_ranges) + n_rank)
+    return arena, cand
+
+
+def bound(name, meta_or_pmeta, store_part, args, out) -> tuple[float, str, int, int]:
     """Least time for this call's work: (bound_ms, bound_by, bytes, ops).
 
     Bytes: lane inputs read once, outputs written once, plus the arena
     bytes this data needs (see PERF.md); ops: 32-bit ALU operations.
     """
-    import numpy as np
-
     if name == "k2_scan":
-        meta = meta_or_pmeta
-        ids, valid = out[0].cpu().numpy(), out[1].cpu().numpy()
-        q, cap = ids.shape
-        lane = np.nonzero(valid)[0].astype(np.int64)
-        vid = ids[valid].astype(np.int64)
-        arena, cand = 4 * q, 0  # each lane reads its root word
-        for lvl in range(meta.n_levels - 1):
-            sub = meta.subsides[lvl]
-            n_l = np.unique(lane * (meta.side // sub + 1) + vid // sub).size
-            arena += n_l * (4 + meta.radices[lvl + 1] / 8)  # rank + child bits
-            cand += n_l * meta.ks[lvl + 1]
+        q, cap = out[0].shape
+        arena, cand = _scan_work(meta_or_pmeta, out[0], out[1])
         nbytes = 12 * q + 5 * q * cap + 5 * q + arena
-        ops_ = 25 * cand + 2 * q * cap
+        ops_ = OPS_PER_CANDIDATE * cand + 2 * q * cap
+    elif name == "k2_scan_rebind":
+        # the k2_scan work of the X lanes plus that of every Y lane (dead
+        # X slots scan key 0 and are counted like any other Y lane)
+        q, cap_x = out[0].shape
+        cap_y = out[4].shape[-1]
+        ax, cx = _scan_work(meta_or_pmeta, out[0], out[1])
+        ay, cy = _scan_work(meta_or_pmeta, out[4].reshape(q * cap_x, cap_y),
+                            out[5].reshape(q * cap_x, cap_y))
+        nbytes = 20 * q + 5 * q * cap_x + 5 * q + 5 * q * cap_x * cap_y + 5 * q * cap_x + ax + ay
+        ops_ = OPS_PER_CANDIDATE * (cx + cy) + 2 * q * cap_x * (1 + cap_y)
+    elif name == "k2_range":
+        q, cap = out[0].shape
+        arena, cand = _range_work(meta_or_pmeta, store_part, args[0], *out[:3])
+        nbytes = 4 * q + 9 * q * cap + 5 * q + arena
+        ops_ = OPS_PER_CANDIDATE * cand + 3 * q * cap
     elif name == "k2_check":
         meta = meta_or_pmeta
         hit = out.cpu().numpy()
         q = hit.size
         nbytes = 13 * q + hit.sum() * meta.n_levels * 8 + (q - hit.sum()) * 4
         ops_ = 25 * meta.n_levels * hit.sum() + 25 * (q - hit.sum())
+    elif name == "pred_gather":
+        pm = meta_or_pmeta
+        count = out[2].cpu().numpy().clip(min=0)
+        q, cap = out[0].shape
+        nbytes = 12 * q + count.sum() * pm.bytes_per_pred + 5 * q * cap + 5 * q
+        ops_ = 10 * q * cap
     else:
         pm = meta_or_pmeta
         count = out[2].cpu().numpy().clip(min=0)
@@ -412,7 +758,7 @@ def main(argv=None) -> int:
     rec = Recorder()
     with rec:
         eng.host_result(plan.submit(eng.ServeBatch(*lanes)))
-    for name in KERNELS:
+    for name in SERVE_KERNELS:
         err[name] = max(err[name], rec.err[name])
         shapes = [tuple(c[4][0].shape) if isinstance(c[4], tuple) else tuple(c[4].shape)
                   for c in rec.calls[name]]
@@ -441,7 +787,7 @@ def main(argv=None) -> int:
         f"max_memory_allocated {mem} bytes; launches {launches}",
         flush=True,
     )
-    if not all(launches[k] > 0 for k in KERNELS):
+    if not all(launches[k] > 0 for k in SERVE_KERNELS):
         fail(f"a kernel of the main path never launched: {launches}")
 
     oracle = Oracle(ds.ids)
@@ -455,31 +801,87 @@ def main(argv=None) -> int:
         fail(f"{len(bad)} of 512 sampled lanes disagree with the oracle, e.g. {trace[bad[0]]}")
     print("oracle: 512 sampled lanes (all six ops) match", flush=True)
 
+    phase("5b. patterns and joins over the geonames store")
+    work = query_work(ds, oracle, args.seed + 3)
+    rec_q = Recorder()
+    t0 = time.perf_counter()
+    with rec_q:
+        run_work(engine, work)
+    torch.cuda.synchronize()
+    for name in KERNELS:
+        err[name] = max(err[name], rec_q.err[name])
+    print(f"kernel checks on the pattern/join inputs: "
+          f"{ {k: len(v) for k, v in rec_q.calls.items()} } calls, max_abs_err {rec_q.err} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    if any(err.values()):
+        fail(f"kernels disagree with their plain versions: {err}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = run_work(engine, work)
+    torch.cuda.synchronize()
+    q_launches = dict(ops.LAUNCHES)
+    q_wall = time.perf_counter() - t0
+    lat, nonempty = check_work(work, results, oracle, ds.n_triples)
+    print(f"pattern/join path: {len(work)} plan calls in {q_wall:.3f}s; launches {q_launches}; "
+          f"oracle: every answer matches (dump: {ds.n_triples} triples)", flush=True)
+    for label, runs in lat.items():
+        batch = next(b for lb, _, _, b in work if lb == label)
+        secs = [sec for sec, _ in runs]
+        caps = sorted({cap for _, cap in runs})
+        if label.startswith("join"):
+            print(f"latency {label}: {len(secs)} queries, median {1e3 * np.median(secs):.3f} ms, "
+                  f"max {1e3 * max(secs):.3f} ms per query, {nonempty[label]} non-empty, "
+                  f"cap {caps}", flush=True)
+            if not nonempty[label]:
+                fail(f"every {label} answer is empty: the workload exercises nothing")
+        else:
+            n = len(next(iter(batch.values()))) if batch else 1
+            print(f"latency {label}: {n} queries in one call, {1e3 * secs[0]:.3f} ms per call, "
+                  f"{1e6 * secs[0] / n:.1f} us per query, cap {caps}", flush=True)
+    if not all(q_launches[k] > 0 for k in KERNELS):
+        fail(f"a kernel of the pattern/join path never launched: {q_launches}")
+
     phase("6. kernel times at the main-path shapes")
     rows = []
     for name in KERNELS:
+        recorder = rec if name in SERVE_KERNELS else rec_q
         best = None
         shapes = {}
-        for a, b, cargs, kw, out in rec.calls[name]:
-            orig = rec.orig[name]
-            ms = time_ms(lambda: orig(a, b, *cargs, **kw), 50)
-            wrapped = wrapper_ms(lambda: orig(a, b, *cargs, **kw), 50)
+        seen = set()
+        for a, b, cargs, kw, out in recorder.calls[name]:
+            key = (tuple(tuple(t.shape) for t in cargs), tuple(sorted(kw.items())))
+            if key in seen:
+                continue
+            seen.add(key)
+            orig = recorder.orig[name]
+
+            def call():
+                return orig(a, b, *cargs, **kw)
+
+            def plain():
+                return plain_of(name, a, b, cargs, kw)
+
+            n_it = iters_for(call, 300.0, 50)
+            ms = time_ms(call, n_it)
+            wrapped = wrapper_ms(call, n_it)
             # the plain version enqueues hundreds of small kernels per call,
             # more than the launch queue holds behind a sleep: timed back to
             # back, host launch overhead included
-            plain = wrapper_ms(lambda: plain_of(name, a, b, cargs, kw), 5)
-            b_ms, by, nbytes, nops = bound(name, a, out)
+            plain_ms = wrapper_ms(plain, iters_for(plain, 2000.0, 5))
+            b_ms, by, nbytes, nops = bound(name, a, b, cargs, out)
             q = cargs[0].shape[0]
-            shapes[f"Q={q}" + (f",cap={kw['cap']}" if "cap" in kw else "")] = dict(
-                ms=ms, wrapper_ms=wrapped, plain_ms=plain, bound_ms=b_ms,
-                bound_by=by, bytes=nbytes, ops=nops)
+            shapes[",".join([f"Q={q}"] + [f"{k}={v}" for k, v in sorted(kw.items())])] = dict(
+                ms=ms, wrapper_ms=wrapped, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, bytes=nbytes, ops=nops, iters=n_it)
             if best is None or q > best[0]:
-                best = (q, ms, plain, b_ms, by)
-        _, ms, plain, b_ms, by = best
+                best = (q, ms, plain_ms, b_ms, by)
+        _, ms, plain_ms, b_ms, by = best
         rows.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
-            replaces=KERNELS[name]["replaces"], launches=launches[name],
-            max_abs_err=err[name], ms=ms, plain_ms=plain, bound_ms=b_ms,
+            replaces=KERNELS[name]["replaces"],
+            launches=launches[name] + q_launches[name],
+            launches_by_path={"serve": launches[name], "patterns_joins": q_launches[name]},
+            max_abs_err=err[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=by, library_ms=None, shapes=shapes,
         ))
     print(json.dumps({"kernels": rows}), flush=True)

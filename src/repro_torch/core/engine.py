@@ -1,5 +1,12 @@
-"""Query engine, serve slice: ``Engine.compile(ServeQ, config) -> Plan`` over
-one batched ``serve_step``.
+"""Query engine: ``Engine.compile(query, config) -> Plan`` over one batched
+``serve_step`` per geometry.
+
+``TriplePatternQ`` plans lower the six keyed pattern shapes to serve-IR
+lanes; (?S,P,?O) and the dump run the ``k2_range`` pair enumeration.
+``JoinQ`` plans resolve categories A–C as serve-IR side lists plus the
+sorted-set algebra of ``core.sortedset``, and D–F through ``core.joins``
+(the fused ``k2_scan_rebind`` kernel for D and E).  ``ServeQ`` is the raw
+serve-IR passthrough the broker streams through.
 
 Serve IR: a ``ServeBatch`` lane is ``(op, s, p, o)`` with
 
@@ -33,15 +40,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import k2forest, predindex
+from repro_torch.core import joins, k2forest, predindex, sortedset
 from repro_torch.core.k2forest import K2Forest
 from repro_torch.core.k2tree import K2Meta, compact
 from repro_torch.core.k2triples import K2TriplesStore
 from repro_torch.core.predindex import PredIndex, PredIndexMeta
 from repro_torch.core.query import (
-    AdmissionError, CapOverflow, ExecConfig, Plan, ServeQ, resolve_device,
-    run_with_policy, shape_key,
+    AdmissionError, CapOverflow, ExecConfig, JoinQ, Plan, ServeQ,
+    TriplePatternQ, resolve_device, run_with_policy, shape_key,
 )
+from repro_torch.core.sortedset import SENTINEL, IdSet
 
 # serve IR ops
 OP_CHECK = 0
@@ -293,11 +301,22 @@ def upload_batch(batch, device: torch.device) -> ServeBatch:
     return ServeBatch(*host.unbind(0))
 
 
-class _ServeExec:
-    """Raw serve-IR passthrough: ``plan(ServeBatch) -> ServeResult``.
+_OP_FOR_SHAPE = {
+    (True, True, True): OP_CHECK,
+    (True, True, False): OP_ROW,
+    (False, True, True): OP_COL,
+    (True, False, True): OP_S_ANY_O,
+    (True, False, False): OP_S_ANY_ANY,
+    (False, False, True): OP_ANY_ANY_O,
+}
 
-    One per ``(shape_key, config)`` cache slot; holds the effective cap,
-    grown in place by the :class:`CapPolicy` loop of ``Plan.__call__``.
+
+class _ExecBase:
+    """Executor state: one per ``(shape_key, config)`` cache slot.
+
+    Holds the effective caps, grown in place by the :class:`CapPolicy`
+    doubling loop, so every plan sharing this executor keeps a growth paid
+    once.
     """
 
     def __init__(self, engine: "Engine", cfg: ExecConfig):
@@ -305,6 +324,210 @@ class _ServeExec:
         self.cfg = cfg
         self.cap = cfg.cap
         self.cap_y = cfg.cap_y
+
+    def _grow(self, fn):
+        out, self.cap, self.cap_y = run_with_policy(
+            self.cfg.cap_policy, self.cap, self.cap_y, fn
+        )
+        return out
+
+    def submit(self, q, batch):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no raw device surface; "
+            "Plan.submit is a ServeQ-only streaming hook"
+        )
+
+    @staticmethod
+    def _overflow_guard(r):
+        if bool(r.overflow.any()):
+            raise CapOverflow(
+                "result lane truncated at cap; CapPolicy(grow=True) doubles"
+            )
+
+
+class _PatternExec(_ExecBase):
+    """Any of the eight triple-pattern shapes, single query or batched."""
+
+    def run(self, q: TriplePatternQ, batch):
+        s, p, o, b, single = self._consts(q, batch)
+        bound = q.bound
+        if bound == (False, True, False):  # (?S, P, ?O) pair enumeration
+            out = self._grow(lambda cap, _: self._run_pairs(p, b, cap))
+        elif bound == (False, False, False):  # (?S, ?P, ?O) dump
+            if batch is not None:
+                raise ValueError("the dump pattern takes no batch")
+            out = self._grow(lambda cap, _: self._run_dump(cap))
+        else:
+            op = _OP_FOR_SHAPE[bound]
+            out = self._grow(lambda cap, _: self._run_serve(op, s, p, o, b, cap))
+        return out[0] if single else out
+
+    def _consts(self, q: TriplePatternQ, batch):
+        vals = {"s": q.s, "p": q.p, "o": q.o}
+        bound = dict(zip("spo", q.bound))
+        if batch is None:
+            b, single = 1, True
+            batch = {}
+        else:
+            if not batch:
+                raise ValueError(
+                    "batch must be a non-empty dict of bound-position id "
+                    "arrays (or None to use the query's own constants)"
+                )
+            bad = set(batch) - {k for k in "spo" if bound[k]}
+            if bad:
+                raise ValueError(
+                    f"batch keys {sorted(bad)} are not bound positions of {q!r}"
+                )
+            b, single = len(np.asarray(next(iter(batch.values())))), False
+        arrs = []
+        for k in "spo":
+            if k in batch:
+                a = np.asarray(batch[k], np.int64).reshape(-1)
+                if a.shape[0] != b:
+                    raise ValueError("batch arrays must share one length")
+            else:
+                a = np.full(b, vals[k] if bound[k] else 0, np.int64)
+            arrs.append(a)
+        return (*arrs, b, single)
+
+    def _run_serve(self, op, s, p, o, b, cap):
+        eng, cfg = self.engine, self.cfg
+        with_index = False
+        u_width = 0
+        if op in UNBOUNDED_OPS:
+            with_index = cfg.use_pred_index and eng.store.pred_index is not None
+            u_width = eng._u_width() if with_index else max(eng.store.n_preds, 1)
+        r = eng._run_lanes(cfg, cap, np.full(b, op, np.int32), s, p, o,
+                           u_width=u_width, with_index=with_index)
+        self._overflow_guard(r)
+        return self._decode(op, r, range(b))
+
+    @staticmethod
+    def _decode(op, r, idxs):
+        h = host_result(r, unbounded=op in UNBOUNDED_OPS)
+        return [decode_lane(op, h, i) for i in idxs]
+
+    def _run_pairs(self, p, b, cap):
+        eng = self.engine
+        r = k2forest.range_scan_batch(eng.meta, eng.forest, p - 1, cap)
+        self._overflow_guard(r)
+        rows, cols, valid = (_host(a) for a in (r.rows, r.cols, r.valid))
+        return [
+            np.stack([rows[i][valid[i]] + 1, cols[i][valid[i]] + 1], axis=1)
+            for i in range(b)
+        ]
+
+    def _run_dump(self, cap):
+        n = self.engine.store.n_preds
+        pairs = self._run_pairs(np.arange(1, n + 1), n, cap)
+        return [{pi + 1: pr for pi, pr in enumerate(pairs) if pr.shape[0]}]
+
+
+class _JoinExec(_ExecBase):
+    """Join categories A–F.  A–C are serve-IR side-list lanes through the
+    shared serve programs plus ``sortedset`` algebra; D–F run
+    ``core.joins``."""
+
+    def run(self, q: JoinQ, batch):
+        if batch is not None:
+            raise ValueError("join plans take no batch")
+        if q.category in "ABC":
+            return self._grow(lambda cap, _: self._run_abc(q, cap))
+        return self._grow(lambda cap, cap_y: self._run_def(q, cap, cap_y))
+
+    @staticmethod
+    def _lane(vpos, p, c):
+        # ?X in subject position -> reverse neighbours (?S,P,O) = OP_COL;
+        # ?X in object position -> direct neighbours (S,P,?O) = OP_ROW
+        return (OP_COL, 0, p, c) if vpos == "s" else (OP_ROW, c, p, 0)
+
+    @staticmethod
+    def _idset(r, i) -> IdSet:
+        return IdSet(
+            torch.where(r.valid[i], r.ids[i], SENTINEL), r.valid[i], r.count[i],
+            torch.zeros((), dtype=torch.bool, device=r.valid.device),
+        )
+
+    def _run_abc(self, q, cap):
+        eng, cfg = self.engine, self.cfg
+        Pn = eng.store.n_preds
+        if q.category == "A":
+            lanes = [self._lane(q.vpos1, q.p1, q.c1), self._lane(q.vpos2, q.p2, q.c2)]
+        elif q.category == "B":
+            lanes = [self._lane(q.vpos1, q.p1, q.c1)] + [
+                self._lane(q.vpos2, pp, q.c2) for pp in range(1, Pn + 1)
+            ]
+        else:  # C
+            lanes = [self._lane(q.vpos1, pp, q.c1) for pp in range(1, Pn + 1)] + [
+                self._lane(q.vpos2, pp, q.c2) for pp in range(1, Pn + 1)
+            ]
+        arr = np.asarray(lanes, np.int64)
+        r = eng._run_lanes(cfg, cap, arr[:, 0], arr[:, 1], arr[:, 2], arr[:, 3])
+        self._overflow_guard(r)
+
+        if q.category == "A":
+            rr = sortedset.intersect(self._idset(r, 0), self._idset(r, 1))
+            return _host(rr.ids)[_host(rr.valid)]
+        if q.category == "B":
+            v2 = r.valid[1:]
+            b = IdSet(torch.where(v2, r.ids[1:], SENTINEL), v2,
+                      v2.sum(dim=-1, dtype=torch.int32),
+                      torch.zeros(Pn, dtype=torch.bool, device=v2.device))
+            rr = sortedset.intersect(self._idset(r, 0), b)
+            ids, valid = _host(rr.ids), _host(rr.valid)
+            return {pi + 1: ids[pi][valid[pi]] for pi in range(Pn) if valid[pi].any()}
+        ids = torch.where(r.valid, r.ids, SENTINEL)
+        u1 = sortedset.union_rows(ids[:Pn], r.valid[:Pn], cap, False)
+        u2 = sortedset.union_rows(ids[Pn:], r.valid[Pn:], cap, False)
+        if bool(u1.overflow | u2.overflow):
+            raise CapOverflow("side-list union truncated at cap")
+        rr = sortedset.intersect(u1, u2)
+        return _host(rr.ids)[_host(rr.valid)]
+
+    def _run_def(self, q, cap, cap_y):
+        m, f = self.engine.meta, self.engine.forest
+        if q.category == "D":
+            r = joins.join_d(m, f, q.p1, q.c1, q.vpos1, q.p2, q.vpos2,
+                             cap_x=cap, cap_y=cap_y)
+            self._overflow_guard(r)
+            return _pairs_to_dict(r)
+        if q.category == "E":
+            r = joins.join_e(m, f, q.p1, q.c1, q.vpos1, q.vpos2,
+                             cap_x=cap, cap_y=cap_y)
+        else:  # F
+            r = joins.join_f(m, f, q.c1, q.vpos1, q.vpos2, cap_x=cap, cap_y=cap_y)
+        self._overflow_guard(r)
+        return _pairs_to_dict_pred(r)
+
+
+def _pairs_to_dict(r: joins.JoinPairs) -> dict[int, np.ndarray]:
+    """{x: sorted y ids} over the valid X slots with a non-empty Y list."""
+    xs, xv, ys, yv = (_host(a) for a in (r.x_ids, r.x_valid, r.y_ids, r.y_valid))
+    return {
+        int(xs[i]): ys[i][yv[i]]
+        for i in range(xs.shape[0])
+        if xv[i] and yv[i].any()
+    }
+
+
+def _pairs_to_dict_pred(r: joins.JoinPairs) -> dict[int, dict[int, np.ndarray]]:
+    """{pred: {x: sorted y ids}} over the predicates with any binding."""
+    xs, xv, ys, yv = (_host(a) for a in (r.x_ids, r.x_valid, r.y_ids, r.y_valid))
+    out: dict[int, dict[int, np.ndarray]] = {}
+    for p in range(xs.shape[0]):
+        d = {
+            int(xs[p, i]): ys[p, i][yv[p, i]]
+            for i in range(xs.shape[1])
+            if xv[p, i] and yv[p, i].any()
+        }
+        if d:
+            out[p + 1] = d
+    return out
+
+
+class _ServeExec(_ExecBase):
+    """Raw serve-IR passthrough: ``plan(ServeBatch) -> ServeResult``."""
 
     def _coerce(self, batch) -> ServeBatch:
         if batch is None:
@@ -316,16 +539,10 @@ class _ServeExec:
 
         def fn(cap, _):
             r = self._call(batch, cap, q.unbounded)
-            if bool(r.overflow.any()):
-                raise CapOverflow(
-                    "result lane truncated at cap; CapPolicy(grow=True) doubles"
-                )
+            self._overflow_guard(r)
             return r
 
-        out, self.cap, self.cap_y = run_with_policy(
-            self.cfg.cap_policy, self.cap, self.cap_y, fn
-        )
-        return out
+        return self._grow(fn)
 
     def submit(self, q: ServeQ, batch) -> ServeResult:
         """Streamed dispatch: device ``ServeResult`` with NO host sync; the
@@ -335,17 +552,12 @@ class _ServeExec:
 
     def _call(self, qb: ServeBatch, cap: int, unbounded: bool) -> ServeResult:
         eng, cfg = self.engine, self.cfg
-        f = eng.forest
         if not unbounded:
-            r = eng._program(cfg, cap, 0, False)(f, qb)
+            r = eng._run_program(cfg, cap, qb)
+        elif cfg.use_pred_index and eng.store.pred_index is not None:
+            r = eng._run_program(cfg, cap, qb, u_width=eng._u_width(), with_index=True)
         else:
-            bi = eng.store.pred_index if cfg.use_pred_index else None
-            if bi is None:
-                r = eng._program(cfg, cap, max(eng.store.n_preds, 1), False)(f, qb, None)
-            else:
-                r = eng._program(cfg, cap, eng._u_width(), True)(
-                    f, qb, bi.select(cfg.pred_index_layout)[0]
-                )
+            r = eng._run_program(cfg, cap, qb, u_width=max(eng.store.n_preds, 1))
         if eng.device.type == "cuda":
             r.ready = torch.cuda.Event()
             r.ready.record(torch.cuda.current_stream(eng.device))
@@ -394,6 +606,7 @@ class Engine:
             raise ValueError(
                 f"config device {cfg.device!r} is not the engine's {self.device}"
             )
+        self._validate(q)
         key = (shape_key(q), cfg)
         ex = self._plan_cache.get(key)
         if ex is None:
@@ -401,10 +614,29 @@ class Engine:
                 self._stats["denied"] += 1
                 raise AdmissionError(f"plan-cache admission denied for {key[0]!r}")
             self._stats["misses"] += 1
-            ex = self._plan_cache[key] = _ServeExec(self, cfg)
+            ex = self._plan_cache[key] = self._build_executor(q, cfg)
         else:
             self._stats["hits"] += 1
         return Plan(q, cfg, ex)
+
+    @staticmethod
+    def _validate(q) -> None:
+        if isinstance(q, TriplePatternQ):
+            named = q.variables
+            if len(named) != len(set(named)):
+                raise ValueError(
+                    "a variable repeated inside one pattern needs join "
+                    f"semantics, which this package does not plan: {q!r}"
+                )
+
+    def _build_executor(self, q, cfg: ExecConfig):
+        if isinstance(q, TriplePatternQ):
+            return _PatternExec(self, cfg)
+        if isinstance(q, JoinQ):
+            return _JoinExec(self, cfg)
+        if isinstance(q, ServeQ):
+            return _ServeExec(self, cfg)
+        raise TypeError(f"not a Query of this package: {q!r}")
 
     def _u_width(self) -> int:
         return max(self.store.pred_index.meta.max_degree, 1)
@@ -429,3 +661,35 @@ class Engine:
         while n < b:
             n <<= 1
         return n
+
+    def _run_program(self, cfg: ExecConfig, cap: int, qb: ServeBatch, *,
+                     u_width: int = 0, with_index: bool = False) -> ServeResult:
+        """One uploaded batch through the cached program of its geometry."""
+        fn = self._program(cfg, cap, u_width, with_index)
+        if with_index:
+            return fn(self.forest, qb, self.store.pred_index.select(cfg.pred_index_layout)[0])
+        if u_width > 0:
+            return fn(self.forest, qb, None)
+        return fn(self.forest, qb)
+
+    def _run_lanes(
+        self, cfg: ExecConfig, cap: int, ops_a, s, p, o,
+        *, u_width: int = 0, with_index: bool = False,
+    ) -> ServeResult:
+        """Run host serve-IR lanes through the cached program of their
+        geometry: padded to a pow2 bucket with dead (op = -1) lanes, which
+        the serve step zeroes, and sliced back to the ``b`` real lanes.
+        Every pattern plan and join side list shares this dispatch."""
+        b = int(np.shape(ops_a)[0])
+        n = self._pad_b(b)
+
+        def pad(a, fill):
+            out = np.full(n, fill, np.int32)
+            out[:b] = np.asarray(a, np.int64)
+            return out
+
+        qb = upload_batch(
+            ServeBatch(pad(ops_a, -1), pad(s, 0), pad(p, 0), pad(o, 0)), self.device
+        )
+        r = self._run_program(cfg, cap, qb, u_width=u_width, with_index=with_index)
+        return ServeResult(**{name: getattr(r, name)[:b] for name in RESULT_FIELDS})

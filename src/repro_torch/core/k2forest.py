@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitvec, k2tree
-from repro_torch.core.k2tree import K2Meta, QueryResult
+from repro_torch.core.k2tree import K2Meta, PairResult, QueryResult
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,3 +139,49 @@ def scan_batch_mixed(meta: K2Meta, f: K2Forest, preds, keys, axes, cap: int) -> 
     from repro_torch.kernels import ops
 
     return QueryResult(*ops.k2_scan(meta, f, preds, keys, axes, cap=cap))
+
+
+def as_lanes(x, device, n: int | None = None) -> torch.Tensor:
+    """``x`` (a scalar, sequence, array or tensor) as a contiguous int32
+    lane tensor on ``device``; a scalar is broadcast to ``n`` lanes."""
+    t = torch.as_tensor(x, device=device).to(torch.int32)
+    if n is not None:
+        t = t.reshape(-1).expand(n) if t.numel() == 1 else t
+    return t.reshape(-1).contiguous()
+
+
+def first_lane(r):
+    """Lane 0 of a batched result tuple."""
+    return type(r)(*(a[0] for a in r))
+
+
+def range_scan_batch(meta: K2Meta, f: K2Forest, preds, cap: int) -> PairResult:
+    """Batched (?S, P, ?O) pair enumeration, one lane per predicate, pairs
+    in Morton order."""
+    from repro_torch.kernels import ops
+
+    return PairResult(*ops.k2_range(meta, f, as_lanes(preds, f.device), cap=cap))
+
+
+def scan_rebind_batch(
+    meta: K2Meta, f: K2Forest, preds1, keys1, axes1, preds2, axes2,
+    cap_x: int, cap_y: int,
+):
+    """Fused X-resolution + re-bind (join categories D and E).
+
+    Per query lane: scan (preds1, keys1, axes1) into a ``cap_x`` side list
+    of ?X ids, then re-bind each X into pattern 2 as (preds2, X, axes2)
+    scans of ``cap_y``.  Dead X slots scan key 0; callers mask their
+    ``y_valid`` rows with ``x_valid``.
+
+    Returns ``(x_ids, x_valid, x_count, x_overflow, y_ids, y_valid,
+    y_count, y_overflow)`` shaped ``(Q,cap_x) ×2, (Q,) ×2,
+    (Q,cap_x,cap_y) ×2, (Q,cap_x) ×2``, 0-based coordinates throughout.
+    """
+    from repro_torch.kernels import ops
+
+    d = f.device
+    return ops.k2_scan_rebind(
+        meta, f, as_lanes(preds1, d), as_lanes(keys1, d), as_lanes(axes1, d),
+        as_lanes(preds2, d), as_lanes(axes2, d), cap_x=cap_x, cap_y=cap_y,
+    )

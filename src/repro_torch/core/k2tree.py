@@ -160,6 +160,16 @@ class QueryResult(NamedTuple):
     overflow: torch.Tensor  # bool[...]    True if a frontier exceeded cap
 
 
+class PairResult(NamedTuple):
+    """Fixed-shape (?S, P, ?O) result: Morton-ordered pair coordinates."""
+
+    rows: torch.Tensor  # int32[..., cap]  (0 where ~valid)
+    cols: torch.Tensor  # int32[..., cap]
+    valid: torch.Tensor  # bool[..., cap]
+    count: torch.Tensor  # int32[...]
+    overflow: torch.Tensor  # bool[...]
+
+
 def compact(valid: torch.Tensor, cap: int, *arrays: torch.Tensor):
     """Stable per-row compaction (B, N) -> (B, cap), valid lanes first.
 

@@ -14,8 +14,7 @@ Two on-device layouts, selected by ``PredIndexMeta.layout``:
     ``rows_per_block`` rows plus ``deg_width``-bit packed degrees.  Decoded
     on the device by the ``pred_gather_dac`` kernel.
   * ``"fixed"`` — byte-packed lists at ``bytes_per_pred`` ∈ {1, 2, 4} under
-    int32 CSR offsets.  Only its plain version exists so far: on a CUDA
-    tensor it raises until its kernel is ported.
+    int32 CSR offsets, read on the device by the ``pred_gather`` kernel.
 """
 
 from __future__ import annotations

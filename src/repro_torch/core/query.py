@@ -1,8 +1,13 @@
-"""The compiled-plan query API: ``ServeQ`` → ``Engine.compile(ExecConfig)`` → ``Plan``.
+"""The compiled-plan query API: ``Query`` → ``Engine.compile(ExecConfig)`` → ``Plan``.
 
 This module is the one place execution knobs enter the system.  A
 :class:`ExecConfig` is a frozen, hashable dataclass that keys the plan and
 program caches; it resolves without reading the environment.
+
+Query kinds: ``TriplePatternQ(s, p, o)`` (any of the paper's eight triple
+patterns; ints bind a position, ``"?x"`` / ``None`` free it),
+``JoinQ(category, vpos1, vpos2, p1, c1, p2, c2)`` (join categories A–F)
+and ``ServeQ(unbounded)`` (the raw serve-IR passthrough).
 
 Cap policy: fixed result capacities make every batch one set of kernel
 launches, and truncation is never silent.  On overflow ``Plan.__call__``
@@ -13,10 +18,18 @@ streaming hook — never grows and leaves the overflow bits to its caller.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
+Term = Any  # int (bound 1-based id) | str "?name" | None (anonymous variable)
+
 PRED_INDEX_LAYOUTS = ("dac", "fixed")
+
+
+def is_var(t: Term) -> bool:
+    """Variables are ``None`` (anonymous) or ``"?name"`` strings."""
+    return t is None or isinstance(t, str)
 
 
 class CapOverflow(RuntimeError):
@@ -63,8 +76,9 @@ class ExecConfig:
     """Frozen, hashable execution config — the only way knobs reach a plan.
 
     ``cap`` / ``cap_y``
-        Result capacities (``cap_y`` doubles with ``cap`` and is kept for
-        the join plans of later slices).
+        Result capacities: ``cap`` for scan, side-list and X lanes,
+        ``cap_y`` for the re-bind (Y) lanes of join categories D–F; both
+        double together under the cap policy.
     ``cap_policy``
         Overflow handling; see :class:`CapPolicy`.
     ``use_pred_index``
@@ -73,7 +87,8 @@ class ExecConfig:
     ``u_width_quantile``
         Only ``1.0`` (lane width = ``max_degree``) in this package so far.
     ``pred_index_layout``
-        "dac" (default) or "fixed" (plain version only; raises on CUDA).
+        On-device layout of the SP/OP index: "dac" (default) or "fixed"
+        (byte-packed); results are identical across layouts.
     ``device``
         The device plans run on; must be the engine's.
     """
@@ -120,6 +135,62 @@ def run_with_policy(policy: CapPolicy, cap: int, cap_y: int, fn):
 
 
 @dataclasses.dataclass(frozen=True)
+class TriplePatternQ:
+    """One triple pattern: ints bind a position, ``"?x"``/``None`` free it."""
+
+    s: Term = None
+    p: Term = None
+    o: Term = None
+
+    @property
+    def bound(self) -> tuple[bool, bool, bool]:
+        return (not is_var(self.s), not is_var(self.p), not is_var(self.o))
+
+    @property
+    def variables(self) -> tuple[str, ...]:
+        return tuple(t for t in (self.s, self.p, self.o) if isinstance(t, str))
+
+
+JOIN_CATEGORIES = "ABCDEF"
+# which of (p1, c1, p2, c2) each category requires (vpos1/vpos2 always)
+_JOIN_FIELDS = {
+    "A": ("p1", "c1", "p2", "c2"),
+    "B": ("p1", "c1", "c2"),
+    "C": ("c1", "c2"),
+    "D": ("p1", "c1", "p2"),
+    "E": ("p1", "c1"),
+    "F": ("c1",),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class JoinQ:
+    """A paper join category A–F (two patterns sharing variable ?X).
+
+    ``vpos1``/``vpos2`` name the position ("s"/"o") of ?X in each pattern;
+    ``p*``/``c*`` are the bound predicate / non-join constant of each side
+    (which ones are required depends on the category: ``_JOIN_FIELDS``).
+    """
+
+    category: str
+    vpos1: str
+    vpos2: str
+    p1: int | None = None
+    c1: int | None = None
+    p2: int | None = None
+    c2: int | None = None
+
+    def __post_init__(self):
+        if self.category not in JOIN_CATEGORIES:
+            raise ValueError(f"unknown join category {self.category!r}")
+        if self.vpos1 not in ("s", "o") or self.vpos2 not in ("s", "o"):
+            raise ValueError("vpos1/vpos2 must be 's' or 'o'")
+        for fld in _JOIN_FIELDS[self.category]:
+            if getattr(self, fld) is None:
+                raise ValueError(f"join category {self.category} requires {fld}=")
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeQ:
     """Raw serve-IR passthrough: ``Plan(batch)`` takes a ``ServeBatch``.
 
@@ -130,7 +201,12 @@ class ServeQ:
 
 
 def shape_key(query):
-    """The plan-cache key component: what selects a program, not its inputs."""
+    """The plan-cache key component: what selects a program, not its inputs
+    (the constant ids are runtime inputs)."""
+    if isinstance(query, TriplePatternQ):
+        return ("pattern", query.bound)
+    if isinstance(query, JoinQ):
+        return ("join", query.category, query.vpos1, query.vpos2)
     if isinstance(query, ServeQ):
         return ("serve", query.unbounded)
     raise TypeError(f"not a Query of this package: {query!r}")
@@ -151,12 +227,16 @@ class Plan:
         self._executor = executor
 
     def __call__(self, batch=None):
-        """Run with the config's :class:`CapPolicy` (syncs on overflow)."""
+        """Run with the config's :class:`CapPolicy` (syncs on overflow).
+
+        ``batch``: ``None`` runs the query's own constants; a dict of
+        bound position -> id array re-runs a ``TriplePatternQ`` shape over
+        many constants; a ``ServeBatch`` feeds a ``ServeQ``."""
         return self._executor.run(self.query, batch)
 
     def submit(self, batch=None):
         """Asynchronous dispatch: launch and return DEVICE results at once —
-        no host sync, no overflow guard, no cap growth."""
+        no host sync, no overflow guard, no cap growth (``ServeQ`` only)."""
         return self._executor.submit(self.query, batch)
 
     @property

@@ -24,6 +24,9 @@ SOURCES = {
     "k2_scan": "k2_scan.cu",
     "k2_check": "k2_check.cu",
     "pred_gather_dac": "pred_gather_dac.cu",
+    "pred_gather": "pred_gather.cu",
+    "k2_range": "k2_range.cu",
+    "k2_scan_rebind": "k2_scan_rebind.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

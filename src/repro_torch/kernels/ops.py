@@ -18,13 +18,17 @@ import torch
 from repro_torch.core.k2tree import K2Meta
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"k2_scan": 0, "k2_check": 0, "pred_gather_dac": 0}
+LAUNCHES = {
+    "k2_scan": 0, "k2_check": 0, "pred_gather_dac": 0,
+    "pred_gather": 0, "k2_range": 0, "k2_scan_rebind": 0,
+}
 _count_lock = threading.Lock()
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IA = ctypes.POINTER(ctypes.c_int)
+_FOREST = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _IA, _IA, _I]  # _forest_args
 _SIGNATURES = {
     "k2_check": ("k2_check_launch", [
         _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _IA, _IA, _I,
@@ -37,6 +41,16 @@ _SIGNATURES = {
     "pred_gather_dac": ("pred_gather_dac_launch", [
         _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _IA, _IA, _I, _I,
         _I, _P, _P, _P, _P, _P, _I,
+    ]),
+    "pred_gather": ("pred_gather_launch", [
+        _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+    ]),
+    "k2_range": ("k2_range_launch", [
+        _P, _I, *_FOREST, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+    ]),
+    "k2_scan_rebind": ("k2_scan_rebind_launch", [
+        _P, _P, _P, _P, _P, _I, *_FOREST, _I, _I, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
     ]),
 }
 
@@ -120,6 +134,17 @@ def _forest_tensors(f) -> dict:
                 ones_before=f.ones_before, level_start=f.level_start)
 
 
+def _outputs(dev: torch.device, shape: tuple):
+    """(ids int32, valid bool) of ``shape`` and (count int32, overflow bool)
+    of ``shape[:-1]``: the output block of a scan-like kernel."""
+    return (
+        torch.empty(shape, dtype=torch.int32, device=dev),
+        torch.empty(shape, dtype=torch.bool, device=dev),
+        torch.empty(shape[:-1], dtype=torch.int32, device=dev),
+        torch.empty(shape[:-1], dtype=torch.bool, device=dev),
+    )
+
+
 def k2_check(meta: K2Meta, f, preds, rows, cols) -> torch.Tensor:
     """Batched (S, P, O) probe over the forest -> bool[Q] (``csrc/k2_check.cu``)."""
     dev = preds.device
@@ -152,10 +177,7 @@ def k2_scan(meta: K2Meta, f, preds, keys, axes, *, cap: int):
             meta, f.t_words, f.t_rank, f.l_words, f.ones_before,
             f.level_start, preds, keys, axes, cap=cap,
         )
-    ids = torch.empty((q, cap), dtype=torch.int32, device=dev)
-    valid = torch.empty((q, cap), dtype=torch.bool, device=dev)
-    count = torch.empty(q, dtype=torch.int32, device=dev)
-    overflow = torch.empty(q, dtype=torch.bool, device=dev)
+    ids, valid, count, overflow = _outputs(dev, (q, cap))
     if q:
         scratch = torch.empty((4, q, cap), dtype=torch.int32, device=dev)
         _launch("k2_scan", dev, preds.data_ptr(), keys.data_ptr(),
@@ -184,10 +206,7 @@ def pred_gather_dac(pmeta, index, rows, *, cap: int):
             flag_word_start=pmeta.flag_word_start, deg_width=pmeta.deg_width,
             rows_per_block=pmeta.rows_per_block, cap=cap,
         )
-    ids = torch.empty((q, cap), dtype=torch.int32, device=dev)
-    valid = torch.empty((q, cap), dtype=torch.bool, device=dev)
-    count = torch.empty(q, dtype=torch.int32, device=dev)
-    overflow = torch.empty(q, dtype=torch.bool, device=dev)
+    ids, valid, count, overflow = _outputs(dev, (q, cap))
     if q:
         _launch("pred_gather_dac", dev, rows.data_ptr(), q,
                 index.offsets.data_ptr(), index.offsets.shape[0],
@@ -202,15 +221,86 @@ def pred_gather_dac(pmeta, index, rows, *, cap: int):
 
 
 def pred_gather(pmeta, index, rows, *, cap: int):
-    """Fixed-layout candidate gather: plain version only, CPU only."""
-    if rows.device.type != "cpu":
-        raise NotImplementedError(
-            "pred_index_layout='fixed' has no CUDA kernel yet (ROADMAP Queue 2, "
-            "kernels/pred_gather.py::pred_gather); use the default 'dac' layout"
+    """Fixed-layout candidate-predicate gather -> (ids, valid, count,
+    overflow) (``csrc/pred_gather.cu``).  ``rows`` must be clipped to the
+    index."""
+    dev = rows.device
+    _check_tensors(dev, rows=rows, offsets=index.offsets, words=index.words)
+    q = _check_lanes(rows)
+    if cap < 1:
+        raise ValueError(f"cap must be >= 1, got {cap}")
+    if pmeta.layout != "fixed":
+        raise ValueError(f"index layout is {pmeta.layout!r}, not 'fixed'")
+    if pmeta.bytes_per_pred not in (1, 2, 4):
+        raise ValueError(f"bytes_per_pred must be 1, 2 or 4, got {pmeta.bytes_per_pred}")
+    if index.offsets.dim() != 1 or index.offsets.shape[0] < 2 or index.words.dim() != 1:
+        raise ValueError("offsets must be 1-D CSR pointers of >= 2 entries, words 1-D")
+    if dev.type == "cpu":
+        return ref.pred_gather_ref(
+            rows, index.offsets, index.words,
+            bytes_per_pred=pmeta.bytes_per_pred, cap=cap,
         )
-    _check_tensors(rows.device, rows=rows, offsets=index.offsets, words=index.words)
-    _check_lanes(rows)
-    return ref.pred_gather_ref(
-        rows, index.offsets, index.words,
-        bytes_per_pred=pmeta.bytes_per_pred, cap=cap,
-    )
+    ids, valid, count, overflow = _outputs(dev, (q, cap))
+    if q:
+        _launch("pred_gather", dev, rows.data_ptr(), q, index.offsets.data_ptr(),
+                index.offsets.shape[0], index.words.data_ptr(),
+                index.words.shape[0], pmeta.bytes_per_pred, cap,
+                ids.data_ptr(), valid.data_ptr(), count.data_ptr(),
+                overflow.data_ptr())
+    return ids, valid, count, overflow
+
+
+def k2_range(meta: K2Meta, f, preds, *, cap: int):
+    """Batched (?S, P, ?O) pair enumeration -> (rows, cols, valid, count,
+    overflow) (``csrc/k2_range.cu``)."""
+    dev = preds.device
+    _check_tensors(dev, preds=preds, **_forest_tensors(f))
+    q = _check_lanes(preds)
+    _check_forest(meta, f)
+    if cap < 1:
+        raise ValueError(f"cap must be >= 1, got {cap}")
+    if dev.type == "cpu":
+        return ref.k2_range_ref(
+            meta, f.t_words, f.t_rank, f.l_words, f.ones_before,
+            f.level_start, preds, cap=cap,
+        )
+    rows = torch.empty((q, cap), dtype=torch.int32, device=dev)
+    cols, valid, count, overflow = _outputs(dev, (q, cap))
+    if q:
+        scratch = torch.empty((6, q, cap), dtype=torch.int32, device=dev)
+        _launch("k2_range", dev, preds.data_ptr(), q, *_forest_args(meta, f),
+                cap, scratch.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+                valid.data_ptr(), count.data_ptr(), overflow.data_ptr())
+    return rows, cols, valid, count, overflow
+
+
+def k2_scan_rebind(meta: K2Meta, f, preds1, keys1, axes1, preds2, axes2, *,
+                   cap_x: int, cap_y: int):
+    """Scan -> re-bind (join categories D, E) -> ``(x_ids, x_valid, x_count,
+    x_overflow, y_ids, y_valid, y_count, y_overflow)`` shaped ``(Q,cap_x)
+    ×2, (Q,) ×2, (Q,cap_x,cap_y) ×2, (Q,cap_x) ×2``
+    (``csrc/k2_scan_rebind.cu``, one launch of two queued kernels)."""
+    dev = preds1.device
+    _check_tensors(dev, preds1=preds1, keys1=keys1, axes1=axes1, preds2=preds2,
+                   axes2=axes2, **_forest_tensors(f))
+    q = _check_lanes(preds1, keys1, axes1, preds2, axes2)
+    _check_forest(meta, f)
+    if cap_x < 1 or cap_y < 1:
+        raise ValueError(f"cap_x and cap_y must be >= 1, got {cap_x}, {cap_y}")
+    if dev.type == "cpu":
+        return ref.k2_scan_rebind_ref(
+            meta, f.t_words, f.t_rank, f.l_words, f.ones_before,
+            f.level_start, preds1, keys1, axes1, preds2, axes2,
+            cap_x=cap_x, cap_y=cap_y,
+        )
+    x = _outputs(dev, (q, cap_x))
+    y = _outputs(dev, (q, cap_x, cap_y))
+    if q:
+        scratch_x = torch.empty((4, q, cap_x), dtype=torch.int32, device=dev)
+        scratch_y = torch.empty((4, q * cap_x, cap_y), dtype=torch.int32, device=dev)
+        _launch("k2_scan_rebind", dev, preds1.data_ptr(), keys1.data_ptr(),
+                axes1.data_ptr(), preds2.data_ptr(), axes2.data_ptr(), q,
+                *_forest_args(meta, f), cap_x, cap_y, scratch_x.data_ptr(),
+                scratch_y.data_ptr(), *(t.data_ptr() for t in x + y))
+    return x + y
+

@@ -90,6 +90,83 @@ def k2_scan_ref(
     return ids, valid, count, overflow | ovf
 
 
+def k2_range_ref(
+    meta: K2Meta, t_words, t_rank, l_words, ones_before, level_start,
+    preds, *, cap: int,
+):
+    """Batched (?S, P, ?O) pair enumeration -> (rows, cols, valid, count,
+    overflow).
+
+    The frontier is ``(pos, rbase, cbase)``; each level expands by the full
+    radix ``k²`` and stable-compacts into ``cap``, so pairs come out in
+    Morton order.  Level 0 bit-tests every root child before compacting:
+    overflow latches only when more than ``cap`` root children are set.
+    """
+    H = meta.n_levels
+    q = preds.shape[0]
+    dev = preds.device
+    p = row_index(preds.to(torch.int32), t_words.shape[0])[:, None]
+
+    k0, r0, sub0 = meta.ks[0], meta.radices[0], meta.subsides[0]
+    d0 = torch.arange(r0, dtype=torch.int32, device=dev)[None, :].repeat(q, 1)
+    bit0 = get_bit_2d(l_words if H == 1 else t_words, p, d0)
+    valid, _, overflow, (pos, rbase, cbase) = compact(
+        bit0 == 1, cap, d0, (d0 // k0) * sub0, (d0 % k0) * sub0
+    )
+    pos = torch.where(valid, pos, 0)
+
+    for lvl in range(H - 1):
+        k, r, sub = meta.ks[lvl + 1], meta.radices[lvl + 1], meta.subsides[lvl + 1]
+        j = rank1_2d(t_words, t_rank, p, pos) - ones_before[p, lvl]
+        child_base0 = level_start[p, lvl + 1] + j * r
+        d = torch.arange(r, dtype=torch.int32, device=dev)[None, None, :]
+        cpos = child_base0[:, :, None] + d
+        crb = rbase[:, :, None] + (d // k) * sub
+        ccb = cbase[:, :, None] + (d % k) * sub
+        words = l_words if lvl + 1 == H - 1 else t_words
+        cbit = get_bit_2d(words, p[:, :, None], torch.where(valid[:, :, None], cpos, 0))
+        cvalid = valid[:, :, None] & (cbit == 1)
+        valid, _, ovf, (pos, rbase, cbase) = compact(
+            cvalid.reshape(q, -1), cap, cpos.reshape(q, -1),
+            crb.reshape(q, -1), ccb.reshape(q, -1),
+        )
+        overflow = overflow | ovf
+        pos = torch.where(valid, pos, 0)
+
+    valid, count, ovf, (rows, cols) = compact(valid, cap, rbase, cbase)
+    return rows, cols, valid, count, overflow | ovf
+
+
+def k2_scan_rebind_ref(
+    meta: K2Meta, t_words, t_rank, l_words, ones_before, level_start,
+    preds1, keys1, axes1, preds2, axes2, *, cap_x: int, cap_y: int,
+):
+    """Scan -> re-bind: ``k2_scan_ref`` at ``cap_x``, then every X slot
+    scanned again as (preds2[q], X, axes2[q]) at ``cap_y``.
+
+    A dead X slot scans key 0 and its Y results are returned as computed
+    (the caller masks them).  Returns ``(x_ids, x_valid, x_count,
+    x_overflow, y_ids, y_valid, y_count, y_overflow)`` shaped
+    ``(Q,cap_x) ×2, (Q,) ×2, (Q,cap_x,cap_y) ×2, (Q,cap_x) ×2``.
+    """
+    arenas = (t_words, t_rank, l_words, ones_before, level_start)
+    q = preds1.shape[0]
+    x_ids, x_valid, x_count, x_ovf = k2_scan_ref(
+        meta, *arenas, preds1, keys1, axes1, cap=cap_x
+    )
+    keys2 = torch.where(x_valid, x_ids, 0).reshape(q * cap_x)
+    p2 = preds2[:, None].expand(q, cap_x).reshape(q * cap_x)
+    a2 = axes2[:, None].expand(q, cap_x).reshape(q * cap_x)
+    y_ids, y_valid, y_count, y_ovf = k2_scan_ref(
+        meta, *arenas, p2, keys2, a2, cap=cap_y
+    )
+    return (
+        x_ids, x_valid, x_count, x_ovf,
+        y_ids.reshape(q, cap_x, cap_y), y_valid.reshape(q, cap_x, cap_y),
+        y_count.reshape(q, cap_x), y_ovf.reshape(q, cap_x),
+    )
+
+
 def _byte_at(words: torch.Tensor, bidx: torch.Tensor) -> torch.Tensor:
     w = u32(words[(bidx >> 2).clamp(0, words.shape[0] - 1).to(torch.int64)])
     return ((w >> ((bidx & 3) * 8).to(torch.int64)) & 0xFF).to(torch.int32)

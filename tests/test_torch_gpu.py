@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from repro_torch.core import engine as eng, k2triples
-from repro_torch.core.query import ExecConfig, ServeQ
+from repro_torch.core.query import ExecConfig, JoinQ, ServeQ, TriplePatternQ
 from repro_torch.data import rdf
 from repro_torch.kernels import ops, ref
 
@@ -115,3 +115,100 @@ def test_serve_on_card_matches_cpu(store, cuda):
         ServeQ(), ExecConfig(cap=8, device="cpu"))(batch))
     for name in eng.RESULT_FIELDS:
         assert np.array_equal(getattr(r_gpu, name), getattr(r_cpu, name)), name
+
+
+def _wild_preds(rng, n, q, dev):
+    fixed = np.array([-1, n, -n - 3, 2 * n + 1], np.int32)
+    rest = rng.integers(0, n, q - fixed.size).astype(np.int32)
+    return torch.from_numpy(np.concatenate([fixed, rest])).to(dev)
+
+
+@pytest.mark.parametrize("cap", [2, 16, 4096])
+def test_k2_range_kernel(store, cap, cuda):
+    st, _ = store
+    f, meta = st.forest, st.meta
+    preds = _wild_preds(np.random.default_rng(cap), st.n_preds, 24, cuda)
+    n0 = ops.LAUNCHES["k2_range"]
+    got = ops.k2_range(meta, f, preds, cap=cap)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["k2_range"] == n0 + 1
+    want = ref.k2_range_ref(meta, f.t_words, f.t_rank, f.l_words, f.ones_before,
+                            f.level_start, preds, cap=cap)
+    _equal(got, want)
+    if cap == 2:
+        assert got[4].any()  # more than two root children are set somewhere
+    if cap == 4096:
+        assert not got[4].any()
+
+
+@pytest.mark.parametrize("cap_x,cap_y", [(3, 2), (32, 8)])
+def test_k2_scan_rebind_kernel(store, cap_x, cap_y, cuda):
+    st, ds = store
+    f, meta = st.forest, st.meta
+    rng = np.random.default_rng(cap_x)
+    q = 40
+    rows = ds.ids[rng.integers(0, ds.n_triples, q)]
+    axes1 = _lanes(rng, q, 0, 2, cuda)
+    preds1 = torch.from_numpy((rows[:, 1] - 1).astype(np.int32)).to(cuda)
+    keys1 = torch.from_numpy(np.where(
+        axes1.cpu().numpy() == 0, rows[:, 0] - 1, rows[:, 2] - 1).astype(np.int32)).to(cuda)
+    keys1[::5] = _lanes(rng, keys1[::5].shape[0], -9, meta.side + 9, cuda)
+    preds2 = _wild_preds(rng, st.n_preds, q, cuda)
+    axes2 = _lanes(rng, q, 0, 2, cuda)
+    n0 = ops.LAUNCHES["k2_scan_rebind"]
+    got = ops.k2_scan_rebind(meta, f, preds1, keys1, axes1, preds2, axes2,
+                             cap_x=cap_x, cap_y=cap_y)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["k2_scan_rebind"] == n0 + 1
+    want = ref.k2_scan_rebind_ref(meta, f.t_words, f.t_rank, f.l_words,
+                                  f.ones_before, f.level_start, preds1, keys1,
+                                  axes1, preds2, axes2, cap_x=cap_x, cap_y=cap_y)
+    _equal(got, want)
+    assert (~got[1]).any()  # dead X slots are compared too
+
+
+@pytest.mark.parametrize("cap", [1, 3, 40])
+def test_pred_gather_kernel(store, cap, cuda):
+    st, _ = store
+    dev, pmeta = st.pred_index.select("fixed")
+    assert pmeta.bytes_per_pred == (1 if st.n_preds < 256 else 2)
+    rng = np.random.default_rng(5)
+    rows = _lanes(rng, 500, 0, st.n_subjects + st.n_objects, cuda)
+    n0 = ops.LAUNCHES["pred_gather"]
+    got = ops.pred_gather(pmeta, dev, rows, cap=cap)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["pred_gather"] == n0 + 1
+    want = ref.pred_gather_ref(rows, dev.offsets, dev.words,
+                               bytes_per_pred=pmeta.bytes_per_pred, cap=cap)
+    _equal(got, want)
+
+
+def test_patterns_and_joins_on_card_match_cpu(store, cuda):
+    st, ds = store
+    gpu = eng.Engine(st, device=cuda)
+    cpu = eng.Engine(st.to("cpu"), device="cpu")
+    s, p, o = (int(v) for v in ds.ids[17])
+    queries = [
+        TriplePatternQ(s, "?p", "?o"), TriplePatternQ("?s", "?p", o),
+        TriplePatternQ(s, "?p", o), TriplePatternQ("?s", p, "?o"),
+        TriplePatternQ("?s", "?p", "?o"),
+        JoinQ("D", "s", "s", p1=p, c1=o, p2=p), JoinQ("E", "s", "s", p1=p, c1=o),
+        JoinQ("F", "s", "o", c1=o), JoinQ("C", "s", "o", c1=o, c2=s),
+    ]
+    for layout in ("dac", "fixed"):
+        for q in queries:
+            kw = dict(cap=1024, cap_y=64, pred_index_layout=layout)
+            a = gpu.compile(q, ExecConfig(device="cuda", **kw))()
+            b = cpu.compile(q, ExecConfig(device="cpu", **kw))()
+            _same_answer(a, b)
+
+
+def _same_answer(a, b):
+    if isinstance(b, dict):
+        assert list(a) == list(b)
+        for k in b:
+            _same_answer(a[k], b[k])
+    elif isinstance(b, bool):
+        assert a == b
+    else:
+        assert a.dtype == b.dtype and np.array_equal(a, b)

@@ -81,9 +81,24 @@ def test_exec_config_reads_no_environment(monkeypatch):
         ExecConfig(pred_index_layout="csr")
 
 
-def test_fixed_layout_has_no_cuda_kernel_yet():
-    from repro_torch.kernels import ops
+def test_fixed_layout_wrapper_checks_inputs_and_runs_plain_on_cpu():
+    from repro_torch.kernels import ops, ref
 
-    rows = torch.zeros(2, dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        ops.pred_gather(None, None, rows, cap=4)
+    ids = np.array([[1, 1, 1], [1, 2, 2], [2, 2, 1], [2, 3, 2]], np.int64)
+    st = k2triples.from_id_triples(ids, device="cpu", n_so=0, n_subjects=2,
+                                   n_objects=2, n_preds=3)
+    dev, pmeta = st.pred_index.select("fixed")
+    rows = torch.arange(4, dtype=torch.int32)
+    n0 = ops.LAUNCHES["pred_gather"]
+    got = ops.pred_gather(pmeta, dev, rows, cap=2)
+    want = ref.pred_gather_ref(rows, dev.offsets, dev.words, bytes_per_pred=1, cap=2)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[0][0].tolist() == [0, 1] and ops.LAUNCHES["pred_gather"] == n0
+    with pytest.raises(TypeError):
+        ops.pred_gather(pmeta, dev, rows.to(torch.int64), cap=2)
+    with pytest.raises(ValueError):
+        ops.pred_gather(pmeta, dev, rows, cap=0)
+    with pytest.raises(ValueError):
+        ops.pred_gather(st.pred_index.meta, dev, rows, cap=2)  # a DAC meta
+    with pytest.raises(ValueError):
+        ops.pred_gather(pmeta, dev, rows.to("meta"), cap=2)  # not the index's device

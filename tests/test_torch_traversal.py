@@ -171,3 +171,105 @@ def test_wrappers_reject_bad_inputs():
         ops.k2_scan(meta, f, z, z, z, cap=0)
     with pytest.raises(ValueError):
         ops.k2_check(meta, f, torch.zeros((4, 2), dtype=torch.int32)[:, 0], z, z)
+
+
+def _same_tuple(got, want, names):
+    assert len(got) == len(want) == len(names)
+    for g, w, name in zip(got, want, names):
+        w = np.asarray(w)
+        g = g.numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert np.array_equal(g, w), name
+
+
+PAIR_FIELDS = ("rows", "cols", "valid", "count", "overflow")
+REBIND_FIELDS = ("x_ids", "x_valid", "x_count", "x_overflow",
+                 "y_ids", "y_valid", "y_count", "y_overflow")
+
+
+def _wild_preds(rng, n, q):
+    """In-range predicates plus 0 - 1, P and far outside on both sides."""
+    fixed = np.array([-1, n, -n - 3, 2 * n + 1], np.int32)
+    return np.concatenate([fixed, _lanes(rng, q - fixed.size, 0, n)])
+
+
+@pytest.mark.parametrize("name,cap", [("preds16", 8), ("empty_preds", 200)])
+def test_range_matches_jax(name, cap):
+    st, jst, _ = build_pair(name)
+    preds = _wild_preds(np.random.default_rng(12), st.n_preds, 8)
+    got = k2forest.range_scan_batch(st.meta, st.forest, _t(preds), cap)
+    want = jk2forest.range_scan_batch(jst.meta, jst.forest, jnp.asarray(preds), cap, JNP)
+    _same_tuple(got, want, PAIR_FIELDS)
+    assert bool(got.overflow.any()) == (cap == 8)
+    assert (got.count > 0).any()
+
+
+def test_range_level0_bit_test_before_compaction():
+    """cap 4 below the root radix 16, two cells in root children 0 and 15:
+    both are found and nothing overflows (the fixed level-0 semantics)."""
+    from repro_torch.core import k2tree
+
+    meta = k2tree.K2Meta(k2tree.hybrid_ks(900))
+    assert meta.radices[0] == 16
+    f, _ = k2forest.build_forest([(np.array([3, 870]), np.array([5, 2]))], meta, "cpu")
+    r = k2forest.first_lane(k2forest.range_scan_batch(meta, f, [0], 4))
+    assert int(r.count) == 2 and not bool(r.overflow)
+    assert r.rows[r.valid].tolist() == [3, 870] and r.cols[r.valid].tolist() == [5, 2]
+
+
+def test_scan_rebind_matches_jax():
+    """cap_x 3 and cap_y 2 overflow both phases; short X lists leave dead
+    X slots, whose Y rows are the real scans of key 0."""
+    cap_x, cap_y = 3, 2
+    st, jst, ids = build_pair("preds16")
+    rng = np.random.default_rng(13)
+    preds1, keys1, axes1 = _keys(rng, st, ids, 6, wild=True)
+    preds2 = _wild_preds(rng, st.n_preds, 6)
+    axes2 = _lanes(rng, 6, 0, 2)
+    args = (preds1, keys1, axes1, preds2, axes2)
+    got = k2forest.scan_rebind_batch(st.meta, st.forest, *map(_t, args), cap_x, cap_y)
+    want = jk2forest.scan_rebind_batch(
+        jst.meta, jst.forest, *map(jnp.asarray, args), cap_x, cap_y, JNP,
+    )
+    _same_tuple(got, want, REBIND_FIELDS)
+    x_valid = got[1]
+    assert (~x_valid).any() and x_valid.any() and got[3].any() and got[7].any()
+    q, i = (int(v) for v in (~x_valid).nonzero()[0])
+    key0 = k2forest.scan_batch_mixed(
+        st.meta, st.forest, _t(preds2[q:q + 1]), _t([0]), _t(axes2[q:q + 1]), cap_y
+    )
+    for y, k0 in zip(got[4:], key0):
+        assert torch.equal(y[q, i], k0[0])
+
+
+def test_slice2_pallas_kernels_as_reference():
+    """The TPU kernels themselves (interpret mode) against the plain versions:
+    ``k2_range`` (Q=8), ``k2_scan_rebind`` (Q=3, dead X slots) and the
+    fixed-layout ``pred_gather`` at 1 and 2 bytes per predicate."""
+    st, jst, ids = build_pair("preds16")
+    rng = np.random.default_rng(14)
+    preds = _wild_preds(rng, st.n_preds, 8)
+    _same_tuple(
+        k2forest.range_scan_batch(st.meta, st.forest, _t(preds), 16),
+        jk2forest.range_scan_batch(jst.meta, jst.forest, jnp.asarray(preds), 16, PALLAS),
+        PAIR_FIELDS,
+    )
+    preds1, keys1, axes1 = _keys(rng, st, ids, 3, wild=True)
+    args = (preds1, keys1, axes1, _wild_preds(rng, st.n_preds, 4)[1:], _lanes(rng, 3, 0, 2))
+    got = k2forest.scan_rebind_batch(st.meta, st.forest, *map(_t, args), 8, 4)
+    _same_tuple(got, jk2forest.scan_rebind_batch(
+        jst.meta, jst.forest, *map(jnp.asarray, args), 8, 4, PALLAS,
+    ), REBIND_FIELDS)
+    assert (~got[1]).any()
+    for name, bpp in (("preds16", 1), ("preds600", 2)):
+        st, jst, _ = build_pair(name)
+        dev, pmeta = st.pred_index.select("fixed")
+        jdev, jpmeta = jst.pred_index.select("fixed")
+        assert pmeta.bytes_per_pred == bpp
+        rows = _lanes(rng, 16, 0, st.n_subjects + st.n_objects)
+        for cap in (1, pmeta.max_degree):
+            _same_tuple(
+                predindex.gather_batch(pmeta, dev, _t(rows), cap),
+                jpredindex.gather_batch(jpmeta, jdev, jnp.asarray(rows), cap, PALLAS),
+                ("ids", "valid", "count", "overflow"),
+            )
