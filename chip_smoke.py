@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero before the result line):
 
 1. refuse to run without a CUDA card or outside a checkout; print the card;
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. build the nine CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` each, in parallel) and print ptxas registers / smem / spills;
 3. hold each kernel against its plain torch version on the card, bit for
    bit: a 600-predicate store (two-level DAC, 2-byte predicate ids), a
@@ -30,11 +30,32 @@ Phases (any failure exits non-zero before the result line):
    cap_y 256); every answer must match the numpy oracle, every kernel of
    the path must have launched, and each shape's and category's host-clock
    latency is printed;
-6. time each kernel at the main-path shapes (CUDA events around calls
-   enqueued behind a sleep kernel, so host launch overhead is excluded;
-   the wrapper's back-to-back time is reported beside it), time its plain
-   version back to back, and print the ``{"kernels": [...]}`` line, the card's
-   name and power limit, and the final ``{"ok": true, ...}`` line.
+6. time each path kernel at the main-path shapes (CUDA events around
+   calls enqueued behind a sleep kernel, so host launch overhead is
+   excluded; the wrapper's back-to-back time is reported beside it) and
+   its plain version back to back, and its device and bound ms summed
+   over every recorded call of the serve step and of phase 5b;
+7. kernel entry points: first at small sizes against their plain versions
+   (``popcount`` also on an unaligned view; ``sorted_intersect_mask`` with
+   cb = 1, 3, a power of two, negative ids, ids above max(b), repeated
+   values; ``block_spmm`` in f32 and bf16, block sizes below and above 128,
+   NaN in a masked-off tile, negative mask entries), after phases 5 and 5b
+   so that cuBLAS's workspace stays out of their memory peak; then at
+   store scale, with the launch counters reset just before: ``ops.popcount`` over the geonames ``t_words`` and ``l_words``
+   arenas (flattened, zero-padded to (M, 1024)), whose per-tree exclusive
+   cumsum must rebuild ``t_rank`` exactly; ``ops.sorted_intersect_mask`` on
+   2^16 ids in 2^18 drawn from 10^7, on the subjects of the two largest
+   predicates, and on every (A, B row) that ``sortedset.intersect``
+   received in phase 5b's joins A-C (the mask must keep exactly its
+   lanes); ``ops.block_spmm`` at M = K = 1024, D = 512 and M = K = 16384,
+   D = 256 in f32 and bf16, 0/1 A at 5%, masks from ``mask_from_k2_level``
+   through both branches at 25% of tiles, NaN in a masked-off tile; each
+   against its plain version (``block_spmm`` within ``K·2^-24·(|A|@|X|) +
+   1e-6`` and within the statistical ``sqrt(K)·2^-24·(|A|@|X|) + 1e-6``
+   that separates f32 products from TF32 ones), timed as in phase 6 beside one PyTorch call
+   (``torch.isin``, ``torch.matmul``) where there is one.  Then the
+   ``{"kernels": [...]}`` line, the card's name and power limit, and the
+   final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -51,9 +72,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 GEONAMES_TRIPLES = 9_415_253
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth; the 67 TFLOP/s fp32 non-tensor
-# rate stands in as the peak of 32-bit integer ALU operations
+# rate stands in as the peak of 32-bit integer ALU operations; the dense
+# bf16 tensor-core rate bounds a bf16 product
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_FLOPS = 989e12
 # 32-bit operations a traversal needs per child bit it tests: the bit's
 # position, the word shift, the mask and the compaction's prefix-sum add
 OPS_PER_CANDIDATE = 4
@@ -68,9 +91,18 @@ KERNELS = {
     "k2_range": dict(source=f"{CSRC}/k2_range.cu", replaces="src/repro/kernels/k2_range.py:128"),
     "k2_scan_rebind": dict(source=f"{CSRC}/k2_scan_rebind.cu",
                            replaces="src/repro/kernels/k2_scan.py:269"),
+    "popcount": dict(source=f"{CSRC}/popcount.cu", replaces="src/repro/kernels/popcount.py:40"),
+    "sorted_intersect_mask": dict(source=f"{CSRC}/sorted_intersect.cu",
+                                  replaces="src/repro/kernels/sorted_intersect.py:46"),
+    "block_spmm": dict(source=f"{CSRC}/block_spmm.cu",
+                       replaces="src/repro/kernels/block_spmm.py:48"),
 }
 SERVE_KERNELS = ("k2_scan", "k2_check", "pred_gather_dac")  # the broker's path
+QUERY_KERNELS = SERVE_KERNELS + ("pred_gather", "k2_range", "k2_scan_rebind")  # patterns, joins
+OPS_KERNELS = ("popcount", "sorted_intersect_mask", "block_spmm")  # entry points only
 PAIR_CAP = 1 << 20  # holds the largest geonames predicate (775,682 pairs)
+SPMM_SHAPES = ((1024, 1024, 512), (16384, 16384, 256))  # (M, K, D): the bench's, then large
+SENTINEL = 2**31 - 1
 
 
 def fail(msg: str):
@@ -101,7 +133,7 @@ def gpu_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def plain_of(name, meta_or_pmeta, store_part, args, kw):
+def plain_of(name, args, kw):
     """Run the plain version of kernel ``name`` on a wrapper's arguments.
 
     ``k2_range`` runs one lane at a time: at cap 2^20 its cap·k²
@@ -111,6 +143,13 @@ def plain_of(name, meta_or_pmeta, store_part, args, kw):
 
     from repro_torch.kernels import ref
 
+    if name == "popcount":
+        return ref.popcount_ref(*args)
+    if name == "sorted_intersect_mask":
+        return ref.sorted_intersect_mask_ref(*args)
+    if name == "block_spmm":
+        return ref.block_spmm_ref(*args, kw.get("block_m", 128), kw.get("block_k", 128))
+    meta_or_pmeta, store_part, args = args[0], args[1], args[2:]
     if name in ("pred_gather", "pred_gather_dac"):
         pm, ix = meta_or_pmeta, store_part
         (rows,) = args
@@ -152,40 +191,58 @@ def max_abs_err(got, want) -> int:
 
 
 class Recorder:
-    """Wraps the ops wrappers: records every call's inputs and holds the
-    kernel's output against the plain version on the same inputs."""
+    """Wraps the path kernels' ops wrappers: records every call's inputs and
+    holds the kernel's output against the plain version on the same inputs.
+    Also records every (A ids, B row ids, kept ids) that
+    ``sortedset.intersect`` computes, one entry per row of B's batch."""
 
     def __init__(self):
+        from repro_torch.core import sortedset
         from repro_torch.kernels import ops
 
-        self.ops = ops
-        self.calls: dict[str, list] = {k: [] for k in KERNELS}
-        self.err: dict[str, int] = dict.fromkeys(KERNELS, 0)
-        self.orig = {k: getattr(ops, k) for k in KERNELS}
+        self.ops, self.sortedset = ops, sortedset
+        self.calls: dict[str, list] = {k: [] for k in QUERY_KERNELS}
+        self.err: dict[str, int] = dict.fromkeys(QUERY_KERNELS, 0)
+        self.orig = {k: getattr(ops, k) for k in QUERY_KERNELS}
+        self.orig_intersect = sortedset.intersect
+        self.intersects: list = []
 
-    def check(self, name, a, b, args, kw, out):
-        want = plain_of(name, a, b, args, kw)
+    def check(self, name, args, kw, out):
+        want = plain_of(name, args, kw)
         self.err[name] = max(self.err[name], max_abs_err(out, want))
+        return out
+
+    def intersect(self, a, b):
+        out = self.orig_intersect(a, b)
+        if a.ids.dim() != 1:
+            fail(f"sortedset.intersect got a batched A {tuple(a.ids.shape)}")
+        b_ids = b.ids.reshape(-1, b.ids.shape[-1])
+        ids = out.ids.reshape(b_ids.shape[0], -1)
+        valid = out.valid.reshape(b_ids.shape[0], -1)
+        for i in range(b_ids.shape[0]):
+            self.intersects.append((a.ids, b_ids[i].contiguous(), ids[i][valid[i]]))
         return out
 
     def __enter__(self):
         def make(name):
             orig = self.orig[name]
 
-            def wrapped(a, b, *args, **kw):
-                out = orig(a, b, *args, **kw)
-                self.calls[name].append((a, b, args, kw, out))
-                return self.check(name, a, b, args, kw, out)
+            def wrapped(*args, **kw):
+                out = orig(*args, **kw)
+                self.calls[name].append((args, kw, out))
+                return self.check(name, args, kw, out)
 
             return wrapped
 
-        for name in KERNELS:
+        for name in QUERY_KERNELS:
             setattr(self.ops, name, make(name))
+        self.sortedset.intersect = self.intersect
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.orig.items():
             setattr(self.ops, name, fn)
+        self.sortedset.intersect = self.orig_intersect
 
 
 def small_store_checks(device, seed: int) -> dict[str, int]:
@@ -274,6 +331,114 @@ def small_store_checks(device, seed: int) -> dict[str, int]:
             fail("single-tree check missed a stored triple")
     print(f"small stores: max_abs_err {rec.err}", flush=True)
     return rec.err
+
+
+def spmm_check(args, kw, got) -> tuple[float, float, float]:
+    """``block_spmm``'s output against its plain version: finite, within
+    the rigorous ``K·2^-24·(|A|@|X|) + 1e-6`` elementwise (f32 accumulation
+    of the same products in two orders; |A| over the ON tiles only), and
+    within the statistical ``sqrt(K)·2^-24·(|A|@|X|) + 1e-6`` (rounding
+    errors of an f32 sum add like a random walk; products rounded to TF32,
+    2^-11, exceed it).  Returns (max_abs_err, worst ratio to each limit)."""
+    import torch
+
+    mask, a, x = args
+    bm, bk = kw.get("block_m", 128), kw.get("block_k", 128)
+    want = plain_of("block_spmm", args, kw)
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        fail(f"block_spmm gave {got.dtype}{tuple(got.shape)}, want float32{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        fail("block_spmm output is not finite")
+    on = mask.repeat_interleave(bm, 0).repeat_interleave(bk, 1) != 0
+    absprod = torch.where(on, a.float().abs(), 0.0) @ x.float().abs()
+    err = (got - want).abs()
+    k = a.shape[1]
+    ratio = float((err / (k * 2.0**-24 * absprod + 1e-6)).max().item())
+    stat = float((err / (k**0.5 * 2.0**-24 * absprod + 1e-6)).max().item())
+    if ratio > 1 or stat > 1:
+        fail(f"block_spmm is {ratio:.3f}x its error bound and {stat:.3f}x its statistical limit")
+    return float(err.max().item()), ratio, stat
+
+
+def ops_small_checks(device, seed: int) -> dict:
+    """The three entry-point kernels at small sizes against their plain
+    versions: the integer ones bit for bit (also against numpy),
+    ``block_spmm`` within its bound.  Returns max_abs_err by kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    err = dict.fromkeys(OPS_KERNELS, 0)
+    for m, n in ((8, 128), (16, 256), (32, 512), (8, 1024), (24, 256)):
+        w = rng.integers(0, 2**32, (m, n), dtype=np.uint32)
+        t = torch.from_numpy(w.view(np.int32)).to(device)
+        # the arena, and a view of it that is not 16-byte aligned
+        views = [t]
+        if t.numel() > 8 * 128:
+            views.append(t.reshape(-1)[1:1 + 8 * 128].reshape(8, 128))
+        for words in views:
+            got = ops.popcount(words)
+            err["popcount"] = max(err["popcount"], max_abs_err(got, plain_of("popcount", (words,), {})))
+        want = np.unpackbits(w.view(np.uint8), axis=1).reshape(m, n, 32).sum(-1)
+        if not np.array_equal(ops.popcount(t).cpu().numpy(), want):
+            fail("popcount disagrees with numpy")
+    cases = [
+        ([-3, 4, 9, SENTINEL], [4]), ([1, 2, 5, 7, 8, 11, 12, SENTINEL], [2, 7, 11]),
+        ([0, 3, 4, SENTINEL], [0, 3, 6, 9, 12, 15, SENTINEL, SENTINEL]),  # b[1] of 2^k lanes
+        ([-2**31, -900, -5, -1, 0, 3, 4, 6], [-2**31, -901, -5, 0, 4, SENTINEL]),
+        ([10, 20, 30, 40, 1000, 2**31 - 2, SENTINEL, SENTINEL], [10, 30, 35]),
+        ([1, 3, 5, 7, 9, 11, 13, 15], [3, 3, 3, 7, 7, 9, 15, 15, 15, SENTINEL]),
+    ]
+    for ca, cb in ((2048, 1024), (4096, 3000)):
+        b = np.sort(rng.choice(20_000, cb, replace=False) - 10_000)
+        a = np.union1d(rng.choice(b, ca // 4), rng.integers(-12_000, 12_000, ca // 2))
+        cases.append((np.concatenate([a, np.full(ca - a.size, SENTINEL)]), b))
+    for a, b in cases:
+        a, b = np.asarray(a, np.int32), np.asarray(b, np.int32)
+        ta, tb = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
+        got = ops.sorted_intersect_mask(ta, tb)
+        e = max_abs_err(got, plain_of("sorted_intersect_mask", (ta, tb), {}))
+        err["sorted_intersect_mask"] = max(err["sorted_intersect_mask"], e)
+        if not np.array_equal(got.cpu().numpy(), np.isin(a, b) & (a != SENTINEL)):
+            fail(f"sorted_intersect_mask disagrees with numpy on {a[:8]}... in {b[:8]}...")
+    g = torch.Generator(device=device).manual_seed(seed)
+    worst = [0.0, 0.0]
+    for (m, k, d), blocks in (((256, 256, 128), (128, 128, 128)), ((512, 384, 256), (128, 128, 128)),
+                              ((512, 768, 256), (256, 64, 128)), ((256, 192, 256), (64, 32, 128)),
+                              ((240, 120, 96), (48, 24, 96))):  # edges inside a 128 tile
+        bm, bk, bd = blocks
+        kw = dict(block_m=bm, block_k=bk, block_d=bd)
+        mask = (torch.rand((m // bm, k // bk), generator=g, device=device) < 0.5).to(torch.int32)
+        mask[0, 0], mask[-1, -1] = -2, 0
+        a = (torch.rand((m, k), generator=g, device=device) < 0.05).float()
+        a[-bm:, -bk:] = float("nan")  # a masked-off tile
+        x = torch.randn((k, d), generator=g, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (mask, a.to(dtype), x.to(dtype))
+            e, *ratios = spmm_check(args, kw, ops.block_spmm(*args, **kw))
+            err["block_spmm"] = max(err["block_spmm"], e)
+            worst = [max(w, r) for w, r in zip(worst, ratios)]
+    # Inf in X's second K band, which is on for row bands 0 and 3 only: in
+    # one 128-row tile some rows meet it and some must not
+    mask = torch.tensor([[1, 1], [1, 0], [1, 0], [1, 1], [1, 0]], dtype=torch.int32, device=device)
+    a = torch.ones((240, 48), device=device)
+    x = torch.randn((48, 96), generator=g, device=device)
+    x[24:] = float("inf")
+    kw = dict(block_m=48, block_k=24, block_d=96)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (mask, a.to(dtype), x.to(dtype))
+        got, want = ops.block_spmm(*args, **kw), plain_of("block_spmm", args, kw)
+        fin = torch.isfinite(want)
+        x_fin = args[2].float().nan_to_num(posinf=0.0)  # what the finite rows meet
+        limit = 48 * 2.0**-24 * (a @ x_fin.abs()) + 1e-6
+        if (not torch.equal(torch.isfinite(got), fin) or not torch.equal(got[~fin], want[~fin])
+                or bool(((got - want).abs()[fin] > limit[fin]).any())):
+            fail(f"block_spmm lets an Inf of X into rows whose tile is off ({dtype})")
+    print(f"entry-point kernels, small: max_abs_err {err}, block_spmm worst ratio "
+          f"{worst[0]:.4f} of its bound, {worst[1]:.4f} of its statistical limit", flush=True)
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -638,13 +803,38 @@ def _range_work(meta, f, preds, rows, cols, valid) -> tuple[float, int]:
     return arena, cand
 
 
-def bound(name, meta_or_pmeta, store_part, args, out) -> tuple[float, str, int, int]:
+def bound(name, args, kw, out) -> tuple[float, str, int, int]:
     """Least time for this call's work: (bound_ms, bound_by, bytes, ops).
 
     Bytes: lane inputs read once, outputs written once, plus the arena
-    bytes this data needs (see PERF.md); ops: 32-bit ALU operations.
+    bytes this data needs (see PERF.md); ops: 32-bit ALU operations, or
+    for ``block_spmm`` the flops of its ON tiles at the f32 FMA peak (f32)
+    or the dense bf16 tensor-core peak (bf16).
     """
-    if name == "k2_scan":
+    import torch
+
+    peak = PEAK_OPS_PER_S
+    if name in OPS_KERNELS:
+        meta_or_pmeta = store_part = None
+    else:
+        meta_or_pmeta, store_part, args = args[0], args[1], args[2:]
+    if name == "popcount":
+        n = args[0].numel()
+        nbytes, ops_ = 8 * n, n  # one POPC a word
+    elif name == "sorted_intersect_mask":
+        ca, cb = args[0].numel(), args[1].numel()
+        # each search step: a compare, two selects and the midpoint
+        nbytes, ops_ = 5 * ca + 4 * cb, 4 * ca * cb.bit_length()
+    elif name == "block_spmm":
+        mask, a, x = args
+        bm, bk = kw.get("block_m", 128), kw.get("block_k", 128)
+        n_on = int((mask != 0).sum().item())
+        (m, k), d, elt = a.shape, x.shape[1], a.element_size()
+        nbytes = n_on * bm * bk * elt + k * d * elt + m * d * 4 + 4 * mask.numel()
+        ops_ = 2 * n_on * bm * bk * d
+        if a.dtype != torch.float32:
+            peak = PEAK_BF16_FLOPS
+    elif name == "k2_scan":
         q, cap = out[0].shape
         arena, cand = _scan_work(meta_or_pmeta, out[0], out[1])
         nbytes = 12 * q + 5 * q * cap + 5 * q + arena
@@ -682,9 +872,245 @@ def bound(name, meta_or_pmeta, store_part, args, out) -> tuple[float, str, int, 
         q, cap = out[0].shape
         nbytes = 4 * q + 5 * q * cap + 5 * q + 8 * q + count.sum() * (1 + 4 * (pm.levels - 1))
         ops_ = 10 * q * cap + 10 * count.sum() * pm.levels
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops_ / PEAK_OPS_PER_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops_ / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             int(nbytes), int(ops_))
+
+
+def path_ms(name, *recorders) -> dict:
+    """Device ms and bound ms of a kernel summed over every call a recorder
+    captured (the serve step of phase 4, the pattern/join run of phase 5b),
+    each call timed on its own inputs: the weight of the kernel on a path."""
+    out = {}
+    for label, recorder in zip(("serve_step", "patterns_joins"), recorders):
+        dev = low = 0.0
+        for cargs, kw, res in recorder.calls[name]:
+            dev += time_ms(lambda f=recorder.orig[name], a=cargs, k=kw: f(*a, **k), 5)
+            low += float(bound(name, cargs, kw, res)[0])
+        out[label] = dict(calls=len(recorder.calls[name]), device_ms=dev, bound_ms=low)
+    return out
+
+
+def time_case(name, fn, args, kw, out, library=None) -> dict:
+    """One call's times: device ms (CUDA events around calls queued behind a
+    sleep kernel), the wrapper's and the plain version's ms (back to back,
+    host launch overhead included: the plain version enqueues more kernels
+    than the launch queue holds behind a sleep), the library call's ms (back
+    to back: it may synchronise), and the call's bound."""
+    def call():
+        return fn(*args, **kw)
+
+    def plain():
+        return plain_of(name, args, kw)
+
+    n_it = iters_for(call, 300.0, 50)
+    ms = time_ms(call, n_it)
+    wrapped = wrapper_ms(call, n_it)
+    plain_ms = wrapper_ms(plain, iters_for(plain, 2000.0, 5))
+    lib_ms = None if library is None else wrapper_ms(library, iters_for(library, 300.0, 50))
+    b_ms, by, nbytes, nops = bound(name, args, kw, out)
+    return dict(ms=ms, wrapper_ms=wrapped, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=by, bytes=nbytes, ops=nops, iters=n_it)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the entry-point kernels at store scale
+# ---------------------------------------------------------------------------
+
+
+def arena_1024(words2d):
+    """A (P, W) word arena flattened and zero-padded to (M, 1024), M % 8 == 0."""
+    import torch
+
+    flat = words2d.reshape(-1)
+    out = torch.zeros(-(-flat.numel() // 8192) * 8192, dtype=torch.int32, device=flat.device)
+    out[: flat.numel()] = flat
+    return out.reshape(-1, 1024)
+
+
+def padded_ids(ids, device, mult: int = 2048):
+    """Ascending int32 ids, ``SENTINEL``-padded to a multiple of ``mult``."""
+    import numpy as np
+    import torch
+
+    out = np.full(max(mult, -(-len(ids) // mult) * mult), SENTINEL, np.int32)
+    out[: len(ids)] = ids
+    return torch.from_numpy(out).to(device)
+
+
+def spmm_inputs(side: int, d: int, device, seed: int):
+    """0/1 A (side x side) at 5% and normal X (side x d) from the seed, and
+    two tile masks from ``mask_from_k2_level`` at 25% of tiles (one at
+    least): through the repeat branch (a level of side nb/2, each cell 2x2
+    tiles) and through the OR-reduce branch (a level of side 4·nb whose
+    on-cells lie in the on tiles), and the repeat branch again at 64-row
+    blocks (the same on elements; the kernel's edge instantiation).  One
+    tile off in every mask holds NaN.  Returns A, X and {label: (mask,
+    block)}."""
+    import torch
+
+    from repro_torch.kernels.block_spmm import mask_from_k2_level
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    nb = side // 128
+    coarse = (torch.rand((nb // 2, nb // 2), generator=g, device=device) < 0.25).to(torch.int32)
+    coarse[0, 0] = 1  # at least one cell on, also on a tiny grid
+    mask_rep = mask_from_k2_level(coarse, side=side, block=128)
+    if not torch.equal(mask_rep, coarse.repeat_interleave(2, 0).repeat_interleave(2, 1)):
+        fail("mask_from_k2_level (repeat) is not the level's 2x2 blow-up")
+    tiles = torch.rand((nb, nb), generator=g, device=device) < 0.25
+    tiles[-1, -1] = True
+    cells = torch.rand((4 * nb, 4 * nb), generator=g, device=device) < 0.2
+    cells &= tiles.repeat_interleave(4, 0).repeat_interleave(4, 1)
+    on = tiles.nonzero()
+    cells[on[:, 0] * 4, on[:, 1] * 4] = True  # every on tile holds an on cell
+    mask_or = mask_from_k2_level(cells.to(torch.int32), side=side, block=128)
+    if not torch.equal(mask_or, tiles.to(torch.int32)):
+        fail("mask_from_k2_level (OR-reduce) is not the level's tile occupancy")
+    a = (torch.rand((side, side), generator=g, device=device) < 0.05).float()
+    x = torch.randn((side, d), generator=g, device=device)
+    off = ((mask_rep == 0) & (mask_or == 0)).nonzero()
+    if not off.shape[0]:
+        fail("no tile is off in both masks")
+    i, j = (128 * int(v) for v in off[0])
+    a[i:i + 128, j:j + 128] = float("nan")
+    mask_64 = mask_from_k2_level(coarse, side=side, block=64)
+    return a, x, {"repeat mask": (mask_rep, 128), "or-reduce mask": (mask_or, 128),
+                  "repeat mask, 64-blocks": (mask_64, 64)}
+
+
+def entry_point_phase(store, ds, intersects, device, seed: int, err: dict) -> list:
+    """Phase 7: drive ``ops.popcount``, ``ops.sorted_intersect_mask`` and
+    ``ops.block_spmm`` at store scale with the launch counters reset just
+    before, check every output (plain version, numpy, ``t_rank``, the kept
+    lanes of ``sortedset.intersect``), time each distinct case and return
+    the three kernels' rows of the ``{"kernels": ...}`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain and library f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
+    # after the serve and query phases: cuBLAS keeps its workspace, which
+    # would otherwise count in the serve phase's memory peak
+    err.update(ops_small_checks(device, seed))
+    if err["popcount"] or err["sorted_intersect_mask"]:
+        fail(f"entry-point kernels disagree with their plain versions: {err}")
+    f = store.forest
+    cases = []  # (kernel, label, args, kw)
+    for arena in ("t_words", "l_words"):
+        words = getattr(f, arena)
+        padded = arena_1024(words)
+        cases.append(("popcount", f"{arena} {tuple(words.shape)} as {tuple(padded.shape)}",
+                      (padded,), {}))
+    rng = np.random.default_rng(seed)
+    a = np.sort(rng.choice(10**7, 2**16, replace=False)).astype(np.int32)
+    b = np.sort(rng.choice(10**7, 2**18, replace=False)).astype(np.int32)
+    members = [(a, b)]
+    cases.append(("sorted_intersect_mask", "2^16 ids in 2^18, from 10^7",
+                  (torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)), {}))
+    p1, p2 = np.argsort(-np.bincount(ds.ids[:, 1]), kind="stable")[:2]
+    a, b = (np.unique(ds.ids[ds.ids[:, 1] == p, 0]) - 1 for p in (p1, p2))
+    members.append((a, b))
+    cases.append(("sorted_intersect_mask",
+                  f"subjects of pred {p1} ({a.size}) in pred {p2} ({b.size})",
+                  (padded_ids(a, device), padded_ids(b, device)), {}))
+    n_join = len(intersects)
+    for a_ids, b_row, _ in intersects:
+        ca = a_ids.shape[0]
+        if ca % min(2048, ca):
+            a_ids = padded_ids(a_ids.cpu().numpy(), device)
+        cases.append(("sorted_intersect_mask", f"join A-C: A {ca} in B {b_row.shape[0]}",
+                      (a_ids, b_row), {}))
+    for side, _, d in SPMM_SHAPES:
+        a, x, masks = spmm_inputs(side, d, device, seed)
+        for dtype in (torch.float32, torch.bfloat16):
+            ad, xd = a.to(dtype), x.to(dtype)
+            for branch, (mask, blk) in masks.items():
+                kw = {} if blk == 128 else dict(block_m=blk, block_k=blk, block_d=blk)
+                cases.append(("block_spmm", f"M=K={side}, D={d}, {str(dtype)[6:]}, {branch}",
+                              (mask, ad, xd), kw))
+    torch.cuda.synchronize()
+
+    ops.reset_launches()
+    outs = [getattr(ops, name)(*args, **kw) for name, _, args, kw in cases]
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in OPS_KERNELS}
+    print(f"entry-point path: {len(cases)} calls, launches {launches}", flush=True)
+    if not all(launches.values()):
+        fail(f"a kernel of the entry-point path never launched: {launches}")
+
+    worst = [0.0, 0.0]
+    for (name, label, args, kw), out in zip(cases, outs):
+        if name == "block_spmm":
+            e, *ratios = spmm_check(args, kw, out)
+            worst = [max(w, r) for w, r in zip(worst, ratios)]
+            print(f"block_spmm {label}: max_abs_err {e:.3g}, ratio {ratios[0]:.4f} of its bound, "
+                  f"{ratios[1]:.4f} of its statistical limit, "
+                  f"{int((args[0] != 0).sum())} of {args[0].numel()} tiles on", flush=True)
+        else:
+            e = max_abs_err(out, plain_of(name, args, kw))
+        err[name] = max(err[name], e)
+    if err["popcount"] or err["sorted_intersect_mask"]:
+        fail(f"entry-point kernels disagree with their plain versions: {err}")
+    p, w = f.t_words.shape
+    per_word = outs[0].reshape(-1)[: p * w].reshape(p, w).to(torch.int64)
+    if not torch.equal(torch.cumsum(per_word, 1) - per_word, f.t_rank.to(torch.int64)):
+        fail("t_rank is not the exclusive cumsum of popcount over t_words")
+    print(f"popcount: t_rank of all {p} trees rebuilt exactly from {p * w} word counts", flush=True)
+    for (a, b), out in zip(members, outs[2:4]):
+        if not np.array_equal(out[: a.size].cpu().numpy(), np.isin(a, b)) or bool(out[a.size:].any()):
+            fail("sorted_intersect_mask disagrees with numpy membership")
+    kept = 0
+    for (a_ids, _, want), out in zip(intersects, outs[4:4 + n_join]):
+        got = a_ids[out[: a_ids.shape[0]]]
+        if not torch.equal(got, want):
+            fail("sorted_intersect_mask keeps other lanes than sortedset.intersect")
+        kept += want.numel()
+    print(f"sorted_intersect_mask: numpy membership holds; {n_join} intersections of joins "
+          f"A-C keep exactly intersect's {kept} lanes", flush=True)
+
+    by_kernel = {k: [] for k in OPS_KERNELS}
+    seen = set()
+    for (name, label, args, kw), out in zip(cases, outs):
+        if label in seen:
+            continue
+        seen.add(label)
+        library = None
+        if name == "sorted_intersect_mask":
+            def library(a=args[0], b=args[1]):
+                return torch.isin(a, b)
+        elif name == "block_spmm":
+            mask, a, x = args
+            blk = kw.get("block_m", 128)
+            on = mask.repeat_interleave(blk, 0).repeat_interleave(blk, 1) != 0
+            premasked = torch.where(on, a, torch.zeros((), dtype=a.dtype, device=a.device))
+
+            def library(a=premasked, x=x):
+                return torch.matmul(a, x)  # bf16 inputs give a bf16 output
+        times = time_case(name, getattr(ops, name), args, kw, out, library)
+        library = premasked = None
+        times["label"] = label
+        by_kernel[name].append(times)
+        print(f"{name} {label}: device {times['ms']:.5f} ms, wrapper {times['wrapper_ms']:.5f}, "
+              f"plain {times['plain_ms']:.5f}, library {times['library_ms']}, bound "
+              f"{times['bound_ms']:.6f} ({times['bound_by']})", flush=True)
+    rows = []
+    for name in OPS_KERNELS:
+        best = max(by_kernel[name], key=lambda t: t["bound_ms"])
+        rows.append(dict(
+            name=name, route="cuda", source=KERNELS[name]["source"],
+            replaces=KERNELS[name]["replaces"], launches=launches[name],
+            launches_by_path={"ops": launches[name]}, max_abs_err=err[name],
+            ms=best["ms"], plain_ms=best["plain_ms"], bound_ms=best["bound_ms"],
+            bound_by=best["bound_by"], library_ms=best["library_ms"],
+            shapes={t.pop("label"): t for t in by_kernel[name]},
+        ))
+    print(f"block_spmm worst ratio {worst[0]:.4f} of its bound, {worst[1]:.4f} of its "
+          f"statistical limit; peaks: f32 {PEAK_OPS_PER_S:.3g} FLOP/s "
+          f"(FMA), bf16 {PEAK_BF16_FLOPS:.3g} FLOP/s (dense tensor core)", flush=True)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -728,6 +1154,8 @@ def main(argv=None) -> int:
 
     phase("3. kernels vs plain on small stores")
     err = small_store_checks(device, args.seed)
+    if any(err[k] for k in QUERY_KERNELS):
+        fail(f"kernels disagree with their plain versions: {err}")
 
     phase("4. geonames store and main-path kernel inputs")
     t0 = time.perf_counter()
@@ -760,10 +1188,10 @@ def main(argv=None) -> int:
         eng.host_result(plan.submit(eng.ServeBatch(*lanes)))
     for name in SERVE_KERNELS:
         err[name] = max(err[name], rec.err[name])
-        shapes = [tuple(c[4][0].shape) if isinstance(c[4], tuple) else tuple(c[4].shape)
+        shapes = [tuple(c[2][0].shape) if isinstance(c[2], tuple) else tuple(c[2].shape)
                   for c in rec.calls[name]]
         print(f"main-path inputs {name}: calls {shapes}, max_abs_err {rec.err[name]}", flush=True)
-    if any(err.values()):
+    if any(err[k] for k in QUERY_KERNELS):
         fail(f"kernels disagree with their plain versions: {err}")
 
     phase("5. main path: broker over the geonames store")
@@ -808,12 +1236,13 @@ def main(argv=None) -> int:
     with rec_q:
         run_work(engine, work)
     torch.cuda.synchronize()
-    for name in KERNELS:
+    for name in QUERY_KERNELS:
         err[name] = max(err[name], rec_q.err[name])
     print(f"kernel checks on the pattern/join inputs: "
-          f"{ {k: len(v) for k, v in rec_q.calls.items()} } calls, max_abs_err {rec_q.err} "
+          f"{ {k: len(v) for k, v in rec_q.calls.items()} } calls, max_abs_err {rec_q.err}, "
+          f"{len(rec_q.intersects)} intersections recorded "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
-    if any(err.values()):
+    if any(err[k] for k in QUERY_KERNELS):
         fail(f"kernels disagree with their plain versions: {err}")
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -838,52 +1267,39 @@ def main(argv=None) -> int:
             n = len(next(iter(batch.values()))) if batch else 1
             print(f"latency {label}: {n} queries in one call, {1e3 * secs[0]:.3f} ms per call, "
                   f"{1e6 * secs[0] / n:.1f} us per query, cap {caps}", flush=True)
-    if not all(q_launches[k] > 0 for k in KERNELS):
+    if not all(q_launches[k] > 0 for k in QUERY_KERNELS):
         fail(f"a kernel of the pattern/join path never launched: {q_launches}")
 
     phase("6. kernel times at the main-path shapes")
     rows = []
-    for name in KERNELS:
+    for name in QUERY_KERNELS:
         recorder = rec if name in SERVE_KERNELS else rec_q
-        best = None
-        shapes = {}
-        seen = set()
-        for a, b, cargs, kw, out in recorder.calls[name]:
-            key = (tuple(tuple(t.shape) for t in cargs), tuple(sorted(kw.items())))
+        best, shapes, seen = None, {}, set()
+        for cargs, kw, out in recorder.calls[name]:
+            key = (tuple(tuple(t.shape) for t in cargs[2:]), tuple(sorted(kw.items())))
             if key in seen:
                 continue
             seen.add(key)
-            orig = recorder.orig[name]
-
-            def call():
-                return orig(a, b, *cargs, **kw)
-
-            def plain():
-                return plain_of(name, a, b, cargs, kw)
-
-            n_it = iters_for(call, 300.0, 50)
-            ms = time_ms(call, n_it)
-            wrapped = wrapper_ms(call, n_it)
-            # the plain version enqueues hundreds of small kernels per call,
-            # more than the launch queue holds behind a sleep: timed back to
-            # back, host launch overhead included
-            plain_ms = wrapper_ms(plain, iters_for(plain, 2000.0, 5))
-            b_ms, by, nbytes, nops = bound(name, a, b, cargs, out)
-            q = cargs[0].shape[0]
-            shapes[",".join([f"Q={q}"] + [f"{k}={v}" for k, v in sorted(kw.items())])] = dict(
-                ms=ms, wrapper_ms=wrapped, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=by, bytes=nbytes, ops=nops, iters=n_it)
+            times = time_case(name, recorder.orig[name], cargs, kw, out)
+            q = cargs[2].shape[0]
+            shapes[",".join([f"Q={q}"] + [f"{k}={v}" for k, v in sorted(kw.items())])] = times
             if best is None or q > best[0]:
-                best = (q, ms, plain_ms, b_ms, by)
-        _, ms, plain_ms, b_ms, by = best
+                best = (q, times)
+        times = best[1]
         rows.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"],
             launches=launches[name] + q_launches[name],
             launches_by_path={"serve": launches[name], "patterns_joins": q_launches[name]},
-            max_abs_err=err[name], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=by, library_ms=None, shapes=shapes,
+            max_abs_err=err[name], ms=times["ms"], plain_ms=times["plain_ms"],
+            bound_ms=times["bound_ms"], bound_by=times["bound_by"], library_ms=None,
+            shapes=shapes, path_ms=path_ms(name, rec, rec_q),
         ))
+        print(f"{name}: device ms summed over each path's recorded calls {rows[-1]['path_ms']}",
+              flush=True)
+
+    phase("7. kernel entry points at store scale")
+    rows += entry_point_phase(store, ds, rec_q.intersects, device, args.seed, err)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,9 @@ SOURCES = {
     "pred_gather": "pred_gather.cu",
     "k2_range": "k2_range.cu",
     "k2_scan_rebind": "k2_scan_rebind.cu",
+    "popcount": "popcount.cu",
+    "sorted_intersect_mask": "sorted_intersect.cu",
+    "block_spmm": "block_spmm.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -6,6 +6,10 @@ if the launch reports an error, and counts the launch in ``LAUNCHES``.
 Tensors on the CPU take the kernel's plain version in ``kernels/ref.py``
 instead; that is the only case in which a plain version runs.  Nothing
 here synchronises with the device.
+
+The last three entry points (``popcount``, ``sorted_intersect_mask``,
+``block_spmm``) keep the JAX package's ``repro.kernels.ops`` functions of
+the same names and shape contracts; no query path calls them.
 """
 
 from __future__ import annotations
@@ -21,12 +25,14 @@ from repro_torch.kernels import build, ref
 LAUNCHES = {
     "k2_scan": 0, "k2_check": 0, "pred_gather_dac": 0,
     "pred_gather": 0, "k2_range": 0, "k2_scan_rebind": 0,
+    "popcount": 0, "sorted_intersect_mask": 0, "block_spmm": 0,
 }
 _count_lock = threading.Lock()
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _IA = ctypes.POINTER(ctypes.c_int)
 _FOREST = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _IA, _IA, _I]  # _forest_args
 _SIGNATURES = {
@@ -52,7 +58,17 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, *_FOREST, _I, _I, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
     ]),
+    "popcount": ("popcount_launch", [_P, _LL, _P, _P, _I]),
+    "sorted_intersect_mask": ("sorted_intersect_launch", [_P, _I, _P, _I, _P, _P, _I]),
+    "block_spmm": ("block_spmm_launch", [
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+    ]),
 }
+# the Pallas kernels' shape contracts at their default blocks
+LANES = 128  # popcount: lanes a row (the TPU vreg width)
+POPCOUNT_ROWS = 8  # popcount: rows % 8
+INTERSECT_LANES = 2048  # sorted_intersect_mask: ca % min(2048, ca)
+_SPMM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
@@ -82,14 +98,14 @@ def _ints(values) -> ctypes.Array:
     return (ctypes.c_int * max(len(values), 1))(*values)
 
 
-def _check_tensors(device: torch.device, **tensors) -> None:
+def _check_tensors(device: torch.device, *, dtypes=(torch.int32,), **tensors) -> None:
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -304,3 +320,77 @@ def k2_scan_rebind(meta: K2Meta, f, preds1, keys1, axes1, preds2, axes2, *,
                 scratch_y.data_ptr(), *(t.data_ptr() for t in x + y))
     return x + y
 
+
+def popcount(words) -> torch.Tensor:
+    """Set bits of every word of a ``(M, 128·k)`` arena of int32 words
+    carrying uint32 bits -> int32 of the same shape (``csrc/popcount.cu``).
+    ``M`` must be a multiple of 8, as for the Pallas kernel at its default
+    block."""
+    dev = words.device
+    _check_tensors(dev, words=words)
+    if words.dim() != 2:
+        raise ValueError(f"words must be 2-D, got shape {tuple(words.shape)}")
+    m, n = words.shape
+    if n % LANES:
+        raise ValueError(f"lane dim must be a multiple of {LANES}, got {n}")
+    if m % POPCOUNT_ROWS:
+        raise ValueError(f"rows {m} not divisible by {POPCOUNT_ROWS}")
+    if dev.type == "cpu":
+        return ref.popcount_ref(words)
+    if words.data_ptr() % 16:
+        words = words.clone()  # the kernel moves 16 bytes a thread
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    if out.numel():
+        _launch("popcount", dev, words.data_ptr(), out.numel(), out.data_ptr())
+    return out
+
+
+def sorted_intersect_mask(a_ids, b_ids) -> torch.Tensor:
+    """``mask[i] = a_ids[i] ∈ b_ids`` -> bool[ca], both ascending int32 and
+    ``SENTINEL``-padded (``csrc/sorted_intersect.cu``).  ``ca`` must be a
+    multiple of ``min(2048, ca)``, as for the Pallas kernel."""
+    dev = a_ids.device
+    _check_tensors(dev, a_ids=a_ids, b_ids=b_ids)
+    if a_ids.dim() != 1 or b_ids.dim() != 1:
+        raise ValueError(f"id lists must be 1-D, got {tuple(a_ids.shape)}, {tuple(b_ids.shape)}")
+    ca, cb = a_ids.shape[0], b_ids.shape[0]
+    block = min(INTERSECT_LANES, ca)
+    if block < 1 or ca % block:
+        raise ValueError(f"{ca} A lanes do not split into blocks of {block}")
+    if cb < 1:
+        raise ValueError("b_ids is empty")
+    if dev.type == "cpu":
+        return ref.sorted_intersect_mask_ref(a_ids, b_ids)
+    out = torch.empty(ca, dtype=torch.bool, device=dev)
+    _launch("sorted_intersect_mask", dev, a_ids.data_ptr(), ca, b_ids.data_ptr(),
+            cb, out.data_ptr())
+    return out
+
+
+def block_spmm(mask, a, x, *, block_m: int = 128, block_k: int = 128,
+               block_d: int = 128) -> torch.Tensor:
+    """``Y = A @ X`` in f32, skipping A's ``(block_m, block_k)`` tiles whose
+    int32 ``mask`` entry is 0 (``csrc/block_spmm.cu``).  A and X are both
+    f32 or both bf16; a masked-off tile is never read."""
+    dev = a.device
+    _check_tensors(dev, mask=mask)
+    _check_tensors(dev, dtypes=tuple(_SPMM_DTYPES), a=a, x=x)
+    if a.dtype != x.dtype:
+        raise TypeError(f"a and x must share a dtype, got {a.dtype} and {x.dtype}")
+    if a.dim() != 2 or x.dim() != 2 or a.shape[1] != x.shape[0]:
+        raise ValueError(f"cannot multiply {tuple(a.shape)} by {tuple(x.shape)}")
+    (m, k), d = a.shape, x.shape[1]
+    if min(block_m, block_k, block_d) < 1 or m % block_m or k % block_k or d % block_d:
+        raise ValueError(f"blocks ({block_m}, {block_k}, {block_d}) do not divide "
+                         f"(M, K, D) = ({m}, {k}, {d})")
+    if tuple(mask.shape) != (m // block_m, k // block_k):
+        raise ValueError(f"mask has shape {tuple(mask.shape)}, want {(m // block_m, k // block_k)}")
+    if dev.type == "cpu":
+        return ref.block_spmm_ref(mask, a, x, block_m, block_k)
+    if k == 0:
+        return torch.zeros((m, d), dtype=torch.float32, device=dev)
+    y = torch.empty((m, d), dtype=torch.float32, device=dev)
+    if y.numel():
+        _launch("block_spmm", dev, mask.data_ptr(), a.data_ptr(), x.data_ptr(),
+                _SPMM_DTYPES[a.dtype], m, k, d, block_m, block_k, block_d, y.data_ptr())
+    return y

@@ -4,7 +4,9 @@ Each function computes exactly what its kernel computes, on raw arena
 tensors, with dense batched tensor ops (level loops unrolled over the tree
 height, compaction by scatter).  ``kernels/ops.py`` runs them for CPU
 tensors; the tests compare them with the JAX package, and ``chip_smoke.py``
-compares each kernel with them on the card.
+compares each kernel with them on the card.  The last three
+(``popcount_ref``, ``sorted_intersect_mask_ref``, ``block_spmm_ref``) back
+the ``ops`` entry points of the same names, which no query path calls.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from repro_torch.core.bitvec import (
     get_bit_2d, popcount32, rank1_2d, row_index, u32,
 )
 from repro_torch.core.k2tree import K2Meta, compact, row_digits
+from repro_torch.core.sortedset import SENTINEL
 
 
 def k2_check_ref(
@@ -238,3 +241,35 @@ def pred_gather_ref(rows, offsets, words, *, bytes_per_pred: int, cap: int):
     mask = (1 << (8 * bytes_per_pred)) - 1
     pred = ((word >> ((bidx & 3) * 8).to(torch.int64)) & mask).to(torch.int32)
     return torch.where(valid, pred, 0), valid, n, deg > cap
+
+
+def popcount_ref(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of every int32 word (uint32 bits) -> int32 of the same shape."""
+    return popcount32(u32(words))
+
+
+def sorted_intersect_mask_ref(a_ids: torch.Tensor, b_ids: torch.Tensor) -> torch.Tensor:
+    """``mask[i] = a_ids[i] ∈ b_ids`` for ascending, ``SENTINEL``-padded
+    int32 lists: the lower bound of each A lane in B, its B value clipped to
+    B's last lane, ``== a``; a sentinel lane never matches."""
+    pos = torch.searchsorted(b_ids, a_ids).clamp(max=b_ids.shape[0] - 1)
+    return (b_ids[pos] == a_ids) & (a_ids != SENTINEL)
+
+
+def block_spmm_ref(mask, a, x, block_m: int = 128, block_k: int = 128) -> torch.Tensor:
+    """``Y = A @ X`` in f32, adding the product of A's ``(block_m, block_k)``
+    tile ``(mi, ki)`` with X's row band ``ki`` only where ``mask[mi, ki] != 0``.
+
+    A masked-off tile is selected away, never multiplied by 0, so a NaN or
+    Inf in it (or in the X rows it would meet) does not reach Y: what the
+    Pallas kernel computes, which never reads such a tile.  bf16 inputs are
+    widened to f32, where their products are exact.
+    """
+    m, k = a.shape
+    on = mask.repeat_interleave(block_m, dim=0) != 0  # (M, K/BK)
+    y = torch.zeros((m, x.shape[1]), dtype=torch.float32, device=a.device)
+    for ki in range(k // block_k):
+        band = slice(ki * block_k, (ki + 1) * block_k)
+        prod = a[:, band].to(torch.float32) @ x[band].to(torch.float32)
+        y += torch.where(on[:, ki:ki + 1], prod, 0.0)
+    return y

@@ -212,3 +212,57 @@ def _same_answer(a, b):
         assert a == b
     else:
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_popcount_kernel(cuda):
+    rng = np.random.default_rng(6)
+    w = torch.from_numpy(rng.integers(0, 2**32, (40, 1024), dtype=np.uint32).view(np.int32)).to(cuda)
+    n0 = ops.LAUNCHES["popcount"]
+    got = ops.popcount(w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["popcount"] == n0 + 1
+    _equal((got,), (ref.popcount_ref(w),))
+    # an arena view that is not 16-byte aligned is copied to an aligned one
+    flat = w.reshape(-1)[1:1 + 8 * 128].reshape(8, 128)
+    _equal((ops.popcount(flat),), (ref.popcount_ref(flat),))
+
+
+@pytest.mark.parametrize("ca,cb", [(2048, 1), (2048, 3), (4096, 1024), (8192, 262144)])
+def test_sorted_intersect_mask_kernel(ca, cb, cuda):
+    rng = np.random.default_rng(ca + cb)
+    span = 4 * cb + 100_000
+    b = np.sort(rng.choice(span, cb, replace=False) - span // 2).astype(np.int32)
+    b[cb // 2:cb // 2 + min(cb // 4, 9)] = b[cb // 2]  # repeated values
+    a = np.concatenate([rng.choice(b, ca // 4), rng.integers(-span, span, ca // 2)])
+    a = np.unique(a).astype(np.int32)
+    a = np.concatenate([a, np.full(ca - a.size, 2**31 - 1, np.int32)])
+    ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    n0 = ops.LAUNCHES["sorted_intersect_mask"]
+    got = ops.sorted_intersect_mask(ta, tb)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sorted_intersect_mask"] == n0 + 1
+    _equal((got,), (ref.sorted_intersect_mask_ref(ta, tb),))
+    assert np.array_equal(got.cpu().numpy(), np.isin(a, b) & (a != 2**31 - 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blocks", [(128, 128, 128), (256, 64, 128), (64, 32, 64)])
+def test_block_spmm_kernel(dtype, blocks, cuda):
+    bm, bk, bd = blocks
+    m, k, d = 512, 768, 256
+    g = torch.Generator(device=cuda).manual_seed(7)
+    mask = (torch.rand((m // bm, k // bk), generator=g, device=cuda) < 0.4).to(torch.int32)
+    mask[0, 0] = -1
+    mask[-1, -1] = 0
+    a = (torch.rand((m, k), generator=g, device=cuda) < 0.05).to(dtype)
+    a[-bm:, -bk:] = float("nan")  # a masked-off tile
+    x = torch.randn((k, d), generator=g, device=cuda).to(dtype)
+    n0 = ops.LAUNCHES["block_spmm"]
+    got = ops.block_spmm(mask, a, x, block_m=bm, block_k=bk, block_d=bd)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["block_spmm"] == n0 + 1
+    want = ref.block_spmm_ref(mask, a, x, bm, bk)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    on = mask.repeat_interleave(bm, 0).repeat_interleave(bk, 1) != 0
+    absprod = torch.where(on, a.float().abs(), 0.0) @ x.float().abs()
+    assert ((got - want).abs() <= k * 2.0**-24 * absprod + 1e-6).all()
