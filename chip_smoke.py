@@ -7,7 +7,9 @@ Phases (any failure exits non-zero before the result line):
 
 1. refuse to run without a CUDA card or outside a checkout; print the card;
 2. build the nine CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` each, in parallel) and print ptxas registers / smem / spills;
+   ``nvcc`` each, in parallel), print ptxas registers / smem / spills, and
+   fail unless ``cuobjdump -sass`` of the ``block_spmm`` library shows
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions;
 3. hold each kernel against its plain torch version on the card, bit for
    bit: a 600-predicate store (two-level DAC, 2-byte predicate ids), a
    20-predicate store (1-byte ids), cap-overflow cases, predicates out of
@@ -52,8 +54,10 @@ Phases (any failure exits non-zero before the result line):
    through both branches at 25% of tiles, NaN in a masked-off tile; each
    against its plain version (``block_spmm`` within ``K·2^-24·(|A|@|X|) +
    1e-6`` and within the statistical ``sqrt(K)·2^-24·(|A|@|X|) + 1e-6``
-   that separates f32 products from TF32 ones), timed as in phase 6 beside one PyTorch call
-   (``torch.isin``, ``torch.matmul``) where there is one.  Then the
+   that separates f32 products from TF32 ones), each ``block_spmm`` case
+   with the variant (kernel, tile rows, tile columns, k chunk, threads) that
+   ``ops.block_spmm_variant`` chose for it, timed as in phase 6 beside one
+   PyTorch call (``torch.isin``, ``torch.matmul``) where there is one.  Then the
    ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 """
@@ -126,6 +130,19 @@ def gpu_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_check(build) -> None:
+    """Fail unless the built ``block_spmm`` library holds tensor-core
+    (``HGMMA``) and TMA load (``UTMALDG``) instructions."""
+    lib = build.build_all(["block_spmm"])["block_spmm"]
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    print(f"sass block_spmm: {counts}", flush=True)
+    if not all(counts.values()):
+        fail(f"block_spmm's SASS lacks wgmma or TMA instructions: {counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -678,7 +695,10 @@ def wrapper_ms(fn, iters: int) -> float:
 def time_ms(fn, iters: int) -> float:
     """Device time per call.  A sleep kernel holds the stream while every
     call is enqueued, so the events bracket device work only; the sleep is
-    sized from the host time of one call and the hold is verified."""
+    sized from the host time of one call and the hold is verified.  When it
+    does not hold, the next try sleeps 4x longer over 4x fewer calls: a call
+    of many launches (``k2_range`` queues three a tree level) can fill the
+    launch queue, which then blocks the host until the sleep has ended."""
     import torch
 
     fn()
@@ -700,6 +720,7 @@ def time_ms(fn, iters: int) -> float:
         if held:
             return start.elapsed_time(end) / iters
         cycles *= 4
+        iters = max(1, iters // 4)
     fail("could not hold the stream while enqueuing the timed calls")
 
 
@@ -944,7 +965,7 @@ def spmm_inputs(side: int, d: int, device, seed: int):
     least): through the repeat branch (a level of side nb/2, each cell 2x2
     tiles) and through the OR-reduce branch (a level of side 4·nb whose
     on-cells lie in the on tiles), and the repeat branch again at 64-row
-    blocks (the same on elements; the kernel's edge instantiation).  One
+    blocks (the same on elements; 64-row kernel tiles).  One
     tile off in every mask holds NaN.  Returns A, X and {label: (mask,
     block)}."""
     import torch
@@ -1046,7 +1067,8 @@ def entry_point_phase(store, ds, intersects, device, seed: int, err: dict) -> li
         if name == "block_spmm":
             e, *ratios = spmm_check(args, kw, out)
             worst = [max(w, r) for w, r in zip(worst, ratios)]
-            print(f"block_spmm {label}: max_abs_err {e:.3g}, ratio {ratios[0]:.4f} of its bound, "
+            print(f"block_spmm {label}: variant {ops.block_spmm_variant(*args[1:], **kw)}, "
+                  f"max_abs_err {e:.3g}, ratio {ratios[0]:.4f} of its bound, "
                   f"{ratios[1]:.4f} of its statistical limit, "
                   f"{int((args[0] != 0).sum())} of {args[0].numel()} tiles on", flush=True)
         else:
@@ -1092,8 +1114,11 @@ def entry_point_phase(store, ds, intersects, device, seed: int, err: dict) -> li
         times = time_case(name, getattr(ops, name), args, kw, out, library)
         library = premasked = None
         times["label"] = label
+        if name == "block_spmm":
+            times["variant"] = ops.block_spmm_variant(*args[1:], **kw)
         by_kernel[name].append(times)
-        print(f"{name} {label}: device {times['ms']:.5f} ms, wrapper {times['wrapper_ms']:.5f}, "
+        print(f"{name} {label}: {times.get('variant', '')} "
+              f"device {times['ms']:.5f} ms, wrapper {times['wrapper_ms']:.5f}, "
               f"plain {times['plain_ms']:.5f}, library {times['library_ms']}, bound "
               f"{times['bound_ms']:.6f} ({times['bound_by']})", flush=True)
     rows = []
@@ -1151,6 +1176,7 @@ def main(argv=None) -> int:
         info = [ln.split("info    : ")[-1].strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"ptxas {name}: {'; '.join(info)}", flush=True)
+    sass_check(build)
 
     phase("3. kernels vs plain on small stores")
     err = small_store_checks(device, args.seed)

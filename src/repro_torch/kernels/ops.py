@@ -15,6 +15,7 @@ the same names and shape contracts; no query path calls them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -52,7 +53,7 @@ _SIGNATURES = {
         _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
     ]),
     "k2_range": ("k2_range_launch", [
-        _P, _I, *_FOREST, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+        _P, _I, *_FOREST, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I,
     ]),
     "k2_scan_rebind": ("k2_scan_rebind_launch", [
         _P, _P, _P, _P, _P, _I, *_FOREST, _I, _I, _P, _P,
@@ -61,7 +62,7 @@ _SIGNATURES = {
     "popcount": ("popcount_launch", [_P, _LL, _P, _P, _I]),
     "sorted_intersect_mask": ("sorted_intersect_launch", [_P, _I, _P, _I, _P, _P, _I]),
     "block_spmm": ("block_spmm_launch", [
-        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
     ]),
 }
 # the Pallas kernels' shape contracts at their default blocks
@@ -69,6 +70,10 @@ LANES = 128  # popcount: lanes a row (the TPU vreg width)
 POPCOUNT_ROWS = 8  # popcount: rows % 8
 INTERSECT_LANES = 2048  # sorted_intersect_mask: ca % min(2048, ca)
 _SPMM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# block_spmm's kernels (csrc/block_spmm.cu): wgmma output tiles, largest first
+_SPMM_CODES = {"simt": 0, "fma": 1, "wgmma": 2}
+_WGMMA_TILES = ((128, 256), (128, 128), (64, 256), (64, 128), (64, 64))
+_SIMT = ("simt", 128, 128, 16, 256)
 
 
 def reset_launches() -> None:
@@ -77,14 +82,19 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    fn = _fns.get(name)
+def _c_fn(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """``symbol`` of kernel ``name``'s library, typed (built on first use)."""
+    fn = _fns.get(symbol)
     if fn is None:
-        symbol, argtypes = _SIGNATURES[name]
         fn = getattr(build.load(name), symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
+        fn.restype = restype
+        _fns[symbol] = fn
+    return fn
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    fn = _c_fn(name, *_SIGNATURES[name])
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(*args, stream, device.index)
     if err != 0:
@@ -283,10 +293,14 @@ def k2_range(meta: K2Meta, f, preds, *, cap: int):
     rows = torch.empty((q, cap), dtype=torch.int32, device=dev)
     cols, valid, count, overflow = _outputs(dev, (q, cap))
     if q:
+        # the frontier (6·cap ints a lane) and the level counters beside it
         scratch = torch.empty((6, q, cap), dtype=torch.int32, device=dev)
+        n_counters = _c_fn("k2_range", "k2_range_counter_ints", [_I, _I], _LL)(q, cap)
+        counters = torch.empty(n_counters, dtype=torch.int32, device=dev)
         _launch("k2_range", dev, preds.data_ptr(), q, *_forest_args(meta, f),
-                cap, scratch.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-                valid.data_ptr(), count.data_ptr(), overflow.data_ptr())
+                cap, scratch.data_ptr(), counters.data_ptr(), n_counters,
+                rows.data_ptr(), cols.data_ptr(), valid.data_ptr(),
+                count.data_ptr(), overflow.data_ptr())
     return rows, cols, valid, count, overflow
 
 
@@ -367,11 +381,55 @@ def sorted_intersect_mask(a_ids, b_ids) -> torch.Tensor:
     return out
 
 
+def _spmm_variant(m: int, k: int, d: int, bm: int, bk: int, bd: int, dtype,
+                  aligned: bool, sms: int) -> tuple[str, int, int, int, int]:
+    """The kernel of ``csrc/block_spmm.cu`` that serves these shapes, as
+    ``(name, tile rows, tile columns, k chunk, threads a block)``.
+
+    Both fast kernels need A and X 16-byte aligned and BK a multiple of 16;
+    every output tile must lie in one mask row.  bf16 takes ``wgmma``: the
+    largest tile (rows dividing BM, columns dividing D) whose block count
+    reaches 3/4 of the ``sms`` multiprocessors, else the one with the most
+    blocks; k chunks of 64, or 16 when BK is not a multiple of 64.  f32
+    takes ``fma`` when BM and D are multiples of 64: 64 threads of 8 x 8
+    sums when the grid gives every SM four blocks, else 256 threads of
+    4 x 4; k chunks of 32, or 16.  Everything else takes ``simt``.
+    """
+    del k, bd  # any K, and any BD dividing D, suit every kernel
+    if not aligned or bk % 16:
+        return _SIMT
+    if dtype == torch.bfloat16:
+        fits = [(tm, tn) for tm, tn in _WGMMA_TILES if bm % tm == 0 and d % tn == 0]
+        if not fits:
+            return _SIMT
+        tm, tn = next((t for t in fits if 4 * (m // t[0]) * (d // t[1]) >= 3 * sms), fits[-1])
+        return "wgmma", tm, tn, 64 if bk % 64 == 0 else 16, 2 * tm + 32
+    if bm % 64 or d % 64:
+        return _SIMT
+    blocks = (m // 64) * (d // 64)
+    return "fma", 64, 64, 32 if bk % 32 == 0 else 16, 64 if blocks >= 4 * sms else 256
+
+
+def block_spmm_variant(a, x, *, block_m: int = 128, block_k: int = 128,
+                       block_d: int = 128) -> tuple[str, int, int, int, int]:
+    """``_spmm_variant`` for these CUDA operands: what ``block_spmm`` launches."""
+    (m, k), d = a.shape, x.shape[1]
+    aligned = a.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+    return _spmm_variant(m, k, d, block_m, block_k, block_d, a.dtype, aligned,
+                         _sm_count(a.device))
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def block_spmm(mask, a, x, *, block_m: int = 128, block_k: int = 128,
                block_d: int = 128) -> torch.Tensor:
     """``Y = A @ X`` in f32, skipping A's ``(block_m, block_k)`` tiles whose
-    int32 ``mask`` entry is 0 (``csrc/block_spmm.cu``).  A and X are both
-    f32 or both bf16; a masked-off tile is never read."""
+    int32 ``mask`` entry is 0 (``csrc/block_spmm.cu``; the kernel and tile
+    from ``block_spmm_variant``).  A and X are both f32 or both bf16; a
+    masked-off tile is never read."""
     dev = a.device
     _check_tensors(dev, mask=mask)
     _check_tensors(dev, dtypes=tuple(_SPMM_DTYPES), a=a, x=x)
@@ -391,6 +449,9 @@ def block_spmm(mask, a, x, *, block_m: int = 128, block_k: int = 128,
         return torch.zeros((m, d), dtype=torch.float32, device=dev)
     y = torch.empty((m, d), dtype=torch.float32, device=dev)
     if y.numel():
+        name, *tiling = block_spmm_variant(
+            a, x, block_m=block_m, block_k=block_k, block_d=block_d)
         _launch("block_spmm", dev, mask.data_ptr(), a.data_ptr(), x.data_ptr(),
-                _SPMM_DTYPES[a.dtype], m, k, d, block_m, block_k, block_d, y.data_ptr())
+                _SPMM_DTYPES[a.dtype], m, k, d, block_m, block_k, block_d,
+                _SPMM_CODES[name], *tiling, y.data_ptr())
     return y

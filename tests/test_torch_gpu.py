@@ -266,3 +266,114 @@ def test_block_spmm_kernel(dtype, blocks, cuda):
     on = mask.repeat_interleave(bm, 0).repeat_interleave(bk, 1) != 0
     absprod = torch.where(on, a.float().abs(), 0.0) @ x.float().abs()
     assert ((got - want).abs() <= k * 2.0**-24 * absprod + 1e-6).all()
+
+
+def _spmm_limits(mask, a, x, bm, bk, got, want):
+    """``chip_smoke.spmm_check``'s limits: ``K·2^-24·(|A|@|X|) + 1e-6`` and
+    the statistical ``sqrt(K)·2^-24·(|A|@|X|) + 1e-6``."""
+    on = mask.repeat_interleave(bm, 0).repeat_interleave(bk, 1) != 0
+    absprod = torch.where(on, a.float().abs(), 0.0) @ x.float().abs()
+    err = (got - want).abs()
+    k = a.shape[1]
+    assert (err <= k * 2.0**-24 * absprod + 1e-6).all()
+    assert (err <= k**0.5 * 2.0**-24 * absprod + 1e-6).all()
+
+
+# (M, K, D, (BM, BK, BD), dtype, the variant block_spmm_variant must pick)
+SPMM_CASES = [
+    (512, 768, 256, (128, 128, 128), torch.bfloat16, ("wgmma", 64, 64, 64, 160)),
+    (512, 768, 64, (64, 64, 64), torch.bfloat16, ("wgmma", 64, 64, 64, 160)),
+    (512, 768, 192, (256, 64, 64), torch.bfloat16, ("wgmma", 64, 64, 64, 160)),
+    (512, 768, 192, (64, 32, 64), torch.bfloat16, ("wgmma", 64, 64, 16, 160)),
+    (16384, 256, 256, (128, 64, 128), torch.bfloat16, ("wgmma", 128, 256, 64, 288)),
+    (16384, 256, 256, (128, 16, 128), torch.bfloat16, ("wgmma", 128, 256, 16, 288)),
+    (16384, 256, 128, (128, 128, 128), torch.bfloat16, ("wgmma", 128, 128, 64, 288)),
+    (4096, 256, 512, (64, 128, 128), torch.bfloat16, ("wgmma", 64, 256, 64, 160)),
+    (4096, 256, 256, (64, 128, 128), torch.bfloat16, ("wgmma", 64, 128, 64, 160)),
+    (512, 768, 256, (128, 128, 128), torch.float32, ("fma", 64, 64, 32, 256)),
+    (512, 768, 192, (64, 16, 64), torch.float32, ("fma", 64, 64, 16, 256)),
+    (16384, 256, 256, (128, 64, 128), torch.float32, ("fma", 64, 64, 32, 64)),
+    (16384, 256, 256, (64, 16, 64), torch.float32, ("fma", 64, 64, 16, 64)),
+    (240, 120, 96, (48, 24, 96), torch.bfloat16, ("simt", 128, 128, 16, 256)),
+    (240, 120, 96, (48, 24, 96), torch.float32, ("simt", 128, 128, 16, 256)),
+]
+
+
+@pytest.mark.parametrize("tiles", ["random", "all off", "one on"])
+@pytest.mark.parametrize("case", range(len(SPMM_CASES)))
+def test_block_spmm_variants(case, tiles, cuda):
+    m, k, d, (bm, bk, bd), dtype, variant = SPMM_CASES[case]
+    if torch.cuda.get_device_properties(cuda).multi_processor_count != 132:
+        pytest.skip("the expected tiles assume an H100's 132 SMs")
+    g = torch.Generator(device=cuda).manual_seed(case)
+    shape = (m // bm, k // bk)
+    if tiles == "random":
+        mask = (torch.rand(shape, generator=g, device=cuda) < 0.4).to(torch.int32)
+        mask[0, 0], mask[-1, -1] = -3, 0
+    else:
+        mask = torch.zeros(shape, dtype=torch.int32, device=cuda)
+        if tiles == "one on":
+            mask[shape[0] // 2, shape[1] // 2] = 1
+    a = (torch.rand((m, k), generator=g, device=cuda) < 0.05).to(dtype)
+    x = torch.randn((k, d), generator=g, device=cuda).to(dtype)
+    off = (mask == 0).nonzero()
+    i, j = (int(v) for v in off[-1])
+    a[i * bm:(i + 1) * bm, j * bk:(j + 1) * bk] = float("nan")  # a masked-off tile
+    kw = dict(block_m=bm, block_k=bk, block_d=bd)
+    assert ops.block_spmm_variant(a, x, **kw) == variant
+    n0 = ops.LAUNCHES["block_spmm"]
+    got = ops.block_spmm(mask, a, x, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["block_spmm"] == n0 + 1
+    want = ref.block_spmm_ref(mask, a, x, bm, bk)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    _spmm_limits(mask, a, x, bm, bk, got, want)
+    if tiles == "all off":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_spmm_unaligned_view(dtype, cuda):
+    """A and X as views 2 elements into their buffers take the SIMT kernel."""
+    m, k, d = 256, 256, 128
+    g = torch.Generator(device=cuda).manual_seed(9)
+    buf_a = torch.randn(m * k + 2, generator=g, device=cuda).to(dtype)
+    buf_x = torch.randn(k * d + 2, generator=g, device=cuda).to(dtype)
+    a, x = buf_a[2:].view(m, k), buf_x[2:].view(k, d)
+    mask = torch.tensor([[1, 0], [-1, 1]], dtype=torch.int32, device=cuda)
+    assert a.data_ptr() % 16 and ops.block_spmm_variant(a, x)[0] == "simt"
+    got = ops.block_spmm(mask, a, x)
+    _spmm_limits(mask, a, x, 128, 128, got, ref.block_spmm_ref(mask, a, x))
+
+
+@pytest.fixture(scope="module")
+def skewed_forest(cuda):
+    """Four trees of one 4096-side geometry: 200,000 pairs, 1,500, 15, none."""
+    from repro_torch.core import k2forest, k2tree
+
+    meta = k2tree.K2Meta(k2tree.hybrid_ks(4096))
+    rng = np.random.default_rng(21)
+    coords = []
+    for n in (200_000, 1_500, 15, 0):
+        cells = rng.choice(4096 * 4096, n, replace=False)
+        coords.append((cells // 4096, cells % 4096))
+    f, _ = k2forest.build_forest(coords, meta, cuda)
+    return meta, f
+
+
+@pytest.mark.parametrize("cap", [8, 1000, 1 << 18])
+def test_k2_range_skewed_lanes(skewed_forest, cap, cuda):
+    """Lanes of 200,000 and 15 pairs in one launch; cap 8 cuts level 0 (16
+    root children set), 1000 a middle level, 2^18 nothing."""
+    meta, f = skewed_forest
+    preds = torch.tensor([0, 1, 2, 3, 0, -4, 7, 2], dtype=torch.int32, device=cuda)
+    n0 = ops.LAUNCHES["k2_range"]
+    got = ops.k2_range(meta, f, preds, cap=cap)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["k2_range"] == n0 + 1
+    want = ref.k2_range_ref(meta, f.t_words, f.t_rank, f.l_words, f.ones_before,
+                            f.level_start, preds, cap=cap)
+    _equal(got, want)
+    count, overflow = got[3].tolist(), got[4].tolist()
+    assert count[:4] == [min(n, cap) for n in (200_000, 1_500, 15, 0)]
+    assert overflow[:4] == [cap < 200_000, cap < 1_500, cap < 15, False]

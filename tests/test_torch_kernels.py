@@ -300,6 +300,50 @@ def test_block_spmm_contract():
             ops.block_spmm(*args)
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("shape,dtype,aligned,want", [
+    # bf16 on the grid: wgmma, the largest tile that gives 3/4 of 132 SMs a block
+    ((16384, 16384, 256, 128, 128, 128), BF16, True, ("wgmma", 128, 256, 64, 288)),
+    ((16384, 256, 128, 128, 128, 128), BF16, True, ("wgmma", 128, 128, 64, 288)),
+    ((16384, 16384, 256, 64, 64, 64), BF16, True, ("wgmma", 64, 256, 64, 160)),
+    ((4096, 256, 256, 64, 128, 128), BF16, True, ("wgmma", 64, 128, 64, 160)),
+    # no tile reaches 3/4 of the SMs: the one with the most blocks
+    ((1024, 1024, 512, 128, 128, 128), BF16, True, ("wgmma", 64, 64, 64, 160)),
+    # BK a multiple of 16 but not of 64: 16-wide k chunks
+    ((512, 768, 192, 64, 32, 64), BF16, True, ("wgmma", 64, 64, 16, 160)),
+    ((16384, 256, 256, 128, 16, 128), BF16, True, ("wgmma", 128, 256, 16, 288)),
+    # f32 on the grid: fma, 64 threads of 8 x 8 sums once every SM gets 4 blocks
+    ((16384, 16384, 256, 128, 128, 128), F32, True, ("fma", 64, 64, 32, 64)),
+    ((16384, 16384, 256, 64, 64, 64), F32, True, ("fma", 64, 64, 32, 64)),
+    ((16384, 256, 256, 64, 16, 64), F32, True, ("fma", 64, 64, 16, 64)),
+    ((1024, 1024, 512, 128, 128, 128), F32, True, ("fma", 64, 64, 32, 256)),
+    ((512, 768, 256, 64, 16, 64), F32, True, ("fma", 64, 64, 16, 256)),
+    # off the grid: the SIMT kernel
+    ((512, 512, 256, 128, 128, 128), BF16, False, ("simt", 128, 128, 16, 256)),
+    ((512, 512, 256, 128, 128, 128), F32, False, ("simt", 128, 128, 16, 256)),
+    ((240, 120, 96, 48, 24, 96), BF16, True, ("simt", 128, 128, 16, 256)),
+    ((512, 120, 256, 128, 24, 128), BF16, True, ("simt", 128, 128, 16, 256)),
+    ((512, 120, 256, 128, 24, 128), F32, True, ("simt", 128, 128, 16, 256)),
+    ((512, 512, 96, 128, 128, 96), BF16, True, ("simt", 128, 128, 16, 256)),
+    ((512, 512, 96, 128, 128, 96), F32, True, ("simt", 128, 128, 16, 256)),
+    ((256, 256, 256, 32, 128, 128), F32, True, ("simt", 128, 128, 16, 256)),
+])
+def test_spmm_variant(shape, dtype, aligned, want):
+    assert ops._spmm_variant(*shape, dtype, aligned, 132) == want
+
+
+def test_spmm_variant_follows_the_card():
+    """A card of fewer SMs takes the larger tile, or the larger thread
+    tile, sooner."""
+    shape = (4096, 256, 256, 128, 128, 128)
+    assert ops._spmm_variant(*shape, BF16, True, 132) == ("wgmma", 64, 128, 64, 160)
+    assert ops._spmm_variant(*shape, BF16, True, 40) == ("wgmma", 128, 256, 64, 288)
+    assert ops._spmm_variant(*shape, F32, True, 132)[-1] == 256
+    assert ops._spmm_variant(*shape, F32, True, 64)[-1] == 64
+
+
 @pytest.mark.parametrize("side,side_l,block,density", [
     (512, 2, 128, 0.5),  # repeat: region 256 >= 128
     (1024, 8, 128, 0.3),  # region == block

@@ -273,3 +273,35 @@ def test_slice2_pallas_kernels_as_reference():
                 jpredindex.gather_batch(jpmeta, jdev, jnp.asarray(rows), cap, PALLAS),
                 ("ids", "valid", "count", "overflow"),
             )
+
+
+def _morton_pairs(meta, rows, cols):
+    """A tree's pairs sorted in Morton order: by the level digits
+    ``(r // sub % k) · k + c // sub % k``, root level first."""
+    digits = [(rows // sub % k) * k + cols // sub % k
+              for k, sub in zip(meta.ks, meta.subsides)]
+    order = np.lexsort(digits[::-1])
+    return rows[order], cols[order]
+
+
+def test_range_cap_cuts_a_middle_level():
+    """cap holds every node of the shallow levels but not those of a middle
+    one: overflow is set and the lane holds exactly the first cap pairs in
+    Morton order, as in JAX's jnp traversal."""
+    st, jst, ids = build_pair("preds16")
+    meta = st.meta
+    p = int(np.bincount(ids[:, 1]).argmax())  # 1-based
+    rows, cols = ids[ids[:, 1] == p, 0] - 1, ids[ids[:, 1] == p, 2] - 1
+    nodes = [np.unique((rows // sub) * (meta.side // sub + 1) + cols // sub).size
+             for sub in meta.subsides]
+    cut = next(j for j in range(2, meta.n_levels - 1) if nodes[j] > nodes[j - 1])
+    cap = nodes[cut - 1]  # holds levels 0..cut-1, not level `cut`
+    assert nodes[0] < nodes[1] <= cap < rows.size
+    preds = np.array([p - 1, p - 1, 0, st.n_preds - 1], np.int32)
+    got = k2forest.range_scan_batch(meta, st.forest, _t(preds), cap)
+    want = jk2forest.range_scan_batch(jst.meta, jst.forest, jnp.asarray(preds), cap, JNP)
+    _same_tuple(got, want, PAIR_FIELDS)
+    assert bool(got.overflow[0]) and int(got.count[0]) == cap
+    r, c = _morton_pairs(meta, rows, cols)
+    assert np.array_equal(got.rows[0][got.valid[0]].numpy(), r[:cap])
+    assert np.array_equal(got.cols[0][got.valid[0]].numpy(), c[:cap])
