@@ -7,9 +7,11 @@ Phases (any failure exits non-zero before the result line):
 
 1. refuse to run without a CUDA card or outside a checkout; print the card;
 2. build the nine CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` each, in parallel), print ptxas registers / smem / spills, and
-   fail unless ``cuobjdump -sass`` of the ``block_spmm`` library shows
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions;
+   ``nvcc`` each, in parallel), print ptxas registers / smem / spills, fail
+   if the warp-per-lane scan kernel spills in ``k2_scan`` or
+   ``k2_scan_rebind``, and fail unless ``cuobjdump -sass`` of the
+   ``block_spmm`` library shows ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+   load) instructions;
 3. hold each kernel against its plain torch version on the card, bit for
    bit: a 600-predicate store (two-level DAC, 2-byte predicate ids), a
    20-predicate store (1-byte ids), cap-overflow cases, predicates out of
@@ -32,11 +34,13 @@ Phases (any failure exits non-zero before the result line):
    cap_y 256); every answer must match the numpy oracle, every kernel of
    the path must have launched, and each shape's and category's host-clock
    latency is printed;
-6. time each path kernel at the main-path shapes (CUDA events around
-   calls enqueued behind a sleep kernel, so host launch overhead is
-   excluded; the wrapper's back-to-back time is reported beside it) and
-   its plain version back to back, and its device and bound ms summed
-   over every recorded call of the serve step and of phase 5b;
+6. time each path kernel at every distinct shape recorded on the serve
+   step and in phase 5b, ``k2_scan`` also at Q=1 (one lane's latency)
+   (CUDA events around calls enqueued behind a sleep kernel, so host
+   launch overhead is excluded; the wrapper's back-to-back time is
+   reported beside it) and its plain version back to back, and its device
+   and bound ms summed over every recorded call of the serve step and of
+   phase 5b;
 7. kernel entry points: first at small sizes against their plain versions
    (``popcount`` also on an unaligned view; ``sorted_intersect_mask`` with
    cb = 1, 3, a power of two, negative ids, ids above max(b), repeated
@@ -66,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -143,6 +148,19 @@ def sass_check(build) -> None:
     print(f"sass block_spmm: {counts}", flush=True)
     if not all(counts.values()):
         fail(f"block_spmm's SASS lacks wgmma or TMA instructions: {counts}")
+
+
+def spill_check(build) -> None:
+    """Fail if ptxas spilled registers of the scan kernel (its lane state
+    must stay in registers)."""
+    for name in ("k2_scan", "k2_scan_rebind"):
+        log = build.ptxas_report().get(name)
+        if log is None:
+            print(f"spills {name}: built by an earlier process, no ptxas report", flush=True)
+            continue
+        spilled = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
+        if not spilled or any(spilled):
+            fail(f"ptxas spill report for {name}: {spilled}")
 
 
 # ---------------------------------------------------------------------------
@@ -912,6 +930,18 @@ def path_ms(name, *recorders) -> dict:
     return out
 
 
+def main_path_shapes(name, *recorders):
+    """Every recorded call of kernel ``name`` on the serve step and on phase
+    5b, and for ``k2_scan`` also the serve step's first lane alone (Q=1):
+    one lane's latency."""
+    calls = [c for recorder in recorders for c in recorder.calls[name]]
+    if name == "k2_scan" and calls:
+        (meta, f, *lanes), kw, _ = calls[0]
+        one = (meta, f, *(t[:1].contiguous() for t in lanes))
+        calls.append((one, kw, recorders[0].orig[name](*one, **kw)))
+    return calls
+
+
 def time_case(name, fn, args, kw, out, library=None) -> dict:
     """One call's times: device ms (CUDA events around calls queued behind a
     sleep kernel), the wrapper's and the plain version's ms (back to back,
@@ -1177,6 +1207,7 @@ def main(argv=None) -> int:
                 if "registers" in ln or "spill" in ln]
         print(f"ptxas {name}: {'; '.join(info)}", flush=True)
     sass_check(build)
+    spill_check(build)
 
     phase("3. kernels vs plain on small stores")
     err = small_store_checks(device, args.seed)
@@ -1299,14 +1330,13 @@ def main(argv=None) -> int:
     phase("6. kernel times at the main-path shapes")
     rows = []
     for name in QUERY_KERNELS:
-        recorder = rec if name in SERVE_KERNELS else rec_q
         best, shapes, seen = None, {}, set()
-        for cargs, kw, out in recorder.calls[name]:
+        for cargs, kw, out in main_path_shapes(name, rec, rec_q):
             key = (tuple(tuple(t.shape) for t in cargs[2:]), tuple(sorted(kw.items())))
             if key in seen:
                 continue
             seen.add(key)
-            times = time_case(name, recorder.orig[name], cargs, kw, out)
+            times = time_case(name, rec.orig[name], cargs, kw, out)
             q = cargs[2].shape[0]
             shapes[",".join([f"Q={q}"] + [f"{k}={v}" for k, v in sorted(kw.items())])] = times
             if best is None or q > best[0]:

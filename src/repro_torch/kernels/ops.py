@@ -42,8 +42,7 @@ _SIGNATURES = {
         _P, _P, _I,
     ]),
     "k2_scan": ("k2_scan_launch", [
-        _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _IA, _IA, _I,
-        _I, _P, _P, _P, _P, _P, _P, _I,
+        _P, _P, _P, _I, *_FOREST, _I, _I, _P, _LL, _P, _P, _P, _P, _P, _I,
     ]),
     "pred_gather_dac": ("pred_gather_dac_launch", [
         _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _IA, _IA, _I, _I,
@@ -56,8 +55,8 @@ _SIGNATURES = {
         _P, _I, *_FOREST, _I, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I,
     ]),
     "k2_scan_rebind": ("k2_scan_rebind_launch", [
-        _P, _P, _P, _P, _P, _I, *_FOREST, _I, _I, _P, _P,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+        _P, _P, _P, _P, _P, _I, *_FOREST, _I, _I, _I, _I, _P, _LL,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
     ]),
     "popcount": ("popcount_launch", [_P, _LL, _P, _P, _I]),
     "sorted_intersect_mask": ("sorted_intersect_launch", [_P, _I, _P, _I, _P, _P, _I]),
@@ -171,6 +170,15 @@ def _outputs(dev: torch.device, shape: tuple):
     )
 
 
+def _scan_grid(name: str, device: torch.device, lanes: int, cap: int) -> tuple[int, int]:
+    """(blocks, spill ints) of one launch of the warp-per-lane scan kernel
+    (``csrc/k2_scan_lane.cuh``) in library ``name`` over ``lanes`` lanes."""
+    blocks = _c_fn(name, f"{name}_blocks", [_LL, _I])(lanes, device.index)
+    if blocks < 1:
+        raise RuntimeError(f"{name}: no grid for {lanes} lanes: CUDA error {-blocks}")
+    return blocks, _c_fn(name, f"{name}_spill_ints", [_I, _I], _LL)(blocks, cap)
+
+
 def k2_check(meta: K2Meta, f, preds, rows, cols) -> torch.Tensor:
     """Batched (S, P, O) probe over the forest -> bool[Q] (``csrc/k2_check.cu``)."""
     dev = preds.device
@@ -205,10 +213,11 @@ def k2_scan(meta: K2Meta, f, preds, keys, axes, *, cap: int):
         )
     ids, valid, count, overflow = _outputs(dev, (q, cap))
     if q:
-        scratch = torch.empty((4, q, cap), dtype=torch.int32, device=dev)
+        blocks, spill = _scan_grid("k2_scan", dev, q, cap)
+        scratch = torch.empty(max(spill, 1), dtype=torch.int32, device=dev)
         _launch("k2_scan", dev, preds.data_ptr(), keys.data_ptr(),
-                axes.data_ptr(), q, *_forest_args(meta, f), cap,
-                scratch.data_ptr(), ids.data_ptr(), valid.data_ptr(),
+                axes.data_ptr(), q, *_forest_args(meta, f), cap, blocks,
+                scratch.data_ptr(), spill, ids.data_ptr(), valid.data_ptr(),
                 count.data_ptr(), overflow.data_ptr())
     return ids, valid, count, overflow
 
@@ -323,15 +332,21 @@ def k2_scan_rebind(meta: K2Meta, f, preds1, keys1, axes1, preds2, axes2, *,
             f.level_start, preds1, keys1, axes1, preds2, axes2,
             cap_x=cap_x, cap_y=cap_y,
         )
+    if q * cap_x > 2**31 - 1:
+        raise ValueError(f"{q} query lanes x cap_x {cap_x} exceed 2^31 - 1 Y lanes")
     x = _outputs(dev, (q, cap_x))
     y = _outputs(dev, (q, cap_x, cap_y))
     if q:
-        scratch_x = torch.empty((4, q, cap_x), dtype=torch.int32, device=dev)
-        scratch_y = torch.empty((4, q * cap_x, cap_y), dtype=torch.int32, device=dev)
+        # the X scans and each query lane's key-0 scan, then the Y lanes
+        blocks_x, spill_x = _scan_grid("k2_scan_rebind", dev, 2 * q, max(cap_x, cap_y))
+        blocks_y, spill_y = _scan_grid("k2_scan_rebind", dev, q * cap_x, cap_y)
+        spill = max(spill_x, spill_y)  # the phases run one after the other
+        scratch = torch.empty(max(spill, 1), dtype=torch.int32, device=dev)
+        zero = _outputs(dev, (q, cap_y))  # each query lane's key-0 scan
         _launch("k2_scan_rebind", dev, preds1.data_ptr(), keys1.data_ptr(),
                 axes1.data_ptr(), preds2.data_ptr(), axes2.data_ptr(), q,
-                *_forest_args(meta, f), cap_x, cap_y, scratch_x.data_ptr(),
-                scratch_y.data_ptr(), *(t.data_ptr() for t in x + y))
+                *_forest_args(meta, f), cap_x, cap_y, blocks_x, blocks_y,
+                scratch.data_ptr(), spill, *(t.data_ptr() for t in x + zero + y))
     return x + y
 
 

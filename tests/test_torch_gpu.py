@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import engine as eng, k2triples
+from repro_torch.core import bitvec, engine as eng, k2triples
 from repro_torch.core.query import ExecConfig, JoinQ, ServeQ, TriplePatternQ
 from repro_torch.data import rdf
 from repro_torch.kernels import ops, ref
@@ -377,3 +377,158 @@ def test_k2_range_skewed_lanes(skewed_forest, cap, cuda):
     count, overflow = got[3].tolist(), got[4].tolist()
     assert count[:4] == [min(n, cap) for n in (200_000, 1_500, 15, 0)]
     assert overflow[:4] == [cap < 200_000, cap < 1_500, cap < 15, False]
+
+
+def _scan_both(meta, f, preds, keys, axes, cap):
+    n0 = ops.LAUNCHES["k2_scan"]
+    got = ops.k2_scan(meta, f, preds, keys, axes, cap=cap)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["k2_scan"] == n0 + 1
+    want = ref.k2_scan_ref(meta, f.t_words, f.t_rank, f.l_words, f.ones_before,
+                           f.level_start, preds, keys, axes, cap=cap)
+    _equal(got, want)
+    return got
+
+
+@pytest.fixture(scope="module")
+def wide_forest(cuda):
+    """One tree (P=1) of the 4096-side geometry: rows 5 and 4000 and columns
+    9 and 4095 full, plus 2,000 random cells, so a lane's frontier reaches
+    4,096 nodes: far above a warp and the shared-memory slab."""
+    from repro_torch.core import k2forest, k2tree
+
+    meta = k2tree.K2Meta(k2tree.hybrid_ks(4096))
+    rng = np.random.default_rng(31)
+    full = np.arange(4096)
+    rows = np.concatenate([np.full(4096, 5), np.full(4096, 4000), full, full,
+                           rng.integers(0, 4096, 2000)])
+    cols = np.concatenate([full, full, np.full(4096, 9), np.full(4096, 4095),
+                           rng.integers(0, 4096, 2000)])
+    cells = np.unique(rows * 4096 + cols)
+    f, _ = k2forest.build_forest([(cells // 4096, cells % 4096)], meta, cuda)
+    return meta, f
+
+
+@pytest.mark.parametrize("cap", [1, 31, 32, 33, 64, 127, 128, 129, 255, 256, 257, 4096, 5000])
+def test_k2_scan_wide_frontier(wide_forest, cap, cuda):
+    """Full rows and columns at caps around a warp (32), a round (128
+    candidates) and the shared-memory slab (256 entries), exactly the
+    frontier (4096) and above it; P=1 with predicates and keys out of range
+    on both sides; Q=33, not a multiple of the lanes a block."""
+    meta, f = wide_forest
+    rng = np.random.default_rng(cap)
+    keys = np.concatenate([[5, 9, 4000, 4095, 5, 9, -1, 4096, -5000, 9000],
+                           rng.integers(0, 4096, 23)]).astype(np.int32)
+    axes = np.concatenate([[0, 1, 0, 1, 1, 0, 0, 1, 0, 1],
+                           rng.integers(0, 2, 23)]).astype(np.int32)
+    preds = np.concatenate([[0, -1, 3, -7, 0, 0, 0, 0, 2, -2],
+                            rng.integers(-3, 4, 23)]).astype(np.int32)
+    got = _scan_both(meta, f, *(torch.from_numpy(a).to(cuda) for a in (preds, keys, axes)),
+                     cap)
+    count, overflow = got[2].tolist(), got[3].tolist()
+    assert count[:4] == [min(4096, cap)] * 4
+    assert overflow[:4] == [cap < 4096] * 4
+    assert torch.equal(got[0][0, :count[0]].cpu(), torch.arange(count[0], dtype=torch.int32))
+
+
+def test_k2_scan_rebind_wide_frontier(wide_forest, cuda):
+    """X = the first 300 columns of full row 5 (beyond the slab), each
+    re-bound as a column scan at cap_y 260: column 9's 4,096 rows overflow
+    it, and the dead X slots of a short lane copy its key-0 scan."""
+    meta, f = wide_forest
+    t = lambda v: torch.tensor(v, dtype=torch.int32, device=cuda)  # noqa: E731
+    preds1, keys1, axes1 = t([0, 0, 0]), t([5, 77, -3]), t([0, 1, 0])
+    preds2, axes2 = t([0, -1, 0]), t([1, 0, 1])
+    got = ops.k2_scan_rebind(meta, f, preds1, keys1, axes1, preds2, axes2,
+                             cap_x=300, cap_y=260)
+    torch.cuda.synchronize()
+    want = ref.k2_scan_rebind_ref(meta, f.t_words, f.t_rank, f.l_words,
+                                  f.ones_before, f.level_start, preds1, keys1,
+                                  axes1, preds2, axes2, cap_x=300, cap_y=260)
+    _equal(got, want)
+    assert bool(got[3][0]) and bool(got[7][0, 9]) and (~got[1][1]).any()
+
+
+@pytest.mark.parametrize("cap", [8, 64, 1000])
+def test_k2_scan_skewed_lanes(skewed_forest, cap, cuda):
+    """Lanes of the 200,000 / 1,500 / 15 / 0-pair trees mixed in one launch."""
+    meta, f = skewed_forest
+    rng = np.random.default_rng(cap)
+    q = 300
+    preds = _lanes(rng, q, -6, 8, cuda)
+    keys = _lanes(rng, q, -3, 4100, cuda)
+    axes = _lanes(rng, q, 0, 2, cuda)
+    got = _scan_both(meta, f, preds, keys, axes, cap)
+    # a line of the dense tree holds ~49 cells; its frontier has 256 nodes
+    # at the 16-side level, so caps 8 and 64 overflow there, 1000 nowhere
+    dense = (bitvec.row_index(preds, 4) == 0) & (keys >= 0) & (keys < 4096)
+    if cap == 1000:
+        assert bool((got[2][dense] > 20).all()) and not bool(got[3][dense].any())
+    else:
+        assert bool(got[3][dense].all())
+
+
+@pytest.mark.parametrize("q", [1, 7, 33, 300, 301])
+def test_k2_scan_lane_counts(store, q, cuda):
+    """Batches of 1, 7, 33, 300 and 301 lanes (4 a block): 1, 7, 33 and 301
+    end in a partial block."""
+    st, ds = store
+    f, meta = st.forest, st.meta
+    rng = np.random.default_rng(q)
+    rows = ds.ids[rng.integers(0, ds.n_triples, q)]
+    axes = _lanes(rng, q, 0, 2, cuda)
+    preds = torch.from_numpy((rows[:, 1] - 1).astype(np.int32)).to(cuda)
+    keys = torch.from_numpy(np.where(axes.cpu().numpy() == 0, rows[:, 0] - 1,
+                                     rows[:, 2] - 1).astype(np.int32)).to(cuda)
+    got = _scan_both(meta, f, preds, keys, axes, 16)
+    assert bool((got[2] > 0).all())  # every lane holds its own triple
+
+
+def test_k2_scan_rebind_beyond_resident_warps(store, cuda):
+    """48 × 256 = 12,288 Y lanes: more than the grid's warps, so warps run
+    several lanes each; nearly every X slot is dead."""
+    st, ds = store
+    f, meta = st.forest, st.meta
+    rng = np.random.default_rng(48)
+    q, cap_x, cap_y = 48, 256, 8
+    rows = ds.ids[rng.integers(0, ds.n_triples, q)]
+    axes1 = _lanes(rng, q, 0, 2, cuda)
+    preds1 = torch.from_numpy((rows[:, 1] - 1).astype(np.int32)).to(cuda)
+    keys1 = torch.from_numpy(np.where(axes1.cpu().numpy() == 0, rows[:, 0] - 1,
+                                      rows[:, 2] - 1).astype(np.int32)).to(cuda)
+    preds2 = _wild_preds(rng, st.n_preds, q, cuda)
+    axes2 = _lanes(rng, q, 0, 2, cuda)
+    blocks, _ = ops._scan_grid("k2_scan_rebind", cuda, q * cap_x, cap_y)
+    assert ops._scan_grid("k2_scan_rebind", cuda, 2 * q * cap_x, cap_y)[0] == blocks
+    got = ops.k2_scan_rebind(meta, f, preds1, keys1, axes1, preds2, axes2,
+                             cap_x=cap_x, cap_y=cap_y)
+    torch.cuda.synchronize()
+    want = ref.k2_scan_rebind_ref(meta, f.t_words, f.t_rank, f.l_words,
+                                  f.ones_before, f.level_start, preds1, keys1,
+                                  axes1, preds2, axes2, cap_x=cap_x, cap_y=cap_y)
+    _equal(got, want)
+    assert (~got[1]).float().mean() > 0.9
+
+
+def test_k2_scan_repeated_lanes(store, cuda):
+    """20,000 lanes in runs of equal (pred, key, axis), as join F's flat scan
+    sends them, so a warp's run of lanes repeats scans; runs that differ
+    only in the axis, in the key, or in a predicate that wraps to the same
+    tree (-1 and P - 1) sit side by side."""
+    st, ds = store
+    f, meta = st.forest, st.meta
+    rng = np.random.default_rng(20)
+    rows = ds.ids[rng.integers(0, ds.n_triples, 2000)]
+    preds, keys, axes = [], [], []
+    for r in rows:
+        length = int(rng.integers(1, 40))
+        p, axis = int(r[1]) - 1, int(rng.integers(0, 2))
+        key = int(r[0] if axis == 0 else r[2]) - 1
+        for p_, k_, a_ in ((p, key, axis), (p - st.n_preds, key, axis),
+                           (p, key, 1 - axis), (p, key + 1, axis)):
+            preds += [p_] * length
+            keys += [k_] * length
+            axes += [a_] * length
+    t = lambda v: torch.tensor(v[:20_000], dtype=torch.int32, device=cuda)  # noqa: E731
+    got = _scan_both(meta, f, t(preds), t(keys), t(axes), 8)
+    assert bool((got[2] > 0).any())

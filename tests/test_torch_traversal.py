@@ -8,6 +8,8 @@ multi-level DAC store.  One tiny case per kernel also runs the Pallas
 kernel itself in interpret mode as the reference.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -305,3 +307,43 @@ def test_range_cap_cuts_a_middle_level():
     r, c = _morton_pairs(meta, rows, cols)
     assert np.array_equal(got.rows[0][got.valid[0]].numpy(), r[:cap])
     assert np.array_equal(got.cols[0][got.valid[0]].numpy(), c[:cap])
+
+
+@functools.cache
+def _wide_row_pair():
+    """Two trees of the 4096-side geometry built by both packages: tree 0
+    holds row 5 and column 9 full plus 300 random cells, tree 1 only 300
+    random cells.  A full row's frontier is 4, 16, 64, 256, 1024, 2048 and
+    4096 nodes, level by level."""
+    from repro_torch.core import k2tree
+
+    rng = np.random.default_rng(12)
+    full = np.arange(4096)
+    coords = []
+    for rows, cols in (
+        (np.concatenate([np.full(4096, 5), full]), np.concatenate([full, np.full(4096, 9)])),
+        (np.zeros(0, np.int64), np.zeros(0, np.int64)),
+    ):
+        cells = np.unique(np.concatenate([rows * 4096 + cols, rng.integers(0, 4096**2, 300)]))
+        coords.append((cells // 4096, cells % 4096))
+    meta = k2tree.K2Meta(k2tree.hybrid_ks(4096))
+    jmeta = jk2tree.K2Meta(jk2tree.hybrid_ks(4096))
+    return meta, k2forest.build_forest(coords, meta, "cpu")[0], jmeta, jk2forest.build_forest(coords, jmeta)[0]
+
+
+@pytest.mark.parametrize("cap", [2, 31, 32, 33, 100])
+def test_scan_wide_rows_matches_jax(cap):
+    """The plain scan against the jnp traversal where frontiers are wide:
+    cap 2 cuts level 0 (4 root children), 31–33 straddle a warp's 32 at
+    level 2 (64 nodes), 100 cuts level 3 (256) in the middle of the tree."""
+    meta, f, jmeta, jf = _wide_row_pair()
+    preds = np.array([0, 0, 1, -1, 0, 2, -3, 0], np.int32)
+    keys = np.array([5, 9, 5, 9, 77, 5, 1234, -2], np.int32)
+    axes = np.array([0, 1, 0, 1, 0, 1, 1, 0], np.int32)
+    got = k2forest.scan_batch_mixed(meta, f, _t(preds), _t(keys), _t(axes), cap)
+    want = jk2forest.scan_batch_mixed(
+        jmeta, jf, jnp.asarray(preds), jnp.asarray(keys), jnp.asarray(axes), cap, JNP,
+    )
+    _same_result(got, want)
+    assert got.overflow[:2].all() and (got.count[:2] == cap).all()
+    assert np.array_equal(got.ids[0][:cap].numpy(), np.arange(cap))
