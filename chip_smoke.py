@@ -7,9 +7,10 @@ Phases (any failure exits non-zero before the result line):
 
 1. refuse to run without a CUDA card or outside a checkout; print the card;
 2. build the nine CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` each, in parallel), print ptxas registers / smem / spills, fail
-   if the warp-per-lane scan kernel spills in ``k2_scan`` or
-   ``k2_scan_rebind``, and fail unless ``cuobjdump -sass`` of the
+   ``nvcc`` each, in parallel) and the empty ``launch_floor`` kernel, print
+   ptxas registers / smem / spills, fail if the warp-per-lane kernels spill
+   (``k2_scan``, ``k2_scan_rebind``, ``k2_check``, ``pred_gather_dac``),
+   and fail unless ``cuobjdump -sass`` of the
    ``block_spmm`` library shows ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
    load) instructions;
 3. hold each kernel against its plain torch version on the card, bit for
@@ -35,12 +36,13 @@ Phases (any failure exits non-zero before the result line):
    the path must have launched, and each shape's and category's host-clock
    latency is printed;
 6. time each path kernel at every distinct shape recorded on the serve
-   step and in phase 5b, ``k2_scan`` also at Q=1 (one lane's latency)
-   (CUDA events around calls enqueued behind a sleep kernel, so host
-   launch overhead is excluded; the wrapper's back-to-back time is
-   reported beside it) and its plain version back to back, and its device
-   and bound ms summed over every recorded call of the serve step and of
-   phase 5b;
+   step and in phase 5b, ``k2_scan``, ``k2_check`` and ``pred_gather_dac``
+   also at Q=1 (one lane's latency) (CUDA events around calls enqueued
+   behind a sleep kernel, so host launch overhead is excluded; the
+   wrapper's back-to-back time is reported beside it) and its plain
+   version back to back, and its device and bound ms summed over every
+   recorded call of the serve step and of phase 5b; then the launch floor,
+   an empty kernel timed the same way;
 7. kernel entry points: first at small sizes against their plain versions
    (``popcount`` also on an unaligned view; ``sorted_intersect_mask`` with
    cb = 1, 3, a power of two, negative ids, ids above max(b), repeated
@@ -151,9 +153,9 @@ def sass_check(build) -> None:
 
 
 def spill_check(build) -> None:
-    """Fail if ptxas spilled registers of the scan kernel (its lane state
-    must stay in registers)."""
-    for name in ("k2_scan", "k2_scan_rebind"):
+    """Fail if ptxas spilled registers of a warp-per-lane kernel (its lane
+    state must stay in registers)."""
+    for name in ("k2_scan", "k2_scan_rebind", "k2_check", "pred_gather_dac"):
         log = build.ptxas_report().get(name)
         if log is None:
             print(f"spills {name}: built by an earlier process, no ptxas report", flush=True)
@@ -775,6 +777,29 @@ def _scan_work(meta, ids, valid) -> tuple[float, int]:
     return arena, cand
 
 
+def _check_levels(meta, f, preds, rows, cols) -> int:
+    """Tree levels the check lanes read, summed: each lane's levels down to
+    its first 0 bit, all H for a hit (the walk of ``ref.k2_check_ref``)."""
+    import torch
+
+    from repro_torch.core import bitvec, k2tree
+
+    p = bitvec.row_index(preds, f.t_words.shape[0])
+    rd, cd = k2tree.row_digits(meta, rows), k2tree.row_digits(meta, cols)
+    alive = torch.ones(rows.shape, dtype=torch.bool, device=rows.device)
+    walked = torch.zeros(rows.shape, dtype=torch.int64, device=rows.device)
+    pos = rd[0] * meta.ks[0] + cd[0]
+    for lvl in range(meta.n_levels):
+        walked += alive
+        last = lvl == meta.n_levels - 1
+        alive &= bitvec.get_bit_2d(f.l_words if last else f.t_words, p, pos) == 1
+        if not last:
+            j = bitvec.rank1_2d(f.t_words, f.t_rank, p, pos) - f.ones_before[p, lvl]
+            pos = f.level_start[p, lvl + 1] + j * meta.radices[lvl + 1] + (
+                rd[lvl + 1] * meta.ks[lvl + 1] + cd[lvl + 1])
+    return int(walked.sum().item())
+
+
 def _word_span(ranges) -> int:
     """Number of distinct words covered by inclusive ``(lo, hi)`` ranges."""
     n, end = 0, -1
@@ -894,11 +919,10 @@ def bound(name, args, kw, out) -> tuple[float, str, int, int]:
         nbytes = 4 * q + 9 * q * cap + 5 * q + arena
         ops_ = OPS_PER_CANDIDATE * cand + 3 * q * cap
     elif name == "k2_check":
-        meta = meta_or_pmeta
-        hit = out.cpu().numpy()
-        q = hit.size
-        nbytes = 13 * q + hit.sum() * meta.n_levels * 8 + (q - hit.sum()) * 4
-        ops_ = 25 * meta.n_levels * hit.sum() + 25 * (q - hit.sum())
+        q = out.numel()
+        walked = _check_levels(meta_or_pmeta, store_part, *args)
+        nbytes = 13 * q + 8 * walked
+        ops_ = 25 * walked
     elif name == "pred_gather":
         pm = meta_or_pmeta
         count = out[2].cpu().numpy().clip(min=0)
@@ -932,14 +956,34 @@ def path_ms(name, *recorders) -> dict:
 
 def main_path_shapes(name, *recorders):
     """Every recorded call of kernel ``name`` on the serve step and on phase
-    5b, and for ``k2_scan`` also the serve step's first lane alone (Q=1):
-    one lane's latency."""
+    5b, and for the warp-per-lane kernels also the serve step's first lane
+    alone (Q=1): one lane's latency."""
     calls = [c for recorder in recorders for c in recorder.calls[name]]
-    if name == "k2_scan" and calls:
+    if name in ("k2_scan", "k2_check", "pred_gather_dac") and calls:
         (meta, f, *lanes), kw, _ = calls[0]
         one = (meta, f, *(t[:1].contiguous() for t in lanes))
         calls.append((one, kw, recorders[0].orig[name](*one, **kw)))
     return calls
+
+
+def launch_floor(build, device) -> dict:
+    """Device ms of an empty kernel timed as ``time_case`` times a kernel
+    (``csrc/launch_floor.cu``), and its back-to-back ms through ctypes."""
+    import ctypes
+
+    import torch
+
+    fn = build.load("launch_floor").launch_floor_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def call():
+        if fn(stream, device.index) != 0:
+            fail("the empty launch_floor kernel did not launch")
+
+    n_it = iters_for(call, 300.0, 50)
+    return dict(ms=time_ms(call, n_it), wrapper_ms=wrapper_ms(call, n_it), iters=n_it)
 
 
 def time_case(name, fn, args, kw, out, library=None) -> dict:
@@ -1201,7 +1245,8 @@ def main(argv=None) -> int:
     phase("2. build kernels")
     t0 = time.perf_counter()
     build.load_all()
-    print(f"built {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f}s", flush=True)
+    print(f"built {len(build.SOURCES)} libraries ({len(KERNELS)} kernels and the launch "
+          f"floor) in {time.perf_counter() - t0:.2f}s", flush=True)
     for name, log in build.ptxas_report().items():
         info = [ln.split("info    : ")[-1].strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -1353,6 +1398,7 @@ def main(argv=None) -> int:
         ))
         print(f"{name}: device ms summed over each path's recorded calls {rows[-1]['path_ms']}",
               flush=True)
+    print(f"launch floor: {json.dumps(launch_floor(build, device))}", flush=True)
 
     phase("7. kernel entry points at store scale")
     rows += entry_point_phase(store, ds, rec_q.intersects, device, args.seed, err)

@@ -287,15 +287,31 @@ def make_serve_step(
     return serve_step
 
 
+def int32_lanes(values) -> np.ndarray:
+    """Python ints as an int32 array, refusing one outside int32 with
+    ``OverflowError`` as numpy's element assignment does (an int64 array
+    cast to int32 wraps instead)."""
+    a = np.asarray(values, dtype=np.int64)
+    bad = (a < -2**31) | (a >= 2**31)
+    if bad.any():
+        raise OverflowError(f"Python integer {a[bad].flat[0]} out of bounds for int32")
+    return a.astype(np.int32)
+
+
 def upload_batch(batch, device: torch.device) -> ServeBatch:
     """A ``ServeBatch`` of contiguous int32 tensors on ``device``.
 
-    Host batches go up as one (4, B) copy from pinned memory that does not
-    block the host.
+    A list or tuple field refuses an id outside int32 (``OverflowError``,
+    as the JAX package's ``jnp.asarray``); an array field is cast, so an
+    int64 array wraps, as there.  Host batches go up as one (4, B) copy
+    from pinned memory that does not block the host.
     """
     if all(isinstance(a, torch.Tensor) and a.device == device for a in batch):
         return ServeBatch(*(a.to(torch.int32).contiguous() for a in batch))
-    host = torch.from_numpy(np.stack([np.asarray(_host(a), dtype=np.int32) for a in batch]))
+    host = torch.from_numpy(np.stack([
+        int32_lanes(a) if isinstance(a, (list, tuple)) else np.asarray(_host(a), dtype=np.int32)
+        for a in batch
+    ]))
     if device.type == "cuda":
         host = host.pin_memory().to(device, non_blocking=True)
     return ServeBatch(*host.unbind(0))

@@ -36,6 +36,25 @@ __device__ __forceinline__ int floormod_pos(int a, int b) {
   return (r < 0) ? r + b : r;
 }
 
+// The same by shift and mask when b is a power of two (an arithmetic shift
+// is a floor division, and two's complement makes the mask a floor modulo).
+__device__ __forceinline__ int floordiv_fast(int a, int b) {
+  return (b & (b - 1)) == 0 ? a >> (__ffs(b) - 1) : floordiv_pos(a, b);
+}
+__device__ __forceinline__ int floormod_fast(int a, int b) {
+  return (b & (b - 1)) == 0 ? a & (b - 1) : floormod_pos(a, b);
+}
+
+// Whether each submatrix side is a positive multiple of the next (every
+// K2Meta's are).  Then the digit of level l along an axis is
+// floordiv(floormod(x, subsides[l-1]), subsides[l]), each level on its own.
+static inline bool k2_sides_nest(const K2Geom& g) {
+  for (int i = 0; i < g.H; ++i) {
+    if (g.subsides[i] < 1 || (i > 0 && g.subsides[i - 1] % g.subsides[i] != 0)) return false;
+  }
+  return true;
+}
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
@@ -52,6 +71,9 @@ __device__ __forceinline__ int wadd(int a, int b) {
 }
 __device__ __forceinline__ int wmul(int a, int b) {
   return (int)((unsigned)a * (unsigned)b);
+}
+__device__ __forceinline__ int wsub(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
 }
 
 // Bit `pos` of a row of W words; the word index is clipped to [0, W-1].

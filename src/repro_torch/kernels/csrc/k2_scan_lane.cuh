@@ -93,10 +93,6 @@ struct K2Lanes {
   K2Out out;
 };
 
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
-}
-
 // One warp's double-buffered frontier of (rank, base) entries: entry i of
 // buffer b in the shared-memory slab ([buffer][K2_SLAB]) while i <
 // K2_SLAB, else in the warp's global spill area ([buffer][spill_n]).
@@ -423,11 +419,8 @@ static inline int k2_scan_run(const K2Lanes& a, const K2Lanes& b, const K2Forest
 // multiple of the next; every K2Meta's do), and a cap whose frontier of
 // cap nodes would expand to more candidates than int range holds.
 static inline bool k2_scan_cap_ok(const K2Geom& g, int cap) {
-  if (cap < 1) return false;
+  if (cap < 1 || !k2_sides_nest(g)) return false;
   int kmax = 1;
-  for (int i = 0; i < g.H; ++i) {
-    kmax = g.ks[i] > kmax ? g.ks[i] : kmax;
-    if (g.subsides[i] < 1 || (i > 0 && g.subsides[i - 1] % g.subsides[i] != 0)) return false;
-  }
+  for (int i = 0; i < g.H; ++i) kmax = g.ks[i] > kmax ? g.ks[i] : kmax;
   return (long long)cap * kmax <= 0x7FFFFFFFLL - 32 * K2_UNROLL;
 }

@@ -6,17 +6,28 @@
 // ids[q, 0..cap) ascending 0-based predicate ids, valid[q, :] a prefix
 // mask, count = min(deg, cap), overflow = deg > cap.
 //
-// Design: one thread per row.  The row pointer is the block anchor plus
-// the deg_width-bit packed degrees before the row (a short SWAR loop over
-// at most four words).  The thread then walks its lanes j < min(deg, cap)
-// in order: the level-0 chunk byte, then, while the continuation flag is
-// set, the flag's in-level rank (frank + __popc) addresses the next level's
-// byte, which ors in at bits 8·level.  The running sum of the gaps is the
-// prefix sum, so ids come out ascending without a second pass.
+// Bound on the card: three dependent rounds a row (its index, its block's
+// degree words and anchor, its chunk bytes) plus one a further DAC level,
+// and a cap-wide output row; with cap = u_width (14 at geonames size) and a
+// few hundred rows a batch the launch is latency-bound.
 //
-// Bound on the card: a handful of dependent gathers per row and a cap-wide
-// output row per lane; with cap = u_width (14 at geonames size) and a
-// few hundred rows per batch the launch is latency-bound.
+// Design: one warp a row, so that no round is repeated per slot or per row
+// of a block.
+// - One round loads the row's block: thread i the packed-degree word of
+//   row i of the block (rows_per_block <= 32 a pass; threads of one word
+//   share its transaction) and thread 0 the block's anchor.  A warp sum of
+//   the degrees before the row gives its start; its own degree comes from
+//   the same words.
+// - The slots are decoded 32 at a time, slot j on thread j: its level-0
+//   chunk byte and, for a DAC of more levels, its continuation flag word
+//   and flag rank at the same index, loaded together; each further level
+//   is one more round for the 32 slots at once, and a level that no slot
+//   continues into is skipped.
+// - An inclusive warp scan (__shfl_up_sync) of the gaps gives the
+//   ascending ids; its total carries into the next 32 slots when cap > 32.
+//   The warp writes 32 ids and 32 valid flags a store, coalesced.
+// A block holds 1–4 warps (ops._warp_lane_grid), as few as spread a small
+// batch over every SM.
 #include "k2_common.cuh"
 
 #define DAC_MAX_LEVELS 8
@@ -34,7 +45,9 @@ __device__ __forceinline__ int byte_at(const unsigned* words, int n_words, int b
   return (int)((w >> (unsigned)((bidx & 3) * 8)) & 0xFFu);
 }
 
-__global__ void pred_gather_dac_kernel(
+#define DAC_FULL 0xffffffffu
+
+__global__ void __launch_bounds__(128) pred_gather_dac_warp_kernel(
     const int* __restrict__ rows, int Q, const int* __restrict__ anchors,
     int n_anchors, const unsigned* __restrict__ words, int n_words,
     const unsigned* __restrict__ degs, int n_degs,
@@ -42,50 +55,74 @@ __global__ void pred_gather_dac_kernel(
     const int* __restrict__ frank, DacGeom g, int cap, int* __restrict__ ids,
     bool* __restrict__ valid, int* __restrict__ count,
     bool* __restrict__ overflow) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= Q) return;
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (q >= Q) return;  // warp-uniform
   const int row = rows[q];
   const int dw = g.deg_width;
   const int per_word = 32 / dw;
   const unsigned dmask = dw < 32 ? (1u << dw) - 1u : 0xFFFFFFFFu;
   const int block = floordiv_pos(row, g.rows_per_block);
   const int within = floormod_pos(row, g.rows_per_block);
-  const int w0 = block * 4;
+  const int w0 = wmul(block, 4);
 
-  int start = anchors[clampi(block, 0, n_anchors - 1)];
-  for (int idx = 0; idx < within; ++idx) {
-    const unsigned dword = degs[clampi(w0 + idx / per_word, 0, n_degs - 1)];
-    start = wadd(start, (int)((dword >> (unsigned)((idx % per_word) * dw)) & dmask));
+  // the block's degree words (row idx on thread idx % 32) and its anchor
+  const int anchor = lane == 0 ? anchors[clampi(block, 0, n_anchors - 1)] : 0;
+  unsigned before = 0, own = 0;
+  for (int idx = lane; idx <= within; idx += 32) {
+    const unsigned dword = degs[clampi(wadd(w0, idx / per_word), 0, n_degs - 1)];
+    const unsigned d = (dword >> (unsigned)((idx % per_word) * dw)) & dmask;
+    if (idx < within) {
+      before += d;
+    } else {
+      own = d;
+    }
   }
-  const unsigned dword = degs[clampi(w0 + within / per_word, 0, n_degs - 1)];
-  const int deg = (int)((dword >> (unsigned)((within % per_word) * dw)) & dmask);
+  const int start = (int)((unsigned)__shfl_sync(DAC_FULL, anchor, 0) +
+                          __reduce_add_sync(DAC_FULL, before));
+  const int deg = (int)__reduce_add_sync(DAC_FULL, own);
   const int n = deg < cap ? deg : cap;
 
   int* out_ids = ids + (size_t)q * cap;
   bool* out_valid = valid + (size_t)q * cap;
-  int acc = 0;
-  for (int j = 0; j < cap; ++j) {
-    if (j >= n) {
-      out_ids[j] = 0;
-      out_valid[j] = false;
-      continue;
+  int carry = 0;  // the gaps of the slots before this chunk
+  for (int j0 = 0; j0 < cap; j0 += 32) {
+    const int j = j0 + lane;
+    const bool live = j < n;
+    int gap = 0;
+    if (j0 < n) {  // warp-uniform
+      int pos = live ? wadd(start, j) : 0;
+      gap = byte_at(words, n_words, wadd(g.level_byte_start[0], pos));
+      bool alive = live;
+      for (int lvl = 0; lvl + 1 < g.levels; ++lvl) {
+        const int fidx = clampi(wadd(g.flag_word_start[lvl], pos >> 5), 0, n_flags - 1);
+        const unsigned fw = flags[fidx];
+        const int fr = frank[fidx];
+        alive = alive && bit_of(fw, pos);
+        if (!__any_sync(DAC_FULL, alive)) break;
+        pos = alive ? wadd(fr, popc_below(fw, pos)) : 0;
+        const int chunk = byte_at(words, n_words, wadd(g.level_byte_start[lvl + 1], pos));
+        // a shift past the word gives 0, as the reference's does
+        if (alive && lvl < 3) gap = wadd(gap, (int)((unsigned)chunk << (8 * (lvl + 1))));
+      }
+      gap = live ? gap : 0;
     }
-    int pos = wadd(start, j);
-    int gap = byte_at(words, n_words, g.level_byte_start[0] + pos);
-    for (int lvl = 0; lvl + 1 < g.levels; ++lvl) {
-      const int fidx = clampi(g.flag_word_start[lvl] + (pos >> 5), 0, n_flags - 1);
-      const unsigned fw = flags[fidx];
-      if (!bit_of(fw, pos)) break;
-      pos = frank[fidx] + popc_below(fw, pos);
-      const int chunk = byte_at(words, n_words, g.level_byte_start[lvl + 1] + pos);
-      gap = wadd(gap, (int)((unsigned)chunk << (8 * (lvl + 1))));
+    int incl = gap;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(DAC_FULL, incl, d);
+      if (lane >= d) incl = wadd(incl, y);
     }
-    acc = wadd(acc, gap);
-    out_ids[j] = acc - 1;
-    out_valid[j] = true;
+    if (j < cap) {
+      out_ids[j] = live ? wsub(wadd(carry, incl), 1) : 0;
+      out_valid[j] = live;
+    }
+    carry = wadd(carry, __shfl_sync(DAC_FULL, incl, 31));
   }
-  count[q] = n;
-  overflow[q] = deg > cap;
+  if (lane == 0) {
+    count[q] = n;
+    overflow[q] = deg > cap;
+  }
 }
 
 extern "C" int pred_gather_dac_launch(
@@ -93,10 +130,11 @@ extern "C" int pred_gather_dac_launch(
     const void* words, int n_words, const void* degs, int n_degs,
     const void* flags, int n_flags, const void* frank, int levels,
     const int* level_byte_start, const int* flag_word_start, int deg_width,
-    int rows_per_block, int cap, void* ids, void* valid, void* count,
-    void* overflow, void* stream, int device) {
+    int rows_per_block, int cap, int blocks, int threads, void* ids,
+    void* valid, void* count, void* overflow, void* stream, int device) {
   if (levels < 1 || levels > DAC_MAX_LEVELS || cap < 1 || Q < 1 ||
-      rows_per_block < 1 ||
+      rows_per_block < 1 || blocks < 1 || threads < 32 || threads > 128 ||
+      threads % 32 || (long long)blocks * (threads / 32) < Q ||
       !(deg_width == 4 || deg_width == 8 || deg_width == 16 || deg_width == 32))
     return (int)cudaErrorInvalidValue;
   DacGeom g;
@@ -109,9 +147,7 @@ extern "C" int pred_gather_dac_launch(
   g.rows_per_block = rows_per_block;
   int err = (int)cudaSetDevice(device);
   if (err) return err;
-  const int threads = 128;
-  const int blocks = (Q + threads - 1) / threads;
-  pred_gather_dac_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  pred_gather_dac_warp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int*)rows, Q, (const int*)anchors, n_anchors,
       (const unsigned*)words, n_words, (const unsigned*)degs, n_degs,
       (const unsigned*)flags, n_flags, (const int*)frank, g, cap, (int*)ids,

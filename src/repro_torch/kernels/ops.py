@@ -37,16 +37,13 @@ _LL = ctypes.c_longlong
 _IA = ctypes.POINTER(ctypes.c_int)
 _FOREST = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _IA, _IA, _I]  # _forest_args
 _SIGNATURES = {
-    "k2_check": ("k2_check_launch", [
-        _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _IA, _IA, _I,
-        _P, _P, _I,
-    ]),
+    "k2_check": ("k2_check_launch", [_P, _P, _P, _I, *_FOREST, _I, _I, _I, _P, _P, _I]),
     "k2_scan": ("k2_scan_launch", [
         _P, _P, _P, _I, *_FOREST, _I, _I, _P, _LL, _P, _P, _P, _P, _P, _I,
     ]),
     "pred_gather_dac": ("pred_gather_dac_launch", [
         _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _IA, _IA, _I, _I,
-        _I, _P, _P, _P, _P, _P, _I,
+        _I, _I, _I, _P, _P, _P, _P, _P, _I,
     ]),
     "pred_gather": ("pred_gather_launch", [
         _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
@@ -179,6 +176,24 @@ def _scan_grid(name: str, device: torch.device, lanes: int, cap: int) -> tuple[i
     return blocks, _c_fn(name, f"{name}_spill_ints", [_I, _I], _LL)(blocks, cap)
 
 
+def _warp_lane_grid(lanes: int, sms: int) -> tuple[int, int]:
+    """(blocks, threads a block) of a launch of one warp a lane
+    (``csrc/pred_gather_dac.cu``, small ``k2_check`` batches): 1 to 4 warps
+    a block, as few as spread the lanes over all ``sms`` multiprocessors."""
+    warps = min(4, max(1, lanes // sms))
+    return -(-lanes // warps), 32 * warps
+
+
+def _check_grid(lanes: int, sms: int) -> tuple[int, int, int]:
+    """(kernel, blocks, threads a block) of a ``k2_check`` launch
+    (``csrc/k2_check.cu``): one warp a lane (kernel 0, ``_warp_lane_grid``)
+    while the lanes come to at most 8 warps an SM, else one thread a lane
+    (kernel 1) in blocks of 128."""
+    if lanes <= 8 * sms:
+        return (0, *_warp_lane_grid(lanes, sms))
+    return 1, -(-lanes // 128), 128
+
+
 def k2_check(meta: K2Meta, f, preds, rows, cols) -> torch.Tensor:
     """Batched (S, P, O) probe over the forest -> bool[Q] (``csrc/k2_check.cu``)."""
     dev = preds.device
@@ -193,7 +208,8 @@ def k2_check(meta: K2Meta, f, preds, rows, cols) -> torch.Tensor:
     out = torch.empty(q, dtype=torch.bool, device=dev)
     if q:
         _launch("k2_check", dev, preds.data_ptr(), rows.data_ptr(),
-                cols.data_ptr(), q, *_forest_args(meta, f), out.data_ptr())
+                cols.data_ptr(), q, *_forest_args(meta, f),
+                *_check_grid(q, _sm_count(dev)), out.data_ptr())
     return out
 
 
@@ -250,7 +266,8 @@ def pred_gather_dac(pmeta, index, rows, *, cap: int):
                 index.flags.data_ptr(), index.flags.shape[0],
                 index.frank.data_ptr(), pmeta.levels,
                 _ints(pmeta.level_byte_start), _ints(pmeta.flag_word_start),
-                pmeta.deg_width, pmeta.rows_per_block, cap, ids.data_ptr(),
+                pmeta.deg_width, pmeta.rows_per_block, cap,
+                *_warp_lane_grid(q, _sm_count(dev)), ids.data_ptr(),
                 valid.data_ptr(), count.data_ptr(), overflow.data_ptr())
     return ids, valid, count, overflow
 

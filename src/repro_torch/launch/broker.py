@@ -298,10 +298,8 @@ class ServeBroker:
         n = max(pad_to, self.engine._pad_b(len(reqs)))
         lanes = np.zeros((4, n), np.int32)
         lanes[0] = -1  # dead lanes: masked to zero output
-        if reqs:
-            lanes[:, : len(reqs)] = np.array(
-                [(r.op, r.s, r.p, r.o) for r in reqs], np.int64
-            ).T
+        if reqs:  # an id outside int32 raises OverflowError, as in the JAX broker
+            lanes[:, : len(reqs)] = eng.int32_lanes([(r.op, r.s, r.p, r.o) for r in reqs]).T
         return eng.ServeBatch(*lanes)
 
     # -- streamed decode + per-tenant growth ----------------------------

@@ -156,6 +156,24 @@ def test_queue_full_sheds_newest():
     assert stats["queries"] == 4 and stats["lanes"] == 4
 
 
+
+def test_broker_refuses_ids_outside_int32_like_jax():
+    """An id outside int32 stops both brokers' loops in ``_encode``, and
+    leaving the context (``aclose``) re-raises the OverflowError."""
+    st, jst, ids = build_pair("preds16")
+    s, p = int(ids[0, 0]), int(ids[0, 1])
+
+    async def run(b):
+        async with b:
+            b.submit_nowait("t", eng.OP_ROW, s, p)
+            b.submit_nowait("t", eng.OP_ROW, s + 2**32, p)
+
+    with pytest.raises(OverflowError):
+        asyncio.run(run(ServeBroker(eng.Engine(st, device="cpu"), CPU)))
+    jcfg = JExecConfig(backend="jnp", interpret=True, cap=64)
+    with pytest.raises(OverflowError):
+        asyncio.run(run(jbroker.ServeBroker(jeng.Engine(jst), jcfg)))
+
 def test_tail_percentile_guard():
     assert tail_percentile([1.0], 50) is None
     assert tail_percentile(list(range(99)), 99) is None

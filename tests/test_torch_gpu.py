@@ -532,3 +532,196 @@ def test_k2_scan_repeated_lanes(store, cuda):
     t = lambda v: torch.tensor(v[:20_000], dtype=torch.int32, device=cuda)  # noqa: E731
     got = _scan_both(meta, f, t(preds), t(keys), t(axes), 8)
     assert bool((got[2] > 0).any())
+
+
+def _tree_cells(ds, n_preds):
+    """Per tree p, the (row, col) cells of predicate p + 1."""
+    ids = ds.ids
+    return [(ids[ids[:, 1] == p + 1, 0] - 1, ids[ids[:, 1] == p + 1, 2] - 1)
+            for p in range(n_preds)]
+
+
+def _death_levels(meta, cells, p, rows, cols):
+    """Per lane of tree p[i] at in-range (rows[i], cols[i]): the level whose
+    bit is the walk's first 0, or H where the cell is set."""
+    H = meta.n_levels
+    out = np.full(rows.size, H)
+    for lvl, sub in enumerate(meta.subsides):
+        span = meta.side // sub + 1
+        for t in np.unique(p):
+            r, c = cells[t]
+            present = np.unique(r // sub * span + c // sub)
+            lane = p == t
+            miss = ~np.isin(rows[lane] // sub * span + cols[lane] // sub, present)
+            out[lane] = np.where((out[lane] == H) & miss, lvl, out[lane])
+    return out
+
+
+def _near_misses(meta, cells, rng, per_tree):
+    """(p, rows, cols): set cells, and the same cells with the column digit
+    of one level changed, so that walks stop at every level."""
+    ps, rows, cols = [], [], []
+    for t, (r, c) in enumerate(cells):
+        if r.size == 0:
+            continue
+        pick = rng.integers(0, r.size, per_tree)
+        r, c = r[pick], c[pick]
+        ps.append(np.full(r.size, t))
+        rows.append(r)
+        cols.append(c)
+        for k, sub in zip(meta.ks, meta.subsides):
+            d = (c // sub) % k
+            ps.append(np.full(r.size, t))
+            rows.append(r)
+            cols.append(c + ((d + rng.integers(1, k, r.size)) % k - d) * sub)
+    return (np.concatenate(ps).astype(np.int32), np.concatenate(rows).astype(np.int32),
+            np.concatenate(cols).astype(np.int32))
+
+
+def _check_both(meta, f, preds, rows, cols, dev):
+    preds, rows, cols = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+                         for a in (preds, rows, cols))
+    n0 = ops.LAUNCHES["k2_check"]
+    got = ops.k2_check(meta, f, preds, rows, cols)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["k2_check"] == n0 + 1
+    want = ref.k2_check_ref(meta, f.t_words, f.t_rank, f.l_words, f.ones_before,
+                            f.level_start, preds, rows, cols)
+    assert torch.equal(got, want)
+    return got.cpu().numpy()
+
+
+def _check_every_level(meta, f, cells, rng, dev):
+    """Walks that stop at each level 0..H-1 and walks that find their cell,
+    beside predicates out of range on both sides (wrapped once, then
+    clipped) and negative or too-large coordinates, through both kernels."""
+    P = len(cells)
+    p, rows, cols = _near_misses(meta, cells, rng, 24)
+    death = _death_levels(meta, cells, p, rows, cols)
+    assert set(death.tolist()) == set(range(meta.n_levels + 1)), np.bincount(death)
+    wild = 64
+    wp = np.concatenate([[-1, P, -P - 3, 2 * P + 1, -P], rng.integers(-2 * P, 2 * P, wild - 5)])
+    wr = rng.integers(-meta.side, 2 * meta.side, wild)
+    wr[:4] = [-1, meta.side, -2**31, 2**31 - 1]
+    wc = rng.integers(-meta.side, 2 * meta.side, wild)
+    lanes = [np.concatenate([p, wp]), np.concatenate([rows, wr]), np.concatenate([cols, wc])]
+    # both kernels: a warp a lane (batches of up to 8 warps an SM), a thread a lane
+    warp_max = 8 * (ops._sm_count(dev) if dev.type == "cuda" else 132)
+    reps = -(-(warp_max + 1) // lanes[0].size)
+    hit = _check_both(meta, f, *(np.tile(a, reps) for a in lanes), dev)[:lanes[0].size]
+    for lo in range(0, lanes[0].size, warp_max):
+        part = _check_both(meta, f, *(a[lo:lo + warp_max] for a in lanes), dev)
+        assert np.array_equal(part, hit[lo:lo + warp_max])
+    assert np.array_equal(hit[:p.size], death == meta.n_levels)
+
+
+def test_k2_check_stops_at_every_level(store, cuda):
+    """The 16-predicate trees span 39 words, so walks cross from the warp
+    kernel's register copy of a tree's first 32 words to memory; the
+    600-predicate trees span 8, all of them in the copy."""
+    st, ds = store
+    assert (st.forest.t_words.shape[1] > 32) == (st.n_preds == 16)
+    rng = np.random.default_rng(5)
+    _check_every_level(st.meta, st.forest, _tree_cells(ds, st.n_preds), rng, cuda)
+
+
+@pytest.mark.parametrize("ks", [(4, 4, 2, 2, 2), (3, 3, 3, 3, 3), (4, 4, 4, 4, 4, 2, 2)])
+def test_k2_check_tree_geometries(ks, cuda):
+    """Hybrid arities (k = 4, then 2), a side that is no power of two
+    (k = 3: the digits take the division path), and one tree (P = 1), each
+    of more than 32 words.  Columns lie in the first root column band, so
+    walks can stop at level 0."""
+    from repro_torch.core import k2forest, k2tree
+
+    meta = k2tree.K2Meta(ks)
+    rng = np.random.default_rng(len(ks))
+    band = meta.side // ks[0]
+    cells = []
+    for n in (40,) if len(ks) == 7 else (3000, 40, 1, 500, 0):
+        cell = rng.choice(meta.side * band, n, replace=False)
+        cells.append((cell // band, cell % band))
+    f, _ = k2forest.build_forest(cells, meta, cuda)
+    assert f.t_words.shape[1] > 32
+    _check_every_level(meta, f, cells, rng, cuda)
+
+
+@pytest.mark.parametrize("q", [1, 31, 32, 33, 3584])
+def test_k2_check_lane_counts(store, q, cuda):
+    """Batches of 1, 31, 32, 33 lanes (a warp a lane, 1 to 4 a block) and
+    3,584 (the serve step's checks of 256 S?PO lanes × 14 candidates: a
+    thread a lane)."""
+    st, ds = store
+    rng = np.random.default_rng(q)
+    rows = ds.ids[rng.integers(0, ds.n_triples, q)]
+    o = rows[:, 2] - 1
+    o[1::2] = rng.integers(0, st.meta.side, o[1::2].size)
+    hit = _check_both(st.meta, st.forest, rows[:, 1] - 1, rows[:, 0] - 1, o, cuda)
+    assert hit[::2].all()
+
+
+@pytest.fixture(scope="module")
+def deep_index(cuda):
+    """600 predicates; subjects 1-6 hold 70, 45, 33, 32, 31 and 1 of them,
+    spread over all 600 so that gaps pass 255 (a two-level DAC); subject 7
+    none; 2,000 random triples of subjects 8-150 fill the rest."""
+    rng = np.random.default_rng(41)
+    rows = []
+    for s, n in zip(range(1, 7), (70, 45, 33, 32, 31, 1)):
+        preds = np.sort(rng.choice(np.arange(1, 601), n, replace=False))
+        rows.append(np.stack([np.full(n, s), preds, rng.integers(1, 201, n)], 1))
+    rows.append(np.stack([rng.integers(8, 151, 2000), rng.integers(1, 601, 2000),
+                          rng.integers(1, 201, 2000)], 1))
+    ids = np.unique(np.concatenate(rows), axis=0)
+    return k2triples.from_id_triples(ids, n_so=0, n_subjects=150, n_objects=200,
+                                     n_preds=600, device=cuda)
+
+
+def _dac_both(st, rows, cap):
+    index, pmeta = st.pred_index.select("dac")
+    rows = torch.from_numpy(np.asarray(rows, np.int32)).to(index.words.device)
+    n0 = ops.LAUNCHES["pred_gather_dac"]
+    got = ops.pred_gather_dac(pmeta, index, rows, cap=cap)
+    if rows.is_cuda:
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["pred_gather_dac"] == n0 + 1
+    want = ref.pred_gather_dac_ref(
+        rows, index.offsets, index.words, index.degs, index.flags, index.frank,
+        levels=pmeta.levels, level_byte_start=pmeta.level_byte_start,
+        flag_word_start=pmeta.flag_word_start, deg_width=pmeta.deg_width,
+        rows_per_block=pmeta.rows_per_block, cap=cap,
+    )
+    _equal(got, want)
+    return pmeta, got
+
+
+def _all_rows(st, rng):
+    """Every row of the index (degree 0, the first and last of each block,
+    the index's last rows), rows past its end and below 0 (clipped as the
+    reference clips them), in a shuffled order."""
+    n = st.n_subjects + st.n_objects
+    return rng.permutation(np.concatenate([np.arange(n), [n, n + 7, -1, -33]]))
+
+
+@pytest.mark.parametrize("cap", [1, 14, 31, 32, 33, 40])
+def test_pred_gather_dac_every_row(store, cap, cuda):
+    st, _ = store
+    pmeta, got = _dac_both(st, _all_rows(st, np.random.default_rng(cap)), cap)
+    count = got[2].cpu().numpy()
+    assert (count == 0).any() and (count == min(cap, pmeta.max_degree)).any()
+    if st.n_preds == 600:
+        assert pmeta.levels >= 2
+
+
+@pytest.mark.parametrize("cap", [1, 14, 31, 32, 33, 40, 64, 70, 96])
+def test_pred_gather_dac_long_rows(deep_index, cap, cuda):
+    """Rows of 70, 45, 33, 32, 31, 1 and 0 predicates in a two-level DAC:
+    the gap sum carries across chunks of 32 slots, and rows end or
+    overflow on either side of a chunk's edge."""
+    rows = _all_rows(deep_index, np.random.default_rng(cap))
+    pmeta, got = _dac_both(deep_index, rows, cap)
+    assert pmeta.levels >= 2 and pmeta.max_degree == 70
+    count, overflow = got[2].cpu().numpy(), got[3].cpu().numpy()
+    lanes = [int(np.nonzero(rows == s - 1)[0][0]) for s in range(1, 8)]
+    assert count[lanes].tolist() == [min(d, cap) for d in (70, 45, 33, 32, 31, 1, 0)]
+    assert overflow[lanes].tolist() == [d > cap for d in (70, 45, 33, 32, 31, 1, 0)]

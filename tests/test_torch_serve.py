@@ -88,6 +88,39 @@ def test_plan_cap_growth_matches_jax(unbounded):
     assert not r.overflow.any()
 
 
+
+def _row_lanes(ids):
+    """Two OP_ROW lanes of one real (s, p): the second's s moved by 2**32."""
+    s, p = int(ids[0, 0]), int(ids[0, 1])
+    return [[eng.OP_ROW, eng.OP_ROW], [s, s + 2**32], [p, p], [0, 0]]
+
+
+@pytest.mark.parametrize("form", ["tuple", "ServeBatch"])
+def test_plan_refuses_list_ids_outside_int32_like_jax(form):
+    st, jst, ids = build_pair("preds16")
+    lanes = _row_lanes(ids)
+    plan = eng.Engine(st, device="cpu").compile(ServeQ(), ExecConfig(cap=8, device="cpu"))
+    jplan = jeng.Engine(jst).compile(JServeQ(), JNP)
+    wrap = {"tuple": tuple, "ServeBatch": lambda a: eng.ServeBatch(*a)}[form]
+    jwrap = {"tuple": tuple, "ServeBatch": lambda a: jeng.ServeBatch(*a)}[form]
+    with pytest.raises(OverflowError):
+        plan(wrap(lanes))
+    with pytest.raises(OverflowError):
+        plan.submit(wrap(lanes))
+    with pytest.raises(OverflowError):
+        jplan(jwrap(lanes))
+
+
+def test_plan_wraps_int64_array_ids_like_jax():
+    st, jst, ids = build_pair("preds16")
+    lanes = np.array(_row_lanes(ids), np.int64)
+    plan = eng.Engine(st, device="cpu").compile(ServeQ(), ExecConfig(cap=8, device="cpu"))
+    jplan = jeng.Engine(jst).compile(JServeQ(), JNP)
+    r = eng.host_result(plan(tuple(lanes)))
+    _same(r, jeng.host_result(jplan(tuple(lanes))))
+    # s + 2**32 wraps to s: both lanes answer s's objects
+    assert r.count[0] > 0 and np.array_equal(r.ids[0], r.ids[1])
+
 def test_plan_without_growth_raises_and_submit_never_grows():
     st, _, ids = build_pair("preds16")
     e = eng.Engine(st, device="cpu")

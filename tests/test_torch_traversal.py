@@ -175,6 +175,31 @@ def test_wrappers_reject_bad_inputs():
         ops.k2_check(meta, f, torch.zeros((4, 2), dtype=torch.int32)[:, 0], z, z)
 
 
+
+@pytest.mark.parametrize("lanes,sms,grid", [
+    (1, 132, (1, 32)), (132, 132, (132, 32)), (133, 132, (133, 32)),
+    (256, 132, (256, 32)), (264, 132, (132, 64)), (529, 132, (133, 128)), (3584, 132, (896, 128)),
+    (100_000, 132, (25_000, 128)), (5, 1, (2, 128)),
+])
+def test_warp_lane_grid(lanes, sms, grid):
+    """One warp a lane, 1 to 4 warps a block: as few as spread the lanes
+    over every multiprocessor, and always a warp for every lane."""
+    blocks, threads = ops._warp_lane_grid(lanes, sms)
+    assert (blocks, threads) == grid
+    assert threads % 32 == 0 and blocks * threads // 32 >= lanes
+    assert blocks >= min(lanes, sms)
+
+
+@pytest.mark.parametrize("lanes,sms,grid", [
+    (1, 132, (0, 1, 32)), (256, 132, (0, 256, 32)), (1056, 132, (0, 264, 128)),
+    (1057, 132, (1, 9, 128)), (3584, 132, (1, 28, 128)), (20_000, 132, (1, 157, 128)),
+])
+def test_check_grid(lanes, sms, grid):
+    """k2_check: a warp a lane up to 8 warps an SM, a thread a lane above."""
+    kernel, blocks, threads = ops._check_grid(lanes, sms)
+    assert (kernel, blocks, threads) == grid
+    assert blocks * (threads // 32 if kernel == 0 else threads) >= lanes
+
 def _same_tuple(got, want, names):
     assert len(got) == len(want) == len(names)
     for g, w, name in zip(got, want, names):
