@@ -8,9 +8,9 @@ Phases (any failure exits non-zero before the result line):
 1. refuse to run without a CUDA card or outside a checkout; print the card;
 2. build the nine CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` each, in parallel) and the empty ``launch_floor`` kernel, print
-   ptxas registers / smem / spills, fail if the warp-per-lane kernels spill
-   (``k2_scan``, ``k2_scan_rebind``, ``k2_check``, ``pred_gather_dac``),
-   and fail unless ``cuobjdump -sass`` of the
+   ptxas registers / smem / spills, fail if ptxas spills in ``k2_scan``,
+   ``k2_scan_rebind``, ``k2_check``, ``pred_gather_dac``, ``pred_gather``
+   or ``sorted_intersect_mask``, and fail unless ``cuobjdump -sass`` of the
    ``block_spmm`` library shows ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
    load) instructions;
 3. hold each kernel against its plain torch version on the card, bit for
@@ -36,9 +36,9 @@ Phases (any failure exits non-zero before the result line):
    the path must have launched, and each shape's and category's host-clock
    latency is printed;
 6. time each path kernel at every distinct shape recorded on the serve
-   step and in phase 5b, ``k2_scan``, ``k2_check`` and ``pred_gather_dac``
-   also at Q=1 (one lane's latency) (CUDA events around calls enqueued
-   behind a sleep kernel, so host launch overhead is excluded; the
+   step and in phase 5b, ``k2_scan``, ``k2_check``, ``pred_gather_dac`` and
+   ``pred_gather`` also at Q=1 (one lane's latency) (CUDA events around
+   calls enqueued behind a sleep kernel, so host launch overhead is excluded; the
    wrapper's back-to-back time is reported beside it) and its plain
    version back to back, and its device and bound ms summed over every
    recorded call of the serve step and of phase 5b; then the launch floor,
@@ -53,7 +53,9 @@ Phases (any failure exits non-zero before the result line):
    arenas (flattened, zero-padded to (M, 1024)), whose per-tree exclusive
    cumsum must rebuild ``t_rank`` exactly; ``ops.sorted_intersect_mask`` on
    2^16 ids in 2^18 drawn from 10^7, on the subjects of the two largest
-   predicates, and on every (A, B row) that ``sortedset.intersect``
+   predicates, on 2,048 ids spread over 2^20 (a tile's share of B past the
+   kernel's shared window: a thread a lane in global memory), and on every
+   (A, B row) that ``sortedset.intersect``
    received in phase 5b's joins A-C (the mask must keep exactly its
    lanes); ``ops.block_spmm`` at M = K = 1024, D = 512 and M = K = 16384,
    D = 256 in f32 and bf16, 0/1 A at 5%, masks from ``mask_from_k2_level``
@@ -153,9 +155,10 @@ def sass_check(build) -> None:
 
 
 def spill_check(build) -> None:
-    """Fail if ptxas spilled registers of a warp-per-lane kernel (its lane
-    state must stay in registers)."""
-    for name in ("k2_scan", "k2_scan_rebind", "k2_check", "pred_gather_dac"):
+    """Fail if ptxas spilled registers of a lane-latency-bound kernel (its
+    lane state must stay in registers)."""
+    for name in ("k2_scan", "k2_scan_rebind", "k2_check", "pred_gather_dac", "pred_gather",
+                 "sorted_intersect_mask"):
         log = build.ptxas_report().get(name)
         if log is None:
             print(f"spills {name}: built by an earlier process, no ptxas report", flush=True)
@@ -956,10 +959,10 @@ def path_ms(name, *recorders) -> dict:
 
 def main_path_shapes(name, *recorders):
     """Every recorded call of kernel ``name`` on the serve step and on phase
-    5b, and for the warp-per-lane kernels also the serve step's first lane
-    alone (Q=1): one lane's latency."""
+    5b, and for the lane-latency-bound kernels also the first recorded
+    call's first lane alone (Q=1): one lane's latency."""
     calls = [c for recorder in recorders for c in recorder.calls[name]]
-    if name in ("k2_scan", "k2_check", "pred_gather_dac") and calls:
+    if name in ("k2_scan", "k2_check", "pred_gather_dac", "pred_gather") and calls:
         (meta, f, *lanes), kw, _ = calls[0]
         one = (meta, f, *(t[:1].contiguous() for t in lanes))
         calls.append((one, kw, recorders[0].orig[name](*one, **kw)))
@@ -1111,6 +1114,13 @@ def entry_point_phase(store, ds, intersects, device, seed: int, err: dict) -> li
     cases.append(("sorted_intersect_mask",
                   f"subjects of pred {p1} ({a.size}) in pred {p2} ({b.size})",
                   (padded_ids(a, device), padded_ids(b, device)), {}))
+    # sparse A in dense B: a tile's share of B exceeds the shared window
+    b = np.sort(rng.choice(10**8, 2**20, replace=False)).astype(np.int32)
+    a = np.sort(np.concatenate([rng.choice(b, 1024, replace=False),
+                                rng.integers(0, 10**8, 1024)])).astype(np.int32)
+    members.append((a, b))
+    cases.append(("sorted_intersect_mask", "fallback: 2048 ids spread over 2^20",
+                  (torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)), {}))
     n_join = len(intersects)
     for a_ids, b_row, _ in intersects:
         ca = a_ids.shape[0]
@@ -1155,11 +1165,12 @@ def entry_point_phase(store, ds, intersects, device, seed: int, err: dict) -> li
     if not torch.equal(torch.cumsum(per_word, 1) - per_word, f.t_rank.to(torch.int64)):
         fail("t_rank is not the exclusive cumsum of popcount over t_words")
     print(f"popcount: t_rank of all {p} trees rebuilt exactly from {p * w} word counts", flush=True)
-    for (a, b), out in zip(members, outs[2:4]):
+    joins = 2 + len(members)  # the first output of the joins' intersections
+    for (a, b), out in zip(members, outs[2:joins]):
         if not np.array_equal(out[: a.size].cpu().numpy(), np.isin(a, b)) or bool(out[a.size:].any()):
             fail("sorted_intersect_mask disagrees with numpy membership")
     kept = 0
-    for (a_ids, _, want), out in zip(intersects, outs[4:4 + n_join]):
+    for (a_ids, _, want), out in zip(intersects, outs[joins:joins + n_join]):
         got = a_ids[out[: a_ids.shape[0]]]
         if not torch.equal(got, want):
             fail("sorted_intersect_mask keeps other lanes than sortedset.intersect")

@@ -1,21 +1,27 @@
 // pred_gather: fixed-layout SP/OP index gather -> candidate predicates.
 //
 // Replaces the Pallas kernel `pred_gather` (src/repro/kernels/pred_gather.py:85,
-// body `_make_kernel` :55).  Lane q reads entity row rows[q] (pre-clipped to
+// body `_make_kernel` :55).  Lane q reads entity row rows[q] (clipped to
 // the index range) of a CSR whose entries are packed at bytes_per_pred ∈
 // {1, 2, 4} bytes into uint32 words: ids[q, j] = entry offsets[row] + j for
 // j < min(deg, cap) (ascending 0-based predicate ids, as stored), valid a
 // prefix mask, dead slots 0, count = min(deg, cap), overflow = deg > cap.
 //
-// Design: one thread per (row, slot).  Each thread reads the row's two
-// offsets (shared through L1 by the row's cap threads), computes its entry's
-// byte address elem·bytes_per_pred, reads the word (index clipped to the
-// arena as the reference's gather) and shifts/masks the entry out.  Thread
-// j == 0 of a row writes count and overflow.  No entry straddles a word,
-// since bytes_per_pred divides 4.
+// Bound on the card: three dependent rounds a row (its index, its two
+// offsets, its entry word) and a cap-wide output row; with cap = u_width
+// (14 at geonames size) and a few hundred rows a batch the launch is
+// latency-bound: its time is the launch and the three rounds.
 //
-// Bound on the card: the outputs (5 B per slot) and two dependent reads per
-// row; with cap = u_width and a few hundred rows the launch is latency-bound.
+// Design: one thread per (row, slot), 256 a block.  Each thread
+// reads the row's index and two offsets (one transaction for the row's
+// cap threads, through L1), computes its entry's byte address
+// elem·bytes_per_pred, reads the word (index clipped to the arena as the
+// reference's gather) and shifts/masks the entry out.  Thread j == 0 of a
+// row writes count and overflow.  No entry straddles a word, since
+// bytes_per_pred divides 4.  One warp a row (in blocks of 1–16 warps)
+// and one thread a row were measured slower on the H100 (PERF.md,
+// `kernel_variants.py`): at this size every instruction on the
+// three rounds' path counts, and this design has the fewest.
 #include "k2_common.cuh"
 
 __global__ void pred_gather_kernel(

@@ -56,7 +56,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
     ]),
     "popcount": ("popcount_launch", [_P, _LL, _P, _P, _I]),
-    "sorted_intersect_mask": ("sorted_intersect_launch", [_P, _I, _P, _I, _P, _P, _I]),
+    "sorted_intersect_mask": ("sorted_intersect_launch", [
+        _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _I,
+    ]),
     "block_spmm": ("block_spmm_launch", [
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
     ]),
@@ -65,6 +67,8 @@ _SIGNATURES = {
 LANES = 128  # popcount: lanes a row (the TPU vreg width)
 POPCOUNT_ROWS = 8  # popcount: rows % 8
 INTERSECT_LANES = 2048  # sorted_intersect_mask: ca % min(2048, ca)
+INTERSECT_WINDOW = 4096  # sorted_intersect_mask: ids of B a tile stages (16 KB)
+INTERSECT_TILE = 1024  # sorted_intersect_mask: A lanes a tile (4 a thread)
 _SPMM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # block_spmm's kernels (csrc/block_spmm.cu): wgmma output tiles, largest first
 _SPMM_CODES = {"simt": 0, "fma": 1, "wgmma": 2}
@@ -192,6 +196,22 @@ def _check_grid(lanes: int, sms: int) -> tuple[int, int, int]:
     if lanes <= 8 * sms:
         return (0, *_warp_lane_grid(lanes, sms))
     return 1, -(-lanes // 128), 128
+
+
+def _intersect_plan(ca: int, cb: int, sms: int) -> tuple[int, int, int, int]:
+    """(kernel, threads a block, blocks, window) of a
+    ``sorted_intersect_mask`` launch (``csrc/sorted_intersect.cu``).
+
+    Kernel 1 takes a thread a lane in blocks of 256: while the lanes come
+    to at most ``INTERSECT_TILE`` for each of the ``sms`` multiprocessors
+    (a launch short enough that its time is latency), and where a tile's
+    even share of B (``INTERSECT_TILE · cb / ca``) would exceed the window.
+    Else kernel 0 takes tiles of ``INTERSECT_TILE`` lanes, 4 a thread, and
+    stages in shared memory all of B up to ``INTERSECT_WINDOW`` ids, else a
+    window of that many."""
+    if ca <= INTERSECT_TILE * sms or INTERSECT_TILE * cb > INTERSECT_WINDOW * ca:
+        return 1, 256, -(-ca // 256), 0
+    return 0, INTERSECT_TILE // 4, -(-ca // INTERSECT_TILE), min(cb, INTERSECT_WINDOW)
 
 
 def k2_check(meta: K2Meta, f, preds, rows, cols) -> torch.Tensor:
@@ -409,7 +429,7 @@ def sorted_intersect_mask(a_ids, b_ids) -> torch.Tensor:
         return ref.sorted_intersect_mask_ref(a_ids, b_ids)
     out = torch.empty(ca, dtype=torch.bool, device=dev)
     _launch("sorted_intersect_mask", dev, a_ids.data_ptr(), ca, b_ids.data_ptr(),
-            cb, out.data_ptr())
+            cb, out.data_ptr(), *_intersect_plan(ca, cb, _sm_count(dev)))
     return out
 
 

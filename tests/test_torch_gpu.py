@@ -5,11 +5,13 @@ present and skips otherwise, so every worker collects the same tests.  On
 the card: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 """
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import bitvec, engine as eng, k2triples
+from repro_torch.core import bitvec, engine as eng, k2triples, predindex
 from repro_torch.core.query import ExecConfig, JoinQ, ServeQ, TriplePatternQ
 from repro_torch.data import rdf
 from repro_torch.kernels import ops, ref
@@ -24,17 +26,20 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-@pytest.fixture(scope="module", params=[16, 600])
-def store(request, cuda):
-    n_preds = request.param
+def _small_store(n_preds, dev):
     # at 600 predicates these lists hold gaps > 255: a two-level DAC
     ds = rdf.generate(2500, n_subjects=150, n_preds=n_preds, n_objects=150,
                       pred_alpha=1.0, seed=11)
     st = k2triples.from_id_triples(
         ds.ids, n_so=ds.n_so, n_subjects=ds.n_subjects, n_objects=ds.n_objects,
-        n_preds=ds.n_preds, device=cuda,
+        n_preds=ds.n_preds, device=dev,
     )
     return st, ds
+
+
+@pytest.fixture(scope="module", params=[16, 600])
+def store(request, cuda):
+    return _small_store(request.param, cuda)
 
 
 def _lanes(rng, q, lo, hi, dev):
@@ -227,22 +232,176 @@ def test_popcount_kernel(cuda):
     _equal((ops.popcount(flat),), (ref.popcount_ref(flat),))
 
 
-@pytest.mark.parametrize("ca,cb", [(2048, 1), (2048, 3), (4096, 1024), (8192, 262144)])
-def test_sorted_intersect_mask_kernel(ca, cb, cuda):
-    rng = np.random.default_rng(ca + cb)
+SENTINEL = 2**31 - 1
+
+
+def _random_intersect(rng, ca, cb):
+    """Sorted unique A of members and non-members, SENTINEL-padded to ca,
+    in a sorted B of cb ids with a run of repeated values."""
     span = 4 * cb + 100_000
     b = np.sort(rng.choice(span, cb, replace=False) - span // 2).astype(np.int32)
     b[cb // 2:cb // 2 + min(cb // 4, 9)] = b[cb // 2]  # repeated values
     a = np.concatenate([rng.choice(b, ca // 4), rng.integers(-span, span, ca // 2)])
     a = np.unique(a).astype(np.int32)
-    a = np.concatenate([a, np.full(ca - a.size, 2**31 - 1, np.int32)])
+    return np.concatenate([a, np.full(ca - a.size, SENTINEL, np.int32)]), b
+
+
+def _spread(rng, ca, cb, span):
+    """ca sorted ids over all of a sorted B of cb ids in [0, span), half of
+    them members: sparse A in dense B."""
+    b = np.sort(rng.choice(span, cb, replace=False)).astype(np.int32)
+    a = np.sort(np.concatenate([rng.choice(b, ca // 2), rng.integers(0, span, ca - ca // 2)]))
+    return a.astype(np.int32), b
+
+
+TILE = 1024  # ops.INTERSECT_TILE: A lanes a block of the tile kernel
+BIG = 2**18  # A lanes past 1024 an SM: the tile kernel
+
+
+def _runs(rng):
+    """B of 16,000 values, each repeated 20 times; 160 tiles of sorted A
+    lanes that start and end on members 100 values apart, so that each
+    block's span of B starts and ends in a run and fits the window."""
+    vals = np.sort(rng.choice(10**7, 16_000, replace=False))
+    ends = vals[::100]
+    tiles = []
+    for lo, hi in zip(ends, np.append(ends[1:], vals[-1])):
+        inner = np.concatenate([rng.choice(vals[(vals > lo) & (vals < hi)], TILE // 2 - 1),
+                                rng.integers(lo + 1, hi, TILE // 2 - 1)])
+        tiles.append(np.concatenate([[lo], np.sort(inner), [hi]]))
+    a = np.concatenate(tiles)
+    return np.concatenate([a, np.full(-a.size % 2048, SENTINEL)]).astype(np.int32), \
+        np.repeat(vals, 20).astype(np.int32)
+
+
+def _shuffled(rng, ab):
+    return rng.permutation(ab[0]), ab[1]
+
+
+def _sentinel_blocks(rng):
+    """2^18 lanes of which tiles in the middle and at the end hold only
+    SENTINEL, in a windowed B."""
+    a, b = _random_intersect(rng, BIG, BIG)
+    a = np.sort(a[a != SENTINEL][:BIG // 2])
+    return np.concatenate([a[:8 * TILE], np.full(2 * TILE, SENTINEL), a[8 * TILE:],
+                           np.full(BIG // 2 - 2 * TILE, SENTINEL)]).astype(np.int32), b
+
+
+def _clustered(rng):
+    """2^18 sorted lanes: all but the last tile's in the first 1/64 of a B
+    of 2^18 ids, the last tile's 1024 spread over all of it (that block's
+    span of B exceeds the window; the shape alone does not tell)."""
+    b = np.sort(rng.choice(2**24, BIG, replace=False)).astype(np.int32)
+    a = np.concatenate([np.sort(rng.choice(b[:BIG // 64], BIG - TILE)),
+                        np.sort(rng.choice(2**24, TILE))])
+    return a.astype(np.int32), b
+
+
+def _int_min(rng, ca, cb):
+    a, b = _random_intersect(rng, ca, cb)
+    b[0], a[0], a[1] = -2**31, -2**31, -2**31 + 1
+    return np.sort(a), b
+
+
+def _pow2_b1(rng, ca, cb):
+    """cb a power of two, A holding b[0], b[1] and b[1] + 1."""
+    b = np.sort(rng.choice(10 * cb, cb, replace=False)).astype(np.int32)
+    a = np.sort(np.concatenate([b[:2], b[1:2] + 1, rng.integers(0, 10 * cb, ca - 3)]))
+    return a.astype(np.int32), b
+
+
+INTERSECT_CASES = {
+    # name: (A lanes and B ids from a seed, the path ops._intersect_plan and
+    # the data take on a card of 132 SMs: a thread a lane ("lane"); tiles
+    # staging all of B ("whole"), a span of B within the window ("window"),
+    # or over it ("global"))
+    "2048 in 1": (lambda rng: _random_intersect(rng, 2048, 1), "lane"),
+    "2048 in 3": (lambda rng: _random_intersect(rng, 2048, 3), "lane"),
+    "4096 in 1024": (lambda rng: _random_intersect(rng, 4096, 1024), "lane"),
+    "8192 in 262144": (lambda rng: _random_intersect(rng, 8192, 262144), "lane"),
+    "2^18 in 1024": (lambda rng: _random_intersect(rng, BIG, 1024), "whole"),
+    "2^18 in 2^18": (lambda rng: _random_intersect(rng, BIG, BIG), "window"),
+    "fallback: 2048 spread over 2^20": (lambda rng: _spread(rng, 2048, 2**20, 10**8), "lane"),
+    "2^18 spread over 2^21": (lambda rng: _spread(rng, BIG, 2**21, 10**8), "lane"),
+    "unsorted A, windowed B": (lambda rng: _shuffled(rng, _random_intersect(rng, BIG, BIG)),
+                               "global"),
+    "unsorted A, whole B": (lambda rng: _shuffled(rng, _random_intersect(rng, BIG, 1024)),
+                            "whole"),
+    "unsorted A, a thread a lane": (
+        lambda rng: _shuffled(rng, _random_intersect(rng, 2048, 2**19)), "lane"),
+    "clustered A, one tile over the window": (_clustered, "global"),
+    "all-SENTINEL tiles": (_sentinel_blocks, "window"),
+    "empty window": (lambda rng: (np.arange(2**24, 2**24 + BIG, dtype=np.int32),
+                                  np.sort(rng.choice(2**23, 2**16, replace=False))
+                                  .astype(np.int32)), "window"),
+    "runs across the window's ends": (_runs, "window"),
+    "a = -2^31, windowed B": (lambda rng: _int_min(rng, BIG, BIG), "window"),
+    "a = -2^31, whole B": (lambda rng: _int_min(rng, BIG, 1000), "whole"),
+    "a = -2^31, a thread a lane": (lambda rng: _int_min(rng, 2048, 2**20), "lane"),
+    "cb 2^18, a == b[1]": (lambda rng: _pow2_b1(rng, BIG, 2**18), "window"),
+    "cb 2^20, a == b[1]": (lambda rng: _pow2_b1(rng, 1024, 2**20), "lane"),
+    "cb 1024, a == b[1]": (lambda rng: _pow2_b1(rng, BIG, 1024), "whole"),
+    "ca 100, below one block": (lambda rng: _random_intersect(rng, 100, 5000), "lane"),
+    "ca 1001, a tail block": (lambda rng: _random_intersect(rng, 1001, 500_000), "lane"),
+}
+
+
+def _spans(a, b, tile):
+    """The span of B each tile's non-SENTINEL lanes fall in, and the tiles."""
+    tiles = np.array_split(a, np.arange(tile, a.size, tile))
+    live = [t[t != SENTINEL] for t in tiles]
+    return [int(np.searchsorted(b, t.max() + 1) - np.searchsorted(b, t.min()))
+            for t in live if t.size], tiles
+
+
+@pytest.mark.parametrize("case", list(INTERSECT_CASES))
+def test_sorted_intersect_mask_kernel(case, cuda):
+    make, path = INTERSECT_CASES[case]
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    a, b = make(rng)
     ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    want = ref.sorted_intersect_mask_ref(ta, tb)
     n0 = ops.LAUNCHES["sorted_intersect_mask"]
     got = ops.sorted_intersect_mask(ta, tb)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["sorted_intersect_mask"] == n0 + 1
-    _equal((got,), (ref.sorted_intersect_mask_ref(ta, tb),))
-    assert np.array_equal(got.cpu().numpy(), np.isin(a, b) & (a != 2**31 - 1))
+    _equal((got,), (want,))
+    assert np.array_equal(got.cpu().numpy(), np.isin(a, b) & (a != SENTINEL))
+    # the path the case is named for, that of a card of 132 SMs
+    plan = ops._intersect_plan(a.size, b.size, 132)
+    kernel, threads, _, window = plan
+    assert kernel == (1 if path == "lane" else 0)
+    if path == "whole":
+        assert b.size <= window
+    elif path in ("window", "global"):
+        spans, tiles = _spans(a, b, 4 * threads)
+        assert b.size > window and (max(spans) > window) == (path == "global")
+        if "SENTINEL" in case:
+            assert len(spans) < len(tiles)
+    if plan != ops._intersect_plan(a.size, b.size, ops._sm_count(cuda)):
+        # another card took another path through the wrapper: take this one too
+        named = torch.empty_like(got)
+        ops._launch("sorted_intersect_mask", cuda, ta.data_ptr(), a.size, tb.data_ptr(), b.size,
+                    named.data_ptr(), *plan)
+        _equal((named,), (want,))
+
+
+@pytest.mark.parametrize("ca", [1, 1001, 150_001])
+def test_sorted_intersect_any_ca_either_kernel(ca, cuda):
+    """Both kernels launched directly with ca past the wrapper's contract:
+    a tail tile, a tail quad, a tail block of lanes, and A and B views one
+    id into their tensors (no 16-byte loads), windowed and whole B."""
+    rng = np.random.default_rng(ca)
+    for cb in (3000, 300_001):
+        a, b = _random_intersect(rng, ca + 1, cb + 1)
+        ta, tb = torch.from_numpy(a).to(cuda)[1:], torch.from_numpy(b).to(cuda)[1:]
+        want = ref.sorted_intersect_mask_ref(ta, tb)
+        for plan in ((0, 256, -(-ca // 1024), min(cb, ops.INTERSECT_WINDOW)),
+                     (1, 256, -(-ca // 256), 0)):
+            got = torch.empty(ca, dtype=torch.bool, device=cuda)
+            ops._launch("sorted_intersect_mask", cuda, ta.data_ptr(), ca, tb.data_ptr(), cb,
+                        got.data_ptr(), *plan)
+            _equal((got,), (want,))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -725,3 +884,50 @@ def test_pred_gather_dac_long_rows(deep_index, cap, cuda):
     lanes = [int(np.nonzero(rows == s - 1)[0][0]) for s in range(1, 8)]
     assert count[lanes].tolist() == [min(d, cap) for d in (70, 45, 33, 32, 31, 1, 0)]
     assert overflow[lanes].tolist() == [d > cap for d in (70, 45, 33, 32, 31, 1, 0)]
+
+
+@pytest.fixture(scope="module", params=[16, 600, "4-byte"])
+def fixed_index(request, cuda):
+    """(index, meta) of a fixed layout: the 16- and 600-predicate stores'
+    (1- and 2-byte ids), and a CSR of 4-byte ids built here, since
+    ``predindex.build`` picks 4 bytes only above 65,535 predicates: 300 rows
+    of 0-100 ids over all 32 bits, rows 1-7 holding 70, 45, 33, 32, 31, 1
+    and 0."""
+    if request.param != "4-byte":
+        return _small_store(request.param, cuda)[0].pred_index.select("fixed")
+    rng = np.random.default_rng(43)
+    deg = rng.integers(0, 101, 300)
+    deg[1:8] = (70, 45, 33, 32, 31, 1, 0)
+    offsets = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    ids = np.concatenate([np.sort(rng.integers(0, 2**32, d, dtype=np.uint64)) for d in deg])
+    none = np.zeros(1, np.uint32)
+    index = predindex.index_from_numpy(dict(
+        offsets=offsets, words=ids.astype(np.uint32), degs=none, flags=none,
+        frank=np.zeros(1, np.int32)), cuda)
+    return index, predindex.PredIndexMeta(n_subjects=150, n_objects=150, n_preds=2**32,
+                                          bytes_per_pred=4, max_degree=int(deg.max()))
+
+
+@pytest.mark.parametrize("cap", [1, 14, 31, 32, 33, 40, 64, 70])
+def test_pred_gather_every_row(fixed_index, cap, cuda):
+    """Every row of a fixed-layout index, and rows past its end and below 0
+    (the kernel clips them to the index), in a shuffled order, at caps on
+    both sides of a 32-slot chunk: the kernel against its plain version on
+    the clipped rows."""
+    index, pmeta = fixed_index
+    n = index.offsets.shape[0] - 1
+    rng = np.random.default_rng(cap)
+    rows = rng.permutation(np.concatenate([np.arange(n), [n, n + 7, -1, -33]]))
+    rows = torch.from_numpy(rows.astype(np.int32)).to(cuda)
+    n0 = ops.LAUNCHES["pred_gather"]
+    got = ops.pred_gather(pmeta, index, rows, cap=cap)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["pred_gather"] == n0 + 1
+    want = ref.pred_gather_ref(rows.clamp(0, n - 1), index.offsets, index.words,
+                               bytes_per_pred=pmeta.bytes_per_pred, cap=cap)
+    _equal(got, want)
+    count = got[2].cpu().numpy()
+    assert (count == min(cap, pmeta.max_degree)).any()
+    if pmeta.bytes_per_pred == 4:
+        assert (count == 0).any()
+        assert (got[0][got[1]] < 0).any() and (got[0][got[1]] > 65535).any()

@@ -209,6 +209,32 @@ def test_sorted_intersect_masks_of_join_inputs(monkeypatch):
     assert rows >= 3 + st.n_preds and any(bool(o.valid.any()) for _, _, o in seen)
 
 
+@pytest.mark.parametrize("ca,cb,sms,plan", [
+    (1024, 1024, 132, (1, 256, 4, 0)),  # a join's intersection
+    (2**16, 2**18, 132, (1, 256, 256, 0)),  # the JAX bench's shape
+    (655_360, 532_480, 132, (0, 256, 640, 4096)),  # two geonames predicates' subjects
+    (2048, 2**20, 132, (1, 256, 8, 0)),  # sparse A in dense B
+    (135_168, 3, 132, (1, 256, 528, 0)),  # 1024 lanes for each of 132 SMs
+    (135_169, 3, 132, (0, 256, 133, 3)),  # more: tiles, all of B staged
+    (2**18, 4096, 132, (0, 256, 256, 4096)),
+    (2**18, 2**20, 132, (0, 256, 256, 4096)),  # a tile's share of B fills the window
+    (2**18, 2**20 + 1, 132, (1, 256, 1024, 0)),  # and past it
+    (100, 50, 132, (1, 256, 1, 0)),
+    (4096, 9, 4, (1, 256, 16, 0)),  # a card of 4 SMs
+    (4097, 9, 4, (0, 256, 5, 9)),  # a tail tile
+])
+def test_intersect_plan(ca, cb, sms, plan):
+    """sorted_intersect_mask: a thread a lane (kernel 1) up to 1024 lanes
+    an SM or where a tile's even share of B would pass the window; else
+    tiles of 1024 lanes (kernel 0) staging all of B up to INTERSECT_WINDOW
+    ids, else a window of that many."""
+    kernel, threads, blocks, window = ops._intersect_plan(ca, cb, sms)
+    assert (kernel, threads, blocks, window) == plan
+    lanes = 4 * threads if kernel == 0 else threads
+    assert (blocks - 1) * lanes < ca <= blocks * lanes
+    assert window == (min(cb, ops.INTERSECT_WINDOW) if kernel == 0 else 0)
+
+
 # ---------------------------------------------------------------------------
 # block_spmm and mask_from_k2_level
 # ---------------------------------------------------------------------------

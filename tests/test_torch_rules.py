@@ -1,7 +1,7 @@
 """Package rules of ``repro_torch``.
 
-* No file of the package, nor ``chip_smoke.py``, imports ``jax`` or the JAX
-  package ``repro`` (an AST scan of every import).
+* No file of the package, nor ``chip_smoke.py`` or ``kernel_variants.py``,
+  imports ``jax`` or the JAX package ``repro`` (an AST scan of every import).
 * Every entry point defaults to ``device="cuda"``, and asking for CUDA
   without a card raises instead of running on the CPU.
 * ``ExecConfig`` resolves without reading the environment.
@@ -21,7 +21,8 @@ from repro_torch.core.query import ExecConfig, resolve_device
 from repro_torch.launch import broker, serve
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "kernel_variants.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
