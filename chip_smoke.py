@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--triples 9415253]
+    python3 chip_smoke.py [--seed 0] [--triples 9415253] [--trace-out PATH]
 
 Phases (any failure exits non-zero before the result line):
 
@@ -34,14 +34,38 @@ Phases (any failure exits non-zero before the result line):
    A-F over the four (vpos1, vpos2) pairs, 8 queries each (cap 1024,
    cap_y 256); every answer must match the numpy oracle, every kernel of
    the path must have launched, and each shape's and category's host-clock
-   latency is printed;
+   latency is printed; then one E and one F join under the tracer give
+   the host/device split of a join (``plan.dispatch`` / ``plan.sync`` /
+   ``plan.decode`` spans beside the join's device ms);
+5c. the SELECT/BGP path over the same store (cap 1024), run once with
+   every kernel call held against its plain version, then again with the
+   launch counters reset just before: 256 ``SelectQ`` of the serve
+   benchmark's shape (WHERE (s,p,?o), OPTIONAL (s,p2,?x), ORDER BY ?o, LIMIT
+   16), 64 subject stars (?s,p1,o)(?s,p2,?x), 64 paths (s,p1,?y)(?y,p2,?z),
+   32 UNIONs of two predicates under a FILTER on ?o, and 8 BGPs joining a
+   one-row key with the fully free pattern of the smallest predicate (the
+   ``k2_range`` step, at the cap that predicate needs); every answer must
+   equal a numpy evaluation over the id triples, ``k2_scan``, ``k2_check``
+   and ``k2_range`` must have launched, and each shape's median and max
+   host-clock latency is printed, with one traced query a shape split into
+   its spans; then the broker serves phase 5's trace again under tracing
+   and under ``torch.profiler`` (CUDA activity only), and the 4096-query
+   trace with 5% of it SELECTs (``make_trace(select_frac=0.05)``) with
+   observability off, on, and under the profiler: every lane and SELECT
+   answer of every run must equal the numpy evaluation, the traced SELECT
+   run's exported Chrome trace (written to ``--trace-out`` when given)
+   must pass ``validate_chrome_trace(require_queries=True)``, every run's
+   qps is printed, the spans give the host split of a serve batch beside
+   ``Plan.cost_profile``'s device ms of one 256-lane batch, and each
+   profiled run's device busy time (the union of its kernel and copy
+   intervals) gives the device idle share of an untraced run;
 6. time each path kernel at every distinct shape recorded on the serve
-   step and in phase 5b, ``k2_scan``, ``k2_check``, ``pred_gather_dac`` and
+   step and in phases 5b and 5c, ``k2_scan``, ``k2_check``, ``pred_gather_dac`` and
    ``pred_gather`` also at Q=1 (one lane's latency) (CUDA events around
    calls enqueued behind a sleep kernel, so host launch overhead is excluded; the
    wrapper's back-to-back time is reported beside it) and its plain
    version back to back, and its device and bound ms summed over every
-   recorded call of the serve step and of phase 5b; then the launch floor,
+   recorded call of the serve step and of phases 5b and 5c; then the launch floor,
    an empty kernel timed the same way;
 7. kernel entry points: first at small sizes against their plain versions
    (``popcount`` also on an unaligned view; ``sorted_intersect_mask`` with
@@ -654,7 +678,7 @@ def run_work(engine, work) -> list:
     import torch
 
     out = []
-    for _, q, cfg, batch in work:
+    for _, q, cfg, batch, *_ in work:
         plan = engine.compile(q, cfg.replace(device=str(engine.device)))
         t0 = time.perf_counter()
         ans = plan(batch)
@@ -695,6 +719,357 @@ def check_work(work, results, oracle, n_unique: int) -> dict:
     return lat, nonempty
 
 
+def join_split(engine, work, device) -> dict:
+    """Host/device split of one E and one F join of ``work``: the traced
+    ``plan.call`` with its ``plan.dispatch`` (launches), ``plan.sync`` (the
+    host waiting on the card) and ``plan.decode`` (the Y block's copy and
+    decode) spans, beside the join's device ms (``time_ms`` around its
+    kernels alone)."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import joins
+
+    m, f = engine.meta, engine.forest
+    out = {}
+    for cat in "EF":
+        label, q, cfg, _ = next(w for w in work if w[0].startswith(f"join {cat}"))
+        plan = engine.compile(q, cfg.replace(device=str(engine.device)))
+        plan()
+        tracer, _ = obs.enable()
+        try:
+            plan()
+        finally:
+            obs.disable()
+        spans = {e["name"]: (e["t1"] - e["t0"]) / 1e6 for e in tracer.events()}
+        ex = plan._executor
+        # constants uploaded once: a Python int would be copied to the card
+        # in every call, which waits for the stream the timing holds
+        p1, c1 = (torch.tensor(v, dtype=torch.int32, device=device) for v in (q.p1 or 1, q.c1))
+        if cat == "E":
+            call = lambda: joins.join_e(m, f, p1, c1, q.vpos1, q.vpos2,  # noqa: E731
+                                        cap_x=ex.cap, cap_y=ex.cap_y)
+        else:
+            call = lambda: joins.join_f(m, f, c1, q.vpos1, q.vpos2,  # noqa: E731
+                                        cap_x=ex.cap, cap_y=ex.cap_y)
+        dev_ms = time_ms(call, 5)
+        row = {k: spans[k] for k in ("plan.call", "plan.dispatch", "plan.sync", "plan.decode")}
+        row.update(device_ms=dev_ms, device_idle_share=1.0 - dev_ms / spans["plan.call"])
+        out[label] = row
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the SELECT/BGP path (phase 5c)
+# ---------------------------------------------------------------------------
+
+SELECT_SHAPES = ("select serve-shape", "select star", "select path",
+                 "select union+filter", "bgp fully-free")
+
+
+def select_work(ds, oracle, seed: int) -> list:
+    """Phase 5c's workload: ``(label, query, config, None, params)`` items
+    (no batch) with constants from real triples; ``params`` feed the numpy
+    evaluation."""
+    import numpy as np
+
+    from repro_torch.core.algebra import Cmp
+    from repro_torch.core.query import BgpQ, ExecConfig, SelectQ
+    from repro_torch.core.query import TriplePatternQ as T
+    from repro_torch.launch import serve
+
+    rng = np.random.default_rng(seed)
+    ids = ds.ids
+    cfg = ExecConfig(cap=1024)
+    work = []
+
+    def other_pred(s):
+        mine = oracle._slice(oracle.by_s, 0, s)
+        return int(mine[rng.integers(0, len(mine)), 1])
+
+    for s, p, _ in ids[rng.integers(0, ds.n_triples, 256)].tolist():
+        p2 = int(rng.integers(1, ds.n_preds + 1))
+        work.append(("select serve-shape", serve.select_query(s, p, p2), cfg, None, (s, p, p2)))
+    for s, p1, o in ids[rng.integers(0, ds.n_triples, 64)].tolist():
+        p2 = other_pred(s)
+        work.append(("select star", SelectQ(where=(T("?s", p1, o), T("?s", p2, "?x"))),
+                     cfg, None, (p1, o, p2)))
+    is_s = np.zeros(max(ds.n_subjects, ds.n_objects) + 1, np.bool_)
+    is_s[ids[:, 0]] = True
+    for s, p1, y in ids[rng.choice(np.nonzero(is_s[ids[:, 2]])[0], 64)].tolist():
+        p2 = other_pred(y)
+        work.append(("select path", SelectQ(where=(T(s, p1, "?y"), T("?y", p2, "?z"))),
+                     cfg, None, (s, p1, p2)))
+    for s, p1, _ in ids[rng.integers(0, ds.n_triples, 32)].tolist():
+        p2 = other_pred(s)
+        cut = int(np.median(oracle._slice(oracle.by_s, 0, s)[:, 2]))
+        q = SelectQ(union=((T(s, p1, "?o"),), (T(s, p2, "?o"),)), filter=(Cmp(">=", "?o", cut),))
+        work.append(("select union+filter", q, cfg, None, (s, p1, p2, cut)))
+    sizes = [oracle.pairs(p).shape[0] for p in range(1, ds.n_preds + 1)]
+    p_small = 1 + int(np.argmin(sizes))
+    big = ExecConfig(cap=1 << int(np.ceil(np.log2(sizes[p_small - 1]))))
+    keys = oracle.by_s[:, :2]
+    first = np.ones(len(keys), np.bool_)
+    first[1:] = (keys[1:] != keys[:-1]).any(axis=1)
+    starts = np.nonzero(first)[0]
+    single = starts[np.diff(np.append(starts, len(keys))) == 1]
+    for s, p, _ in oracle.by_s[rng.choice(single, 8, replace=False)].tolist():
+        q = BgpQ(((s, p, "?y"), ("?a", p_small, "?b")))
+        work.append(("bgp fully-free", q, big, None, (s, p, p_small)))
+    return work
+
+
+def select_answer(oracle, label, params) -> dict:
+    """The numpy evaluation of one phase-5c query over the id triples: the
+    dataset's per-(s, p) / (p, o) slices joined with plain numpy, rows
+    distinct and in the order the query asks (sorted-name columns; ORDER
+    BY ?o then ?x; LIMIT 16)."""
+    import numpy as np
+
+    def rows(cols, parts):
+        arr = np.concatenate(parts) if parts else np.zeros((0, len(cols)), np.int64)
+        arr = np.unique(arr.astype(np.int64).reshape(-1, len(cols)), axis=0)
+        return arr
+
+    if label == "select serve-shape":
+        s, p, p2 = params
+        os_, xs = oracle.answer(1, s, p, 0), oracle.answer(1, s, p2, 0)
+        xs = xs if xs.size else np.zeros(1, np.int64)
+        arr = rows("ox", [np.stack(np.meshgrid(os_, xs, indexing="ij"), -1).reshape(-1, 2)])[:16]
+        return {"?o": arr[:, 0], "?x": arr[:, 1]}
+    if label == "select star":
+        p1, o, p2 = params
+        parts = [np.stack([np.full(len(xs), s), xs], 1)
+                 for s in oracle.answer(2, 0, p1, o) for xs in [oracle.answer(1, s, p2, 0)]]
+        arr = rows("sx", parts)
+        return {"?s": arr[:, 0], "?x": arr[:, 1]}
+    if label == "select path":
+        s, p1, p2 = params
+        parts = [np.stack([np.full(len(zs), y), zs], 1)
+                 for y in oracle.answer(1, s, p1, 0) for zs in [oracle.answer(1, y, p2, 0)]]
+        arr = rows("yz", parts)
+        return {"?y": arr[:, 0], "?z": arr[:, 1]}
+    if label == "select union+filter":
+        s, p1, p2, cut = params
+        os_ = np.concatenate([oracle.answer(1, s, p1, 0), oracle.answer(1, s, p2, 0)])
+        arr = rows("o", [os_[os_ >= cut][:, None]])
+        return {"?o": arr[:, 0]}
+    s, p, p_small = params
+    pairs = oracle.pairs(p_small)
+    parts = [np.concatenate([pairs, np.full((len(pairs), 1), y)], 1)
+             for y in oracle.answer(1, s, p, 0)]
+    arr = rows("aby", parts)
+    return {"?a": arr[:, 0], "?b": arr[:, 1], "?y": arr[:, 2]}
+
+
+def same_select(ans, want) -> bool:
+    """Same columns in the same order, equal int64 values in the same row
+    order."""
+    import numpy as np
+
+    return list(ans) == list(want) and all(
+        ans[k].dtype == np.int64 and np.array_equal(ans[k], want[k]) for k in want)
+
+
+def check_select_work(work, results, oracle) -> dict:
+    """Every phase-5c answer against the numpy evaluation (same columns in
+    the same order, equal int64 values in the same row order); returns
+    ``{label: (seconds, ...)}`` and the per-label non-empty counts."""
+    lat, nonempty = {}, {}
+    for (label, q, _, _, params), (ans, sec, _) in zip(work, results):
+        want = select_answer(oracle, label, params)
+        if not same_select(ans, want):
+            fail(f"{label} {q} disagrees with the numpy evaluation")
+        lat.setdefault(label, []).append(sec)
+        nonempty[label] = nonempty.get(label, 0) + bool(len(next(iter(want.values()))))
+    return lat, nonempty
+
+
+def select_split(engine, work) -> dict:
+    """Where one query of each phase-5c shape spends its host clock: the
+    traced call's span sums (``planner.order`` blocks, ``plan.lanes``
+    dispatches, ``engine.fetch`` waits and copies, ``engine.compile``)
+    beside its wall; the rest is lowering, host table algebra and dedup."""
+    import torch
+
+    from repro_torch import obs
+
+    out = {}
+    for label in SELECT_SHAPES:
+        _, q, cfg, _, _ = next(w for w in work if w[0] == label)
+        plan = engine.compile(q, cfg.replace(device=str(engine.device)))
+        tracer, _ = obs.enable()
+        try:
+            t0 = time.perf_counter()
+            plan()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            obs.disable()
+        sums: dict = {}
+        for e in tracer.events():
+            if e["kind"] == "X":
+                sums[e["name"]] = sums.get(e["name"], 0.0) + (e["t1"] - e["t0"]) / 1e6
+        blocks = sums.get("planner.order", 0.0)
+        out[label] = dict(wall_ms=wall, **{f"{k}_ms": v for k, v in sorted(sums.items())},
+                          outside_blocks_ms=wall - blocks)
+    return out
+
+
+def device_busy(prof) -> dict:
+    """Device busy time of a ``torch.profiler`` window: the union of its
+    kernel, memcpy and memset intervals, read from the profiler's Chrome
+    export.  Fails when the profiler recorded no device activity."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "profile.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    device = [e for e in events if e.get("ph") == "X"
+              and str(e.get("cat", "")).lower() in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        fail("the CUDA profiler recorded no device activity")
+    busy_us, end = 0.0, float("-inf")
+    for t0, t1 in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in device):
+        if t1 > end:
+            busy_us += t1 - max(t0, end)
+            end = t1
+    kernels = sum(str(e["cat"]).lower() == "kernel" for e in device)
+    return dict(busy_ms=busy_us / 1e3, kernels=kernels, copies_and_sets=len(device) - kernels)
+
+
+def serve_obs_phase(engine, ds, oracle, n_queries, n_tenants, cap, max_batch, seed,
+                    main_wall: float, trace_out: str | None) -> dict:
+    """The broker trace of phase 5 traced and under the CUDA profiler
+    (lanes only), then the trace with 5% SELECTs with observability off, on,
+    and under the profiler: every query of every run answered and equal to
+    the numpy oracle, the traced SELECT run's Chrome trace valid with
+    per-query spans, the qps of every run, the host split of a serve batch
+    from the spans, and the device idle share of the untraced runs from the
+    profiler's busy time."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import engine as eng
+    from repro_torch.core.query import ObsConfig, ServeQ
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.obs.validate import validate_chrome_trace
+
+    lanes_trace = serve.make_trace(ds, n_queries, n_tenants, zipf_a=1.1, seed=seed)
+    sel_trace = serve.make_trace(ds, n_queries, n_tenants, zipf_a=1.1, select_frac=0.05,
+                                 seed=seed)
+    profiled: dict = {}
+
+    @contextlib.contextmanager
+    def cuda_profile():
+        before = dict(ops.LAUNCHES)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            yield
+        profiled.update(prof=prof, launches=sum(ops.LAUNCHES[k] - before[k] for k in before))
+
+    runs, chromes, busy = {}, {}, {}
+    for label, trace, mode in (
+        ("lanes, obs on", lanes_trace, "obs"), ("lanes, profiled", lanes_trace, "profile"),
+        ("5% SELECT, obs off", sel_trace, None), ("5% SELECT, obs on", sel_trace, "obs"),
+        ("5% SELECT, profiled", sel_trace, "profile"),
+    ):
+        n_sel = sum(len(row) == 2 for row in trace)
+        tracer = obs.enable(ObsConfig(trace_capacity=1 << 18))[0] if mode == "obs" else None
+        try:
+            stats, answers, wall, _ = serve.serve_trace(
+                engine, trace, n_tenants=n_tenants, cap=cap, max_batch=max_batch,
+                deadline_ms=2.0, warmup=64, window=cuda_profile if mode == "profile" else None)
+            torch.cuda.synchronize()
+            chrome = None if tracer is None else tracer.to_chrome(metadata=obs.provenance())
+        finally:
+            obs.disable()
+        unanswered = sum(a is None for a in answers)
+        if unanswered or stats["selects"] != n_sel or stats["queries"] != n_queries:
+            fail(f"{label}: {unanswered} unanswered, {stats['selects']} of {n_sel} selects, "
+                 f"{stats['queries']} of {n_queries} queries")
+        for i, row in enumerate(trace):
+            if len(row) == 2:
+                q = row[1]
+                want = select_answer(oracle, "select serve-shape",
+                                     (q.where[0].s, q.where[0].p, q.optional[0][0].p))
+                ok = same_select(answers[i], want)
+            else:
+                ok = same_answer(answers[i], oracle.answer(*row[1:]))
+            if not ok:
+                fail(f"{label}: query {i} {row} disagrees with the numpy evaluation")
+        runs[label] = dict(qps=n_queries / wall, wall_s=wall, p50_ms=stats["p50_ms"],
+                           p99_ms=stats["p99_ms"], batches=stats["batches"])
+        chromes[label] = chrome
+        if mode == "profile":
+            busy[label] = dict(device_busy(profiled["prof"]), launches=profiled["launches"])
+            if busy[label]["kernels"] < profiled["launches"]:
+                fail(f"{label}: the profiler saw {busy[label]['kernels']} kernels, "
+                     f"fewer than the {profiled['launches']} launches of the port's kernels")
+        print(f"broker, {label} ({n_sel} SELECTs): {n_queries / wall:.1f} qps, "
+              f"p50 {stats['p50_ms']} ms, p99 {stats['p99_ms']} ms, "
+              f"{stats['batches']} batches; every answer equals the numpy evaluation",
+              flush=True)
+    chrome = chromes["5% SELECT, obs on"]
+    problems = validate_chrome_trace(chrome, require_queries=True)
+    if problems:
+        fail(f"the exported trace is invalid: {problems[:5]}")
+    queries = {e["id"] for e in chrome["traceEvents"] if e.get("ph") == "b" and e["name"] == "query"}
+    if len(queries) != n_queries:
+        fail(f"the trace covers {len(queries)} of {n_queries} queries")
+    if trace_out is not None:
+        Path(trace_out).parent.mkdir(parents=True, exist_ok=True)
+        Path(trace_out).write_text(json.dumps(chrome))
+    lanes = np.array([row[1:] for row in lanes_trace[:max_batch]], np.int32).T
+    plan = engine.compile(ServeQ(), engine.default_config.replace(cap=cap))
+    prof = plan.cost_profile(eng.ServeBatch(*lanes))
+    if prof.get("device_ms") is None:
+        fail(f"no device ms in the serve step's cost profile: {prof}")
+    print(f"cost profile of a 256-lane serve batch: {json.dumps(prof)}", flush=True)
+    # the device's idle share over each untraced window: the profiled run's
+    # busy time over its own wall, and over the wall of the same trace
+    # served with neither tracing nor the profiler (phase 5's run for lanes)
+    idle = {}
+    for label, clean_wall in (("lanes, profiled", main_wall),
+                              ("5% SELECT, profiled", runs["5% SELECT, obs off"]["wall_s"])):
+        b = busy[label]
+        idle[label] = dict(b, wall_ms=runs[label]["wall_s"] * 1e3,
+                           batches=runs[label]["batches"],
+                           device_idle_share=1.0 - b["busy_ms"] / (runs[label]["wall_s"] * 1e3),
+                           idle_share_of_untraced_wall=1.0 - b["busy_ms"] / (clean_wall * 1e3))
+        print(f"device idle share, {label} (torch.profiler, CUDA activity only): "
+              f"{json.dumps(idle[label])}", flush=True)
+    splits = {}
+    for label in ("lanes, obs on", "5% SELECT, obs on"):
+        spans: dict = {}
+        for e in chromes[label]["traceEvents"]:
+            if e.get("ph") == "X":
+                spans.setdefault(e["name"], []).append(e["dur"] / 1e3)
+        med = {k: float(np.median(v)) for k, v in spans.items()}
+        split = {
+            "batch_ms": med["broker.batch"], "dispatch_ms": med["broker.dispatch"],
+            "plan_submit_ms": med["plan.submit"], "inflight_ms": med["broker.inflight"],
+            "fetch_ms": med["broker.fetch"], "decode_deliver_ms": med["broker.decode_deliver"],
+            "engine_fetch_ms": med["engine.fetch"], "device_ms_per_batch": prof["device_ms"],
+        }
+        if "broker.select" in med:
+            split.update(select_ms=med["broker.select"], planner_block_ms=med["planner.order"],
+                         plan_lanes_ms=med["plan.lanes"])
+        splits[label] = split
+        print(f"serve batch host split, {label} (span medians, ms): {json.dumps(split)}",
+              flush=True)
+    print(f"obs overhead: lanes {n_queries / main_wall:.1f} -> "
+          f"{runs['lanes, obs on']['qps']:.1f} qps, "
+          f"5% SELECT {runs['5% SELECT, obs off']['qps']:.1f} -> "
+          f"{runs['5% SELECT, obs on']['qps']:.1f} qps; trace: {len(chrome['traceEvents'])} "
+          f"events, {len(queries)} queries, valid", flush=True)
+    return dict(runs=runs, splits=splits, idle=idle, cost_profile=prof)
+
+
 # ---------------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------------
@@ -721,7 +1096,8 @@ def time_ms(fn, iters: int) -> float:
     sized from the host time of one call and the hold is verified.  When it
     does not hold, the next try sleeps 4x longer over 4x fewer calls: a call
     of many launches (``k2_range`` queues three a tree level) can fill the
-    launch queue, which then blocks the host until the sleep has ended."""
+    launch queue, which then blocks the host until the sleep has ended.
+    After four tries the run fails."""
     import torch
 
     fn()
@@ -945,10 +1321,11 @@ def bound(name, args, kw, out) -> tuple[float, str, int, int]:
 
 def path_ms(name, *recorders) -> dict:
     """Device ms and bound ms of a kernel summed over every call a recorder
-    captured (the serve step of phase 4, the pattern/join run of phase 5b),
+    captured (the serve step of phase 4, the pattern/join run of phase 5b,
+    the SELECT run of phase 5c),
     each call timed on its own inputs: the weight of the kernel on a path."""
     out = {}
-    for label, recorder in zip(("serve_step", "patterns_joins"), recorders):
+    for label, recorder in zip(("serve_step", "patterns_joins", "select"), recorders):
         dev = low = 0.0
         for cargs, kw, res in recorder.calls[name]:
             dev += time_ms(lambda f=recorder.orig[name], a=cargs, k=kw: f(*a, **k), 5)
@@ -958,8 +1335,8 @@ def path_ms(name, *recorders) -> dict:
 
 
 def main_path_shapes(name, *recorders):
-    """Every recorded call of kernel ``name`` on the serve step and on phase
-    5b, and for the lane-latency-bound kernels also the first recorded
+    """Every recorded call of kernel ``name`` on the serve step and in phases
+    5b and 5c, and for the lane-latency-bound kernels also the first recorded
     call's first lane alone (Q=1): one lane's latency."""
     calls = [c for recorder in recorders for c in recorder.calls[name]]
     if name in ("k2_scan", "k2_check", "pred_gather_dac", "pred_gather") and calls:
@@ -1233,6 +1610,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--triples", type=int, default=GEONAMES_TRIPLES,
                     help="geonames-like corpus size (default: the paper's full size)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write phase 5c's traced broker run as Chrome trace JSON")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -1310,7 +1689,7 @@ def main(argv=None) -> int:
     phase("5. main path: broker over the geonames store")
     torch.cuda.reset_peak_memory_stats(device)
     ops.reset_launches()
-    stats, answers, wall = serve.serve_trace(
+    stats, answers, wall, _ = serve.serve_trace(
         engine, trace, n_tenants=n_tenants, cap=cap, max_batch=max_batch,
         deadline_ms=2.0, warmup=64,
     )
@@ -1382,12 +1761,50 @@ def main(argv=None) -> int:
                   f"{1e6 * secs[0] / n:.1f} us per query, cap {caps}", flush=True)
     if not all(q_launches[k] > 0 for k in QUERY_KERNELS):
         fail(f"a kernel of the pattern/join path never launched: {q_launches}")
+    print(f"join host/device split (ms): {json.dumps(join_split(engine, work, device))}",
+          flush=True)
+
+    phase("5c. the SELECT/BGP path over the geonames store")
+    s_work = select_work(ds, oracle, args.seed + 4)
+    rec_s = Recorder()
+    t0 = time.perf_counter()
+    with rec_s:
+        run_work(engine, s_work)
+    torch.cuda.synchronize()
+    for name in QUERY_KERNELS:
+        err[name] = max(err[name], rec_s.err[name])
+    print(f"kernel checks on the SELECT inputs: "
+          f"{ {k: len(v) for k, v in rec_s.calls.items()} } calls, max_abs_err {rec_s.err} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    if any(err[k] for k in QUERY_KERNELS):
+        fail(f"kernels disagree with their plain versions: {err}")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    s_results = run_work(engine, s_work)
+    torch.cuda.synchronize()
+    s_launches = dict(ops.LAUNCHES)
+    s_wall = time.perf_counter() - t0
+    s_lat, s_nonempty = check_select_work(s_work, s_results, oracle)
+    print(f"SELECT/BGP path: {len(s_work)} plan calls in {s_wall:.3f}s; launches {s_launches}; "
+          f"every answer equals the numpy evaluation", flush=True)
+    for label in SELECT_SHAPES:
+        secs = s_lat[label]
+        print(f"latency {label}: {len(secs)} queries, median {1e3 * np.median(secs):.3f} ms, "
+              f"max {1e3 * max(secs):.3f} ms per query, {s_nonempty[label]} non-empty", flush=True)
+        if not s_nonempty[label]:
+            fail(f"every {label} answer is empty: the workload exercises nothing")
+    if not all(s_launches[k] > 0 for k in ("k2_scan", "k2_check", "k2_range")):
+        fail(f"a kernel of the SELECT path never launched: {s_launches}")
+    print(f"SELECT host split, one query a shape (ms): {json.dumps(select_split(engine, s_work))}",
+          flush=True)
+    serve_obs_phase(engine, ds, oracle, n_queries, n_tenants, cap, max_batch, args.seed + 1,
+                    wall, args.trace_out)
 
     phase("6. kernel times at the main-path shapes")
     rows = []
     for name in QUERY_KERNELS:
         best, shapes, seen = None, {}, set()
-        for cargs, kw, out in main_path_shapes(name, rec, rec_q):
+        for cargs, kw, out in main_path_shapes(name, rec, rec_q, rec_s):
             key = (tuple(tuple(t.shape) for t in cargs[2:]), tuple(sorted(kw.items())))
             if key in seen:
                 continue
@@ -1401,11 +1818,12 @@ def main(argv=None) -> int:
         rows.append(dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"],
-            launches=launches[name] + q_launches[name],
-            launches_by_path={"serve": launches[name], "patterns_joins": q_launches[name]},
+            launches=launches[name] + q_launches[name] + s_launches[name],
+            launches_by_path={"serve": launches[name], "patterns_joins": q_launches[name],
+                              "select": s_launches[name]},
             max_abs_err=err[name], ms=times["ms"], plain_ms=times["plain_ms"],
             bound_ms=times["bound_ms"], bound_by=times["bound_by"], library_ms=None,
-            shapes=shapes, path_ms=path_ms(name, rec, rec_q),
+            shapes=shapes, path_ms=path_ms(name, rec, rec_q, rec_s),
         ))
         print(f"{name}: device ms summed over each path's recorded calls {rows[-1]['path_ms']}",
               flush=True)

@@ -1,8 +1,10 @@
 """Carry a store built elsewhere (the JAX package) across as numpy arrays.
 
 The forest arenas, the DAC SP/OP index arrays and the static geometry are
-all the state a ``K2TriplesStore`` serves from; this module wraps them in
-this package's types on a device, without rebuilding anything and without
+all the state a ``K2TriplesStore`` serves from; the index's host CSR is
+what the planner reads, so a converted store plans exactly as the store it
+came from when the CSR comes along.  This module wraps them in this
+package's types on a device, without rebuilding anything and without
 importing the package that built them.
 """
 
@@ -30,6 +32,8 @@ def store_from_arrays(
     n_triples: int,
     index: dict[str, np.ndarray] | None = None,
     index_meta: dict | None = None,
+    host_offsets: np.ndarray | None = None,
+    host_preds: np.ndarray | None = None,
     device="cuda",
 ) -> K2TriplesStore:
     """A serving store from host arrays.
@@ -37,7 +41,9 @@ def store_from_arrays(
     ``forest`` maps the ``K2Forest`` field names to arrays (uint32 words
     or their int32 views); ``index`` the DAC ``PredIndex`` fields and
     ``index_meta`` the ``PredIndexMeta`` fields (``layout`` must be
-    ``"dac"``).  Build statistics are not carried: ``stats`` is ``None``.
+    ``"dac"``); ``host_offsets`` (int64[R + 1]) and ``host_preds`` (int32,
+    0-based, sorted within each row) the index's host CSR, both or
+    neither.  Build statistics are not carried: ``stats`` is ``None``.
     """
     device = resolve_device(device)
     missing = [n for n in FOREST_FIELDS if n not in forest]
@@ -62,8 +68,20 @@ def store_from_arrays(
             k: tuple(v) if isinstance(v, (list, tuple)) else v
             for k, v in index_meta.items()
         })
+        if (host_offsets is None) != (host_preds is None):
+            raise ValueError("pass host_offsets and host_preds together")
+        if host_offsets is not None:
+            host_offsets = np.asarray(host_offsets, np.int64)
+            host_preds = np.asarray(host_preds, np.int32)
+            rows = pmeta.n_subjects + pmeta.n_objects
+            if host_offsets.shape != (rows + 1,) or host_preds.shape != (host_offsets[-1],):
+                raise ValueError(
+                    f"host CSR shapes {host_offsets.shape}/{host_preds.shape} do not "
+                    f"match {rows} index rows"
+                )
         pidx = predindex.BuiltPredIndex(
-            device=predindex.index_from_numpy(index, device), meta=pmeta
+            device=predindex.index_from_numpy(index, device), meta=pmeta,
+            host_offsets=host_offsets, host_preds=host_preds,
         )
     return K2TriplesStore(
         meta=meta, forest=f, stats=None, n_so=n_so, n_subjects=n_subjects,

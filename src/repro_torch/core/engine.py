@@ -5,8 +5,11 @@
 lanes; (?S,P,?O) and the dump run the ``k2_range`` pair enumeration.
 ``JoinQ`` plans resolve categories A–C as serve-IR side lists plus the
 sorted-set algebra of ``core.sortedset``, and D–F through ``core.joins``
-(the fused ``k2_scan_rebind`` kernel for D and E).  ``ServeQ`` is the raw
-serve-IR passthrough the broker streams through.
+(the fused ``k2_scan_rebind`` kernel for D and E).  ``BgpQ`` and
+``SelectQ`` plans lower to a ``core.algebra`` tree that ``core.planner``
+executes, every check and bounded scan step through the same pooled serve
+step.  ``ServeQ`` is the raw serve-IR passthrough the broker streams
+through.
 
 Serve IR: a ``ServeBatch`` lane is ``(op, s, p, o)`` with
 
@@ -30,6 +33,14 @@ On a CUDA store each is a hand-written kernel (``kernels/ops.py``); the
 rest is elementwise torch.  Nothing on ``Plan.submit`` synchronises with
 the device: the batch is uploaded from pinned memory without blocking, and
 the fetch (:func:`host_result`) waits on an event recorded at dispatch.
+
+With observability on (``repro_torch.obs``) a ``ServeQ`` call records
+``plan.call`` around ``plan.dispatch`` (the launches) and ``plan.sync``
+(the overflow check, where the host waits for the card); a D–F join the
+same three around its launches and wait, then ``plan.decode``; every
+dispatch of host lanes ``plan.lanes``, every fetch ``engine.fetch``, every
+lane decode ``plan.decode_lane`` and every plan-cache miss
+``engine.compile``.  Each site costs one attribute read when it is off.
 """
 
 from __future__ import annotations
@@ -40,15 +51,20 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import joins, k2forest, predindex, sortedset
+from repro_torch import obs
+from repro_torch.core import (
+    algebra, joins, k2forest, optimizer, planner, predindex, sortedset,
+)
 from repro_torch.core.k2forest import K2Forest
 from repro_torch.core.k2tree import K2Meta, compact
 from repro_torch.core.k2triples import K2TriplesStore
 from repro_torch.core.predindex import PredIndex, PredIndexMeta
 from repro_torch.core.query import (
-    AdmissionError, CapOverflow, ExecConfig, JoinQ, Plan, ServeQ,
-    TriplePatternQ, resolve_device, run_with_policy, shape_key,
+    AdmissionError, BgpQ, CapOverflow, ExecConfig, JoinQ, Plan, SelectQ,
+    ServeQ, TriplePatternQ, is_var, resolve_device, run_with_policy,
+    shape_key,
 )
+from repro_torch.obs import cost as obs_cost
 from repro_torch.core.sortedset import SENTINEL, IdSet
 
 # serve IR ops
@@ -115,6 +131,15 @@ def host_result(r: ServeResult, *, unbounded: bool = True) -> ServeResult:
     from a worker thread.  ``unbounded=False`` skips the ``u_*`` block —
     the largest transfer — for batches without unbounded lanes.
     """
+    t = obs.STATE.tracer
+    if t is None:
+        return _host_result(r, unbounded)
+    with t.span("engine.fetch", cat="engine",
+                b=int(r.ids.shape[0]), unbounded=unbounded):
+        return _host_result(r, unbounded)
+
+
+def _host_result(r: ServeResult, unbounded: bool) -> ServeResult:
     names = RESULT_FIELDS if unbounded else RESULT_FIELDS[:5]
     if r.ready is None:
         out = {n: _host(getattr(r, n)) for n in names}
@@ -148,6 +173,14 @@ def decode_lane(op: int, r: ServeResult, i: int):
       OP_S_ANY_O -> matching predicate id array;
       OP_S_ANY_ANY / OP_ANY_ANY_O -> {pred id: id array}.
     """
+    t = obs.STATE.tracer
+    if t is None:
+        return _decode_lane(op, r, i)
+    with t.span("plan.decode_lane", cat="plan", op=int(op)):
+        return _decode_lane(op, r, i)
+
+
+def _decode_lane(op: int, r: ServeResult, i: int):
     if op == OP_CHECK:
         return bool(r.hit[i])
     if op in (OP_ROW, OP_COL, OP_S_ANY_O):
@@ -342,6 +375,22 @@ class _ExecBase:
         self.cap_y = cfg.cap_y
 
     def _grow(self, fn):
+        t, m = obs.STATE.tracer, obs.STATE.metrics
+        if t is not None or m is not None:
+            inner = fn
+
+            def fn(cap, cap_y):
+                try:
+                    return inner(cap, cap_y)
+                except CapOverflow:
+                    # the policy loop re-runs at doubled caps: the retry
+                    # is the event worth counting
+                    if m is not None:
+                        m.counter("plan.cap_overflow").inc()
+                    if t is not None:
+                        t.instant("plan.cap_overflow", cap=cap, cap_y=cap_y)
+                    raise
+
         out, self.cap, self.cap_y = run_with_policy(
             self.cfg.cap_policy, self.cap, self.cap_y, fn
         )
@@ -351,6 +400,11 @@ class _ExecBase:
         raise NotImplementedError(
             f"{type(self).__name__} has no raw device surface; "
             "Plan.submit is a ServeQ-only streaming hook"
+        )
+
+    def cost_profile(self, q, batch):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no serve-program cost surface"
         )
 
     @staticmethod
@@ -502,19 +556,27 @@ class _JoinExec(_ExecBase):
         return _host(rr.ids)[_host(rr.valid)]
 
     def _run_def(self, q, cap, cap_y):
+        t = obs.STATE.tracer
+        if t is None:
+            return self._def_call(q, cap, cap_y)
+        with t.span("plan.call", cat="plan", category=q.category, cap=cap, cap_y=cap_y):
+            return self._def_call(q, cap, cap_y)
+
+    def _def_call(self, q, cap, cap_y):
         m, f = self.engine.meta, self.engine.forest
-        if q.category == "D":
-            r = joins.join_d(m, f, q.p1, q.c1, q.vpos1, q.p2, q.vpos2,
-                             cap_x=cap, cap_y=cap_y)
+        with obs.span("plan.dispatch", cat="plan"):
+            if q.category == "D":
+                r = joins.join_d(m, f, q.p1, q.c1, q.vpos1, q.p2, q.vpos2,
+                                 cap_x=cap, cap_y=cap_y)
+            elif q.category == "E":
+                r = joins.join_e(m, f, q.p1, q.c1, q.vpos1, q.vpos2,
+                                 cap_x=cap, cap_y=cap_y)
+            else:  # F
+                r = joins.join_f(m, f, q.c1, q.vpos1, q.vpos2, cap_x=cap, cap_y=cap_y)
+        with obs.span("plan.sync", cat="plan"):
             self._overflow_guard(r)
-            return _pairs_to_dict(r)
-        if q.category == "E":
-            r = joins.join_e(m, f, q.p1, q.c1, q.vpos1, q.vpos2,
-                             cap_x=cap, cap_y=cap_y)
-        else:  # F
-            r = joins.join_f(m, f, q.c1, q.vpos1, q.vpos2, cap_x=cap, cap_y=cap_y)
-        self._overflow_guard(r)
-        return _pairs_to_dict_pred(r)
+        with obs.span("plan.decode", cat="plan"):
+            return _pairs_to_dict(r) if q.category == "D" else _pairs_to_dict_pred(r)
 
 
 def _pairs_to_dict(r: joins.JoinPairs) -> dict[int, np.ndarray]:
@@ -542,6 +604,59 @@ def _pairs_to_dict_pred(r: joins.JoinPairs) -> dict[int, dict[int, np.ndarray]]:
     return out
 
 
+class _BgpExec(_ExecBase):
+    """Basic graph patterns: the planner orders per call (its join order is
+    data-dependent), and every check / bounded-scan step resolves through
+    the engine's pooled serve step.
+
+    ``None`` positions are EXISTENTIAL: they join like variables inside
+    the planner but are projected away from the result — only named
+    variables come back, with distinct rows over those columns.
+    """
+
+    def run(self, q: BgpQ, batch):
+        if batch is not None:
+            raise ValueError("BGP plans take no batch")
+        pats = algebra.name_anon(q.patterns)
+
+        def fn(cap, _):
+            return optimizer.run_bgp(
+                self.engine.store, pats, cap=cap,
+                serve=self.engine._lanes_runner(self.cfg, cap),
+            )
+
+        # run_bgp dedups over ALL columns; dropping the anonymous ones can
+        # leave duplicate rows in the named ones
+        return algebra.project_named(self._grow(fn))
+
+
+class _SelectExec(_ExecBase):
+    """SPARQL-shaped SELECT: the query lowers to a ``core.algebra`` operator
+    tree and ``core.planner`` executes it — cost-ordered (DP) conjunctive
+    blocks with sideways information passing, every check / bounded-scan
+    step through the engine's pooled serve step.
+
+    Returns columnar named bindings like ``_BgpExec``; with ``order_by``
+    the row order is the query's (a deterministic total order), otherwise
+    rows come back in dedup order (set semantics either way).
+    """
+
+    def run(self, q: SelectQ, batch):
+        if batch is not None:
+            raise ValueError("SELECT plans take no batch")
+        tree = algebra.from_select(q)
+
+        def fn(cap, _):
+            return planner.execute(
+                self.engine.store, tree, cap=cap,
+                serve=self.engine._lanes_runner(self.cfg, cap),
+            )
+
+        # the tree ends in Project (+ Slice): the columns are already the
+        # named selection, the rows distinct (and ordered if asked)
+        return dict(self._grow(fn).cols)
+
+
 class _ServeExec(_ExecBase):
     """Raw serve-IR passthrough: ``plan(ServeBatch) -> ServeResult``."""
 
@@ -554,8 +669,18 @@ class _ServeExec(_ExecBase):
         batch = self._coerce(batch)
 
         def fn(cap, _):
-            r = self._call(batch, cap, q.unbounded)
-            self._overflow_guard(r)
+            t = obs.STATE.tracer
+            if t is None:
+                r = self._call(batch, cap, q.unbounded)
+                self._overflow_guard(r)
+                return r
+            with t.span("plan.call", cat="plan", b=int(batch.op.shape[0]),
+                        cap=cap, unbounded=q.unbounded):
+                with t.span("plan.dispatch", cat="plan"):
+                    r = self._call(batch, cap, q.unbounded)
+                # the overflow check reads the result: the host waits here
+                with t.span("plan.sync", cat="plan"):
+                    self._overflow_guard(r)
             return r
 
         return self._grow(fn)
@@ -564,20 +689,50 @@ class _ServeExec(_ExecBase):
         """Streamed dispatch: device ``ServeResult`` with NO host sync; the
         overflow guard and any cap growth are the caller's job, and the
         executor's cap never grows through this path."""
-        return self._call(self._coerce(batch), self.cap, q.unbounded)
+        t = obs.STATE.tracer
+        if t is None:
+            return self._call(self._coerce(batch), self.cap, q.unbounded)
+        batch = self._coerce(batch)
+        with t.span("plan.submit", cat="plan", b=int(batch.op.shape[0]),
+                    cap=self.cap, unbounded=q.unbounded):
+            return self._call(batch, self.cap, q.unbounded)
+
+    def _u_width_of(self, unbounded: bool) -> int:
+        eng, cfg = self.engine, self.cfg
+        if not unbounded:
+            return 0
+        if cfg.use_pred_index and eng.store.pred_index is not None:
+            return eng._u_width()
+        return max(eng.store.n_preds, 1)
 
     def _call(self, qb: ServeBatch, cap: int, unbounded: bool) -> ServeResult:
         eng, cfg = self.engine, self.cfg
-        if not unbounded:
-            r = eng._run_program(cfg, cap, qb)
-        elif cfg.use_pred_index and eng.store.pred_index is not None:
-            r = eng._run_program(cfg, cap, qb, u_width=eng._u_width(), with_index=True)
-        else:
-            r = eng._run_program(cfg, cap, qb, u_width=max(eng.store.n_preds, 1))
-        if eng.device.type == "cuda":
-            r.ready = torch.cuda.Event()
-            r.ready.record(torch.cuda.current_stream(eng.device))
-        return r
+        u_width = self._u_width_of(unbounded)
+        with_index = u_width > 0 and cfg.use_pred_index and eng.store.pred_index is not None
+        return eng._run_program(cfg, cap, qb, u_width=u_width, with_index=with_index)
+
+    def cost_profile(self, q: ServeQ, batch=None) -> dict:
+        """One call's geometry, kernel launches and (on the card) device ms
+        at this plan's cap, for ``batch`` (default: 8 check lanes of id 0,
+        as the JAX package profiles)."""
+        eng, cfg = self.engine, self.cfg
+        if batch is None:
+            z = np.zeros(eng._pad_b(1), np.int32)
+            batch = ServeBatch(z, z, z, z)
+        qb = self._coerce(batch)
+        u_width = self._u_width_of(q.unbounded)
+        geometry = {
+            "lanes": int((_host(qb.op) >= 0).sum()),
+            "padded_lanes": int(qb.op.shape[0]),
+            "cap": self.cap,
+            "u_width": u_width,
+            "unbounded": q.unbounded,
+            "layout": cfg.pred_index_layout if u_width and cfg.use_pred_index else None,
+            "device": str(eng.device),
+        }
+        return obs_cost.profile_call(
+            lambda: self._call(qb, self.cap, q.unbounded), geometry, eng.device
+        )
 
 
 class Engine:
@@ -624,15 +779,30 @@ class Engine:
             )
         self._validate(q)
         key = (shape_key(q), cfg)
+        t, m = obs.STATE.tracer, obs.STATE.metrics
         ex = self._plan_cache.get(key)
         if ex is None:
             if admit is not None and not admit(key):
                 self._stats["denied"] += 1
+                if m is not None:
+                    m.counter("engine.plan_cache.denied").inc()
+                if t is not None:
+                    t.instant("engine.admission_denied", shape=str(key[0]))
                 raise AdmissionError(f"plan-cache admission denied for {key[0]!r}")
             self._stats["misses"] += 1
-            ex = self._plan_cache[key] = self._build_executor(q, cfg)
+            if m is not None:
+                m.counter("engine.plan_cache.misses").inc()
+            if t is not None:
+                with t.span("engine.compile", cat="engine", shape=str(key[0]),
+                            device=str(self.device), cap=cfg.cap, hit=False):
+                    ex = self._build_executor(q, cfg)
+            else:
+                ex = self._build_executor(q, cfg)
+            self._plan_cache[key] = ex
         else:
             self._stats["hits"] += 1
+            if m is not None:
+                m.counter("engine.plan_cache.hits").inc()
         return Plan(q, cfg, ex)
 
     @staticmethod
@@ -642,14 +812,51 @@ class Engine:
             if len(named) != len(set(named)):
                 raise ValueError(
                     "a variable repeated inside one pattern needs join "
-                    f"semantics, which this package does not plan: {q!r}"
+                    f"semantics; wrap it in BgpQ: {q!r}"
                 )
+        if isinstance(q, BgpQ):
+            names = {v for tp in q.patterns for v in tp.variables}
+            if any(v.startswith(algebra.ANON) for v in names):
+                raise ValueError(
+                    f"variable names starting with {algebra.ANON!r} are reserved "
+                    "for anonymous (None) positions"
+                )
+            if not names and any(
+                is_var(t) for tp in q.patterns for t in (tp.s, tp.p, tp.o)
+            ):
+                raise ValueError(
+                    "a BGP whose variables are all anonymous has no "
+                    "projectable columns; name at least one variable "
+                    "(or use a TriplePatternQ check shape)"
+                )
+        if isinstance(q, SelectQ):
+            blocks = (q.where,) + q.optional + q.union
+            names = {v for blk in blocks for tp in blk for v in tp.variables}
+            reserved = [v for v in names if v.startswith(algebra.INTERNAL)]
+            if q.select:
+                reserved += [v for v in q.select if v.startswith(algebra.INTERNAL)]
+            if reserved:
+                raise ValueError(
+                    f"variable names starting with {algebra.INTERNAL!r} "
+                    f"are reserved for internal columns: {reserved!r}"
+                )
+            if not names:
+                raise ValueError(
+                    "a SELECT whose variables are all anonymous has no "
+                    "projectable columns; name at least one variable"
+                )
+            for ex in q.filter:  # raises TypeError on non-expressions
+                algebra.expr_vars(ex)
 
     def _build_executor(self, q, cfg: ExecConfig):
         if isinstance(q, TriplePatternQ):
             return _PatternExec(self, cfg)
         if isinstance(q, JoinQ):
             return _JoinExec(self, cfg)
+        if isinstance(q, BgpQ):
+            return _BgpExec(self, cfg)
+        if isinstance(q, SelectQ):
+            return _SelectExec(self, cfg)
         if isinstance(q, ServeQ):
             return _ServeExec(self, cfg)
         raise TypeError(f"not a Query of this package: {q!r}")
@@ -680,13 +887,19 @@ class Engine:
 
     def _run_program(self, cfg: ExecConfig, cap: int, qb: ServeBatch, *,
                      u_width: int = 0, with_index: bool = False) -> ServeResult:
-        """One uploaded batch through the cached program of its geometry."""
+        """One uploaded batch through the cached program of its geometry;
+        on the card, ``ready`` records the stream after its last launch."""
         fn = self._program(cfg, cap, u_width, with_index)
         if with_index:
-            return fn(self.forest, qb, self.store.pred_index.select(cfg.pred_index_layout)[0])
-        if u_width > 0:
-            return fn(self.forest, qb, None)
-        return fn(self.forest, qb)
+            r = fn(self.forest, qb, self.store.pred_index.select(cfg.pred_index_layout)[0])
+        elif u_width > 0:
+            r = fn(self.forest, qb, None)
+        else:
+            r = fn(self.forest, qb)
+        if self.device.type == "cuda":
+            r.ready = torch.cuda.Event()
+            r.ready.record(torch.cuda.current_stream(self.device))
+        return r
 
     def _run_lanes(
         self, cfg: ExecConfig, cap: int, ops_a, s, p, o,
@@ -695,9 +908,17 @@ class Engine:
         """Run host serve-IR lanes through the cached program of their
         geometry: padded to a pow2 bucket with dead (op = -1) lanes, which
         the serve step zeroes, and sliced back to the ``b`` real lanes.
-        Every pattern plan and join side list shares this dispatch."""
+        Every pattern plan, join side list and BGP/SELECT step shares this
+        dispatch."""
         b = int(np.shape(ops_a)[0])
         n = self._pad_b(b)
+        t = obs.STATE.tracer
+        if t is None:
+            return self._run_lanes_inner(cfg, cap, ops_a, s, p, o, b, n, u_width, with_index)
+        with t.span("plan.lanes", cat="plan", b=b, padded=n, cap=cap, u_width=u_width):
+            return self._run_lanes_inner(cfg, cap, ops_a, s, p, o, b, n, u_width, with_index)
+
+    def _run_lanes_inner(self, cfg, cap, ops_a, s, p, o, b, n, u_width, with_index):
 
         def pad(a, fill):
             out = np.full(n, fill, np.int32)
@@ -708,4 +929,12 @@ class Engine:
             ServeBatch(pad(ops_a, -1), pad(s, 0), pad(p, 0), pad(o, 0)), self.device
         )
         r = self._run_program(cfg, cap, qb, u_width=u_width, with_index=with_index)
-        return ServeResult(**{name: getattr(r, name)[:b] for name in RESULT_FIELDS})
+        return ServeResult(**{name: getattr(r, name)[:b] for name in RESULT_FIELDS},
+                           ready=r.ready)
+
+    def _lanes_runner(self, cfg: ExecConfig, cap: int):
+        """Bound-pred serve-lane callable handed to the planner: dispatches
+        CHECK/ROW/COL lanes and returns the fetched host ``ServeResult``."""
+        return lambda ops_a, s, p, o: host_result(
+            self._run_lanes(cfg, cap, ops_a, s, p, o), unbounded=False
+        )

@@ -9,6 +9,7 @@ string dictionary).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -35,6 +36,11 @@ class K2TriplesStore:
     @property
     def device(self):
         return self.forest.device
+
+    @functools.cached_property
+    def host_nnz(self) -> np.ndarray:
+        """Triples per predicate, on the host: the planner's statistics."""
+        return self.forest.nnz.cpu().numpy()
 
     def to(self, device) -> "K2TriplesStore":
         return dataclasses.replace(

@@ -109,8 +109,11 @@ class PredIndexStats(NamedTuple):
 class BuiltPredIndex:
     """Device DAC index + its fixed-layout fallback + host views.
 
-    A store converted from foreign arrays (``core.convert``) carries no
-    fixed fallback, stats or host CSR: those fields are ``None``.
+    The host CSR (``host_offsets``, ``host_preds``) is what the planner
+    reads for candidate predicates and its cardinality model.  A store
+    converted from foreign arrays (``core.convert``) carries no fixed
+    fallback or stats, and carries the host CSR only when given it: those
+    fields are ``None`` otherwise.
     """
 
     device: PredIndex
@@ -120,6 +123,20 @@ class BuiltPredIndex:
     host_preds: np.ndarray | None = None  # int32[total] 0-based, sorted per row
     device_fixed: PredIndex | None = None
     meta_fixed: PredIndexMeta | None = None
+
+    def csr(self) -> tuple[np.ndarray, np.ndarray]:
+        """``(host_offsets, host_preds)``; raises when the index has none."""
+        if self.host_offsets is None:
+            raise ValueError(
+                "this predicate index carries no host CSR; pass host_offsets "
+                "and host_preds to core.convert.store_from_arrays"
+            )
+        return self.host_offsets, self.host_preds
+
+    def host_list(self, row: int) -> np.ndarray:
+        """0-based sorted predicate list of one entity row (host CSR)."""
+        offs, preds = self.csr()
+        return preds[offs[row] : offs[row + 1]]
 
     def select(self, layout: str | None = None):
         """(device, meta) for ``layout`` ("dac" | "fixed" | None=default)."""

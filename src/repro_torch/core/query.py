@@ -6,8 +6,11 @@ program caches; it resolves without reading the environment.
 
 Query kinds: ``TriplePatternQ(s, p, o)`` (any of the paper's eight triple
 patterns; ints bind a position, ``"?x"`` / ``None`` free it),
-``JoinQ(category, vpos1, vpos2, p1, c1, p2, c2)`` (join categories A–F)
-and ``ServeQ(unbounded)`` (the raw serve-IR passthrough).
+``JoinQ(category, vpos1, vpos2, p1, c1, p2, c2)`` (join categories A–F),
+``BgpQ(patterns)`` (a basic graph pattern), ``SelectQ(...)`` (a
+SPARQL-shaped SELECT with OPTIONAL, UNION, FILTER, ORDER BY and LIMIT)
+and ``ServeQ(unbounded)`` (the raw serve-IR passthrough).  ``ObsConfig``
+holds the knobs of ``repro_torch.obs.enable``.
 
 Cap policy: fixed result capacities make every batch one set of kernel
 launches, and truncation is never silent.  On overflow ``Plan.__call__``
@@ -119,6 +122,41 @@ class ExecConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """Frozen observability config — the knobs behind ``repro_torch.obs.enable``.
+
+    ``trace``
+        Record host-side spans into a ring-buffered tracer (exported as
+        Chrome ``trace_event`` JSON, loadable in Perfetto).
+    ``metrics``
+        Record timing histograms / gauges into the global
+        ``repro_torch.obs`` metrics registry.  (The broker's own bookkeeping
+        registry backing ``ServeBroker.stats()`` is always on; this knob
+        governs only the obs-layer extras.)
+    ``trace_capacity``
+        Ring size in spans; when full, the OLDEST spans are dropped and
+        counted — a long run degrades to a suffix window, never to
+        back-pressure.
+    ``device_annotations``
+        Bridge live spans into ``torch.profiler.record_function`` so a
+        torch profile captured around the same run carries the same span
+        names.
+    """
+
+    trace: bool = True
+    metrics: bool = True
+    trace_capacity: int = 1 << 16
+    device_annotations: bool = False
+
+    def __post_init__(self):
+        if self.trace_capacity < 1:
+            raise ValueError("trace_capacity must be >= 1")
+
+    def replace(self, **kw) -> "ObsConfig":
+        return dataclasses.replace(self, **kw)
+
+
 def run_with_policy(policy: CapPolicy, cap: int, cap_y: int, fn):
     """Run ``fn(cap, cap_y)`` under the cap policy; on :class:`CapOverflow`
     both caps double and ``fn`` re-runs.  Returns ``(result, cap, cap_y)``."""
@@ -191,6 +229,78 @@ class JoinQ:
 
 
 @dataclasses.dataclass(frozen=True)
+class BgpQ:
+    """Basic graph pattern: a conjunction of ≥1 triple patterns."""
+
+    patterns: tuple[TriplePatternQ, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "patterns", _coerce_block(self.patterns))
+
+
+def _coerce_block(ps):
+    return tuple(
+        p if isinstance(p, TriplePatternQ) else TriplePatternQ(*p) for p in ps
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectQ:
+    """SPARQL-shaped SELECT over one group graph pattern.
+
+    ``where`` is the base conjunction; each entry of ``union`` is an
+    alternative branch (the branches' union is joined with ``where``);
+    each entry of ``optional`` is an OPTIONAL block left-joined in
+    declaration order; ``filter`` holds ``core.algebra`` expressions
+    (``Cmp``/``Bound``/``And``/``Or``/``Not``, SPARQL 3-valued logic);
+    ``select`` projects (``None`` = every named variable), ``order_by``
+    entries are ``"?v"`` ascending / ``"-?v"`` descending, and
+    ``limit``/``offset`` slice the ordered result.  Results are DISTINCT
+    (set semantics, like ``BgpQ``); the ORDER BY ties break over the
+    remaining columns in sorted-name order, so a LIMIT cut is
+    deterministic.
+
+    Lowered by ``core.algebra.from_select`` to an operator tree and
+    executed by ``core.planner``: cost-ordered conjunctive blocks with
+    sideways information passing over the engine's pooled serve step.
+    """
+
+    where: tuple[TriplePatternQ, ...] = ()
+    optional: tuple[tuple[TriplePatternQ, ...], ...] = ()
+    union: tuple[tuple[TriplePatternQ, ...], ...] = ()
+    filter: tuple[Any, ...] = ()
+    select: tuple[str, ...] | None = None
+    order_by: tuple[str, ...] = ()
+    limit: int | None = None
+    offset: int = 0
+
+    def __post_init__(self):
+        object.__setattr__(self, "where", _coerce_block(self.where))
+        object.__setattr__(
+            self, "optional", tuple(_coerce_block(b) for b in self.optional)
+        )
+        object.__setattr__(
+            self, "union", tuple(_coerce_block(b) for b in self.union)
+        )
+        object.__setattr__(self, "filter", tuple(self.filter))
+        if self.select is not None:
+            object.__setattr__(self, "select", tuple(self.select))
+        object.__setattr__(self, "order_by", tuple(self.order_by))
+        if not self.where and not self.union:
+            raise ValueError("SelectQ needs a WHERE or UNION block")
+        for spec in self.order_by:
+            v = spec[1:] if spec.startswith("-") else spec
+            if not v.startswith("?"):
+                raise ValueError(
+                    f"order_by entries are '?v' or '-?v', got {spec!r}"
+                )
+        if self.limit is not None and self.limit < 0:
+            raise ValueError("limit must be >= 0")
+        if self.offset < 0:
+            raise ValueError("offset must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeQ:
     """Raw serve-IR passthrough: ``Plan(batch)`` takes a ``ServeBatch``.
 
@@ -207,6 +317,14 @@ def shape_key(query):
         return ("pattern", query.bound)
     if isinstance(query, JoinQ):
         return ("join", query.category, query.vpos1, query.vpos2)
+    if isinstance(query, BgpQ):
+        # BGP planning is data-dependent (cardinality estimates), so the
+        # host plan re-runs per call; the serve programs underneath are
+        # shared with every other plan of the engine
+        return ("bgp",)
+    if isinstance(query, SelectQ):
+        # like BgpQ: planning re-runs per call over the shared serve step
+        return ("select",)
     if isinstance(query, ServeQ):
         return ("serve", query.unbounded)
     raise TypeError(f"not a Query of this package: {query!r}")
@@ -242,6 +360,12 @@ class Plan:
     @property
     def effective_cap(self) -> int:
         return self._executor.cap
+
+    def cost_profile(self, batch=None) -> dict:
+        """Cost profile of one call of the underlying serve program (``ServeQ``
+        only): its geometry, the kernel launches it makes and, on the card,
+        its device ms — see ``repro_torch.obs.cost``."""
+        return self._executor.cost_profile(self.query, batch)
 
     def __repr__(self):
         return f"Plan({self.query!r}, device={self.config.device!r}, cap={self.effective_cap})"

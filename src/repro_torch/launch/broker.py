@@ -1,4 +1,5 @@
-"""Streaming multi-tenant serve broker over compiled ``ServeQ`` plans (read path).
+"""Streaming multi-tenant serve broker over compiled ``ServeQ`` plans (read path)
+and SPARQL-shaped ``SelectQ`` queries.
 
 Many tenants submit single queries as async streams; the broker coalesces
 them into mixed-op ``ServeBatch``es under a deadline/size policy,
@@ -28,6 +29,21 @@ Pipeline (one background task)::
   ``queue_depth`` raises :class:`QueueFull`; nothing accepted is dropped.
 * **Per-tenant FIFO**: a tenant with a retried lane has its later lanes in
   that batch held until the retry lands.
+* **SELECTs ride beside the lanes**: ``submit_select`` shares the tenant's
+  queue bound, growth budget and admission quota, and runs each query off
+  the event loop through ``Engine.compile(SelectQ)``; ``stream`` takes lane
+  tuples and ``SelectQ`` items mixed.
+
+``stats()`` reads an always-on ``MetricsRegistry`` of counters.  With
+observability on (``repro_torch.obs``) the broker also records batch
+occupancy, queue depth, queue wait and per-query latency histograms, and
+once a batch has delivered, its timeline as retroactive spans: a
+``broker.batch`` span over ``broker.coalesce`` / ``dispatch`` /
+``inflight`` / ``fetch`` / ``decode_deliver`` on a ``batch-slot-*`` track,
+and each query's lifetime as async ``query`` events with its ``queue`` →
+``dispatch`` → ``inflight`` → ``fetch`` → ``decode`` phases.  The write
+path of the JAX package's broker (dynamic stores, compaction) is not in
+this package yet.
 """
 
 from __future__ import annotations
@@ -40,10 +56,12 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import engine as eng
 from repro_torch.core.query import (
-    AdmissionError, CapOverflow, CapPolicy, ExecConfig, ServeQ,
+    AdmissionError, CapOverflow, CapPolicy, ExecConfig, SelectQ, ServeQ,
 )
+from repro_torch.obs import LATENCY_MS_BUCKETS, MetricsRegistry
 
 __all__ = [
     "CoalescePolicy", "TenantPolicy", "QueueFull", "ServeBroker",
@@ -104,6 +122,11 @@ def tail_percentile(samples, q: float) -> float | None:
     return float(np.percentile(np.asarray(samples), q))
 
 
+# _Req.op marker for SELECT queries (serve-IR ops are >= 0, dead lanes
+# -1): selects never ride the coalesced ServeBatch
+OP_SELECT = -2
+
+
 @dataclasses.dataclass
 class _Req:
     tenant: str
@@ -113,6 +136,25 @@ class _Req:
     o: int
     t_submit: float
     future: asyncio.Future
+    seq: int = 0  # global submission sequence: the per-query trace id
+    t_deliver: float = 0.0  # stamped at resolve/fail time
+
+
+@dataclasses.dataclass
+class _BatchMeta:
+    """Timeline of one dispatched batch (``time.perf_counter`` seconds):
+    coalesce ``[tc0, tc1]`` → encode+dispatch ``[td0, td1]`` → inflight →
+    fetch ``[tf0, tf1]`` → decode/deliver.  Feeds the retroactive trace
+    spans emitted once the batch has delivered."""
+
+    bid: int
+    n_padded: int
+    tc0: float = 0.0
+    tc1: float = 0.0
+    td0: float = 0.0
+    td1: float = 0.0
+    tf0: float = 0.0
+    tf1: float = 0.0
 
 
 @dataclasses.dataclass
@@ -131,7 +173,7 @@ class _TenantState:
 
 _COUNTERS = (
     "batches", "lanes", "flush_size", "flush_deadline", "flush_drain",
-    "shed", "cap_growth_events", "admission_denials",
+    "shed", "cap_growth_events", "admission_denials", "selects",
 )
 
 
@@ -169,8 +211,18 @@ class ServeBroker:
         self._task: asyncio.Task | None = None
         self._draining = False
         self._running = False
-        self._c = dict.fromkeys(_COUNTERS, 0)
+        # always-on bookkeeping registry backing ``stats()``; the obs-layer
+        # extras (histograms, spans) live in ``repro_torch.obs.STATE``
+        self.metrics = MetricsRegistry()
+        self._c = {name: self.metrics.counter(f"broker.{name}") for name in _COUNTERS}
+        # SELECTs run off-loop (each is a host-planned multi-dispatch
+        # pipeline, not a lane); the semaphore bounds their threads
+        self._select_sem = asyncio.Semaphore(max(2, coalesce.max_inflight))
+        self._select_tasks: set[asyncio.Task] = set()
         self._queue_peak = 0
+        self._seq = 0  # per-query trace ids
+        self._bid = 0  # batch ids
+        self._retry_cfgs: set[ExecConfig] = set()  # cap levels ever compiled
 
     # -- lifecycle ------------------------------------------------------
 
@@ -197,6 +249,8 @@ class ServeBroker:
         self._wake.set()
         try:
             await self._task
+            if self._select_tasks:  # selects accepted before the drain finish
+                await asyncio.gather(*self._select_tasks)
         finally:
             self._running = False
 
@@ -209,30 +263,92 @@ class ServeBroker:
         ``queue_depth`` and ``RuntimeError`` when not accepting."""
         if not self._running or self._draining:
             raise RuntimeError("broker is not accepting requests")
-        st = self._tenant(tenant)
-        if st.pending >= self.tenant_policy.queue_depth:
-            st.shed += 1
-            self._c["shed"] += 1
-            raise QueueFull(
-                f"tenant {tenant!r} at queue_depth="
-                f"{self.tenant_policy.queue_depth}; shed-newest"
-            )
-        st.pending += 1
+        self._admit_request(tenant)
         fut = asyncio.get_running_loop().create_future()
         self._queue.append(
-            _Req(tenant, int(op), int(s), int(p), int(o), time.perf_counter(), fut)
+            _Req(tenant, int(op), int(s), int(p), int(o), time.perf_counter(), fut,
+                 seq=self._next_seq())
         )
         self._queue_peak = max(self._queue_peak, len(self._queue))
         self._wake.set()
         return fut
 
+    def _admit_request(self, tenant: str) -> None:
+        """The shed policy: count the request against the tenant's queue
+        bound, or raise :class:`QueueFull`."""
+        st = self._tenant(tenant)
+        if st.pending >= self.tenant_policy.queue_depth:
+            st.shed += 1
+            self._c["shed"].inc()
+            raise QueueFull(
+                f"tenant {tenant!r} at queue_depth="
+                f"{self.tenant_policy.queue_depth}; shed-newest"
+            )
+        st.pending += 1
+
+    def _next_seq(self) -> int:
+        self._seq += 1
+        return self._seq - 1
+
     async def submit(self, tenant: str, op: int, s: int = 0, p: int = 0,
                      o: int = 0):
         return await self.submit_nowait(tenant, op, s, p, o)
 
+    def submit_select_nowait(self, tenant: str, q: SelectQ) -> asyncio.Future:
+        """Enqueue one :class:`~repro_torch.core.query.SelectQ`; the future
+        resolves to its columnar named bindings.
+
+        Selects share the tenant's bounded queue and its latency and
+        completion stats with the lane path, but never ride the coalesced
+        ``ServeBatch``: each runs off the event loop through
+        ``Engine.compile`` with cap growth budgeted by the tenant's
+        ``max_cap_doublings`` and plan-cache misses charged to its
+        ``max_plans`` (the ``("select",)`` executor is shared across
+        tenants: a miss is charged to whoever compiles a cap level first).
+        """
+        if not self._running or self._draining:
+            raise RuntimeError("broker is not accepting requests")
+        self._admit_request(tenant)
+        loop = asyncio.get_running_loop()
+        fut = loop.create_future()
+        r = _Req(tenant, OP_SELECT, 0, 0, 0, time.perf_counter(), fut, seq=self._next_seq())
+        self._c["selects"].inc()
+        task = loop.create_task(self._run_select(r, q))
+        self._select_tasks.add(task)
+        task.add_done_callback(self._select_tasks.discard)
+        return fut
+
+    async def submit_select(self, tenant: str, q: SelectQ):
+        return await self.submit_select_nowait(tenant, q)
+
+    async def _run_select(self, r: _Req, q: SelectQ):
+        async with self._select_sem:
+            try:
+                value = await asyncio.to_thread(self._select_call, r, q)
+            except AdmissionError as e:
+                self._tenants[r.tenant].admission_denials += 1
+                self._c["admission_denials"].inc()
+                self._fail(r, e)
+            except Exception as e:  # lowering, validation, CapOverflow -> caller
+                self._fail(r, e)
+            else:
+                self._resolve(r, value)
+
+    def _select_call(self, r: _Req, q: SelectQ):
+        """Blocking (off-loop) SELECT under the tenant's growth budget.  The
+        engine puts every tensor on its own device, whatever the worker
+        thread's current device."""
+        st = self._tenants[r.tenant]
+        cfg = self.config.replace(
+            cap_policy=CapPolicy(grow=True, max_doublings=self.tenant_policy.max_cap_doublings),
+        )
+        with obs.span("broker.select", cat="broker", tenant=r.tenant, seq=r.seq):
+            return self.engine.compile(q, cfg, admit=self._admit(st))()
+
     async def stream(self, tenant: str, queries):
-        """Submit a tenant's ``(op, s, p, o)`` stream, yielding results in
-        submission order while staying inside the tenant's queue bound."""
+        """Submit a tenant's stream of ``(op, s, p, o)`` lane tuples and/or
+        :class:`~repro_torch.core.query.SelectQ` queries, yielding results
+        in submission order while staying inside the tenant's queue bound."""
         window: collections.deque[asyncio.Future] = collections.deque()
         for item in queries:
             while window and window[0].done():
@@ -242,7 +358,10 @@ class ServeBroker:
                 and self._tenant(tenant).pending >= self.tenant_policy.queue_depth
             ):
                 yield await window.popleft()
-            window.append(self.submit_nowait(tenant, *item))
+            if isinstance(item, SelectQ):
+                window.append(self.submit_select_nowait(tenant, item))
+            else:
+                window.append(self.submit_nowait(tenant, *item))
         while window:
             yield await window.popleft()
 
@@ -253,21 +372,24 @@ class ServeBroker:
             if len(self._inflight) >= self.coalesce.max_inflight:
                 await self._deliver(*self._inflight.popleft())
                 continue
-            reqs = await self._collect(block=not self._inflight)
+            reqs, tc0, tc1 = await self._collect(block=not self._inflight)
             if reqs:
-                self._dispatch(reqs)
+                self._dispatch(reqs, tc0, tc1)
             elif self._inflight:
                 await self._deliver(*self._inflight.popleft())
             elif self._draining and not self._queue:
                 return
 
-    async def _collect(self, *, block: bool) -> list[_Req]:
+    async def _collect(self, *, block: bool):
+        """Coalesce: returns ``(reqs, tc0, tc1)``, the batch and the
+        perf-counter window the coalesce wait spanned."""
         pol = self.coalesce
         while not self._queue:
             if not block or self._draining:
-                return []
+                return [], 0.0, 0.0
             self._wake.clear()
             await self._wake.wait()
+        tc0 = time.perf_counter()
         # the deadline of the OLDEST pending request governs the flush
         deadline = self._queue[0].t_submit + pol.max_delay_s
         while len(self._queue) < pol.max_batch and not self._draining:
@@ -280,19 +402,33 @@ class ServeBroker:
             except asyncio.TimeoutError:
                 break
         if len(self._queue) >= pol.max_batch:
-            self._c["flush_size"] += 1
+            self._c["flush_size"].inc()
         elif self._draining:
-            self._c["flush_drain"] += 1
+            self._c["flush_drain"].inc()
         else:
-            self._c["flush_deadline"] += 1
+            self._c["flush_deadline"].inc()
         n = min(len(self._queue), pol.max_batch)
-        return [self._queue.popleft() for _ in range(n)]
+        return [self._queue.popleft() for _ in range(n)], tc0, time.perf_counter()
 
-    def _dispatch(self, reqs: list[_Req]):
-        raw = self.base_plan.submit(self._encode(reqs, self._pad_to))
-        self._inflight.append((raw, reqs))
-        self._c["batches"] += 1
-        self._c["lanes"] += len(reqs)
+    def _dispatch(self, reqs: list[_Req], tc0: float = 0.0, tc1: float = 0.0):
+        td0 = time.perf_counter()
+        qb = self._encode(reqs, self._pad_to)
+        raw = self.base_plan.submit(qb)
+        meta = _BatchMeta(
+            bid=self._bid, n_padded=int(qb.op.shape[0]),
+            tc0=tc0 or td0, tc1=tc1 or td0, td0=td0, td1=time.perf_counter(),
+        )
+        self._bid += 1
+        self._inflight.append((raw, reqs, meta))
+        self._c["batches"].inc()
+        self._c["lanes"].inc(len(reqs))
+        m = obs.STATE.metrics
+        if m is not None:
+            m.histogram("broker.batch_occupancy").observe(len(reqs) / meta.n_padded)
+            m.gauge("broker.queue_depth").set(len(self._queue))
+            h = m.histogram("broker.queue_wait_ms", LATENCY_MS_BUCKETS)
+            for r in reqs:
+                h.observe((td0 - r.t_submit) * 1e3)
 
     def _encode(self, reqs: list[_Req], pad_to: int) -> eng.ServeBatch:
         n = max(pad_to, self.engine._pad_b(len(reqs)))
@@ -304,13 +440,15 @@ class ServeBroker:
 
     # -- streamed decode + per-tenant growth ----------------------------
 
-    async def _deliver(self, raw, reqs: list[_Req]):
+    async def _deliver(self, raw, reqs: list[_Req], meta: _BatchMeta):
         has_u = any(r.op in eng.UNBOUNDED_OPS for r in reqs)
+        meta.tf0 = time.perf_counter()
         # the blocking fetch runs off-loop so submitters keep filling the
         # next batch while this one decodes
         host = await asyncio.to_thread(
             eng.host_result, raw, unbounded=has_u and self.unbounded
         )
+        meta.tf1 = time.perf_counter()
         retry_tenants = {
             reqs[i].tenant for i in np.nonzero(host.overflow[: len(reqs)])[0]
         }
@@ -320,12 +458,60 @@ class ServeBroker:
         for tenant in sorted(retry_tenants):
             segment = [(i, r) for i, r in enumerate(reqs) if r.tenant == tenant]
             await self._retry_tenant(tenant, segment, host)
+        if obs.STATE.tracer is not None:
+            self._trace_batch(reqs, meta)
+
+    def _trace_batch(self, reqs: list[_Req], meta: _BatchMeta):
+        """Emit the batch's retroactive spans now that every timestamp of
+        its lifetime is known.
+
+        Batch stages land as complete spans on ``batch-slot-*`` tracks
+        (slot = ``bid`` mod ``2 * max_inflight``: the inflight bound
+        guarantees a slot's previous batch has delivered before reuse, so
+        spans of one track never overlap).  Each query's lifetime lands as
+        async events keyed by its ``seq``: queue → dispatch → inflight →
+        fetch → decode under one ``query`` span.
+        """
+        t = obs.STATE.tracer
+        ns = _ns
+        t_end = time.perf_counter()
+        slot = f"batch-slot-{meta.bid % (2 * self.coalesce.max_inflight)}"
+        t.add("broker.batch", ns(meta.tc0), ns(t_end), tid=slot, cat="broker",
+              bid=meta.bid, lanes=len(reqs), padded=meta.n_padded,
+              occupancy=round(len(reqs) / meta.n_padded, 4))
+        for name, a, b in (
+            ("broker.coalesce", meta.tc0, meta.tc1),
+            ("broker.dispatch", meta.td0, meta.td1),
+            ("broker.inflight", meta.td1, meta.tf0),
+            ("broker.fetch", meta.tf0, meta.tf1),
+            ("broker.decode_deliver", meta.tf1, t_end),
+        ):
+            t.add(name, ns(a), ns(b), tid=slot, cat="broker", bid=meta.bid)
+        for i, r in enumerate(reqs):
+            td = r.t_deliver or t_end
+            t.add_async("query", r.seq, ns(r.t_submit), ns(td),
+                        tenant=r.tenant, op=r.op, lane=i, bid=meta.bid)
+            for name, a, b in (
+                ("queue", r.t_submit, meta.td0),
+                ("dispatch", meta.td0, meta.td1),
+                ("inflight", meta.td1, meta.tf0),
+                ("fetch", meta.tf0, meta.tf1),
+                ("decode", meta.tf1, td),
+            ):
+                t.add_async(name, r.seq, ns(a), ns(min(b, td)))
 
     def _resolve(self, r: _Req, value):
         st = self._tenants[r.tenant]
         st.pending -= 1
         st.completed += 1
-        st.lat_s.append(time.perf_counter() - r.t_submit)
+        r.t_deliver = time.perf_counter()
+        lat = r.t_deliver - r.t_submit
+        st.lat_s.append(lat)
+        m = obs.STATE.metrics
+        if m is not None:
+            m.histogram("broker.query_latency_ms", LATENCY_MS_BUCKETS).observe(lat * 1e3)
+        if r.op == OP_SELECT and obs.STATE.tracer is not None:
+            self._trace_select(r)
         if not r.future.cancelled():
             r.future.set_result(value)
 
@@ -333,8 +519,17 @@ class ServeBroker:
         st = self._tenants[r.tenant]
         st.pending -= 1
         st.failed += 1
+        r.t_deliver = time.perf_counter()
+        if r.op == OP_SELECT and obs.STATE.tracer is not None:
+            self._trace_select(r)
         if not r.future.cancelled():
             r.future.set_exception(exc)
+
+    def _trace_select(self, r: _Req):
+        """A SELECT's lifetime as one async ``query`` event keyed by its
+        ``seq`` (its planner and dispatch spans sit on the worker's track)."""
+        obs.STATE.tracer.add_async("query", r.seq, _ns(r.t_submit), _ns(r.t_deliver),
+                                   tenant=r.tenant, op=r.op, select=True)
 
     async def _retry_tenant(self, tenant, segment, host):
         """Re-run a tenant's overflowed lanes on doubled-cap plans, then
@@ -374,15 +569,18 @@ class ServeBroker:
                 plan = self.engine.compile(self._query, cfg, admit=self._admit(st))
             except AdmissionError:
                 st.admission_denials += 1
-                self._c["admission_denials"] += 1
+                self._c["admission_denials"].inc()
                 raise
             st.cap_growth_events += 1
-            self._c["cap_growth_events"] += 1
+            self._c["cap_growth_events"].inc()
             st.cap_level = max(st.cap_level, level)
-            host = eng.host_result(
-                plan.submit(self._encode(rs, 0)),
-                unbounded=any(r.op in eng.UNBOUNDED_OPS for r in rs),
-            )
+            self._retry_cfgs.add(cfg)
+            with obs.span("broker.retry", cat="broker", tenant=tenant,
+                          level=level, cap=cfg.cap, lanes=len(rs)):
+                host = eng.host_result(
+                    plan.submit(self._encode(rs, 0)),
+                    unbounded=any(r.op in eng.UNBOUNDED_OPS for r in rs),
+                )
             if not host.overflow[: len(rs)].any():
                 return [eng.decode_lane(r.op, host, i) for i, r in enumerate(rs)]
             level += 1
@@ -409,7 +607,7 @@ class ServeBroker:
     def reset_stats(self) -> None:
         """Zero every counter ``stats()`` reports (the benchmark warmup
         boundary).  Budget state (``cap_level``, ``plans_charged``) stays."""
-        self._c = dict.fromkeys(_COUNTERS, 0)
+        self.metrics.reset()
         self._queue_peak = 0
         for st in self._tenants.values():
             st.lat_s.clear()
@@ -419,10 +617,11 @@ class ServeBroker:
     def stats(self) -> dict:
         """Structured serving stats (JSON-ready), since ``reset_stats``."""
         all_lat = [t for st in self._tenants.values() for t in st.lat_s]
-        batches = self._c["batches"]
+        counts = {name: c.value for name, c in self._c.items()}
+        batches = counts["batches"]
         return {
-            **self._c,
-            "coalesce_factor": self._c["lanes"] / batches if batches else 0.0,
+            **counts,
+            "coalesce_factor": counts["lanes"] / batches if batches else 0.0,
             "queue_depth": len(self._queue),
             "queue_peak": self._queue_peak,
             "queries": len(all_lat),
@@ -443,6 +642,23 @@ class ServeBroker:
                 for name, st in sorted(self._tenants.items())
             },
         }
+
+
+    def cost_profiles(self) -> dict:
+        """Cost profiles of every serve program this broker has dispatched
+        through: the base plan at its dispatch geometry, then each
+        doubled-cap retry level a tenant compiled (plan-cache hits:
+        profiling never charges admission quotas)."""
+        out = {"base": self.base_plan.cost_profile(self._encode([], self._pad_to))}
+        for cfg in sorted(self._retry_cfgs, key=lambda c: c.cap):
+            plan = self.engine.compile(self._query, cfg)
+            out[f"retry_cap_{cfg.cap}"] = plan.cost_profile(self._encode([], 0))
+        return out
+
+
+def _ns(sec: float) -> int:
+    """``time.perf_counter`` seconds as the tracer's nanoseconds."""
+    return int(sec * 1e9)
 
 
 def _ms(v: float | None) -> float | None:

@@ -4,25 +4,36 @@ Broker answers are held against direct ``plan(batch)`` calls of the port
 and against the JAX package's broker on the same ``make_trace``; the
 shed policy, per-tenant cap growth and FIFO order through retries, the
 growth budget, admission quotas and a ``run_bench`` smoke are covered.
+``submit_select`` and a ``stream`` of lanes mixed with ``SelectQ`` items
+(the trace of ``make_trace(select_frac=...)``) must answer as direct plan
+calls do, while other tenants' lane traffic runs at the same time.
 """
 
 import asyncio
+import contextlib
+import json
+import time
 from collections import Counter
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import engine as jeng
 from repro.core.query import ExecConfig as JExecConfig
 from repro.launch import broker as jbroker
 from repro.launch import serve as jserve
 from repro_torch.core import engine as eng
-from repro_torch.core.query import AdmissionError, CapOverflow, ExecConfig, ServeQ
+from repro_torch.core.query import (
+    AdmissionError, CapOverflow, ExecConfig, SelectQ, ServeQ, TriplePatternQ,
+)
 from repro_torch.data import rdf
 from repro_torch.launch import serve
 from repro_torch.launch.broker import (
     CoalescePolicy, QueueFull, ServeBroker, TenantPolicy, tail_percentile,
 )
+from repro_torch.obs import validate
+from test_torch_select import same_columns, to_jax
 from test_torch_store import build_pair
 
 CPU = ExecConfig(cap=64, device="cpu")
@@ -188,3 +199,118 @@ def test_run_bench_fast_cpu():
                           quiet=True)
     assert row["queries"] == 256 and row["qps"] > 0 and row["device"] == "cpu"
     assert row["p99_ms"] is not None and row["batches"] >= 4
+
+
+def test_serve_trace_window_brackets_the_measured_run():
+    """``serve_trace(window=...)`` enters its context manager once, after the
+    warmup, and leaves it after the measured run's wall time is taken: a
+    profiler there sees exactly the measured run."""
+    st, _, ds = _trace_ds("preds16")
+    trace = serve.make_trace(ds, 96, 4, select_frac=0.1, seed=6)
+    seen = []
+
+    @contextlib.contextmanager
+    def window():
+        seen.append(("enter", time.perf_counter()))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            yield
+        seen.append(("exit", time.perf_counter(), prof))
+
+    stats, answers, wall, _ = serve.serve_trace(
+        eng.Engine(st, device="cpu"), trace, n_tenants=4, cap=64, max_batch=16, warmup=32,
+        window=window)
+    assert [e[0] for e in seen] == ["enter", "exit"]
+    assert seen[1][1] - seen[0][1] >= wall > 0
+    assert len(seen[1][2].events()) > 0
+    assert stats["queries"] == len(trace) and all(a is not None for a in answers)
+
+
+def test_mixed_stream_with_selects_matches_direct_plans():
+    """A trace with 20% SELECTs (the JAX package's trace, draw for draw)
+    through per-tenant streams: every lane equals the direct ``plan(batch)``
+    answer and every SELECT the direct ``Engine.compile(SelectQ)()`` one,
+    with the SELECT worker threads and the serve loop running together."""
+    st, _, ds = _trace_ds("preds16")
+    trace = serve.make_trace(ds, 160, 4, select_frac=0.2, seed=5)
+    jtrace = jserve.make_trace(ds, 160, 4, select_frac=0.2, seed=5)
+    assert [row[0] for row in trace] == [row[0] for row in jtrace]
+    assert [to_jax(row[1]) if len(row) == 2 else row for row in trace] == [
+        row[1] if len(row) == 2 else row for row in jtrace]
+    n_sel = sum(len(row) == 2 for row in trace)
+    assert 0 < n_sel < len(trace)
+    e = eng.Engine(st, device="cpu")
+    b = ServeBroker(e, CPU, coalesce=CoalescePolicy(max_batch=32, max_delay_s=1e-3))
+    got = asyncio.run(_serve(b, trace))
+    stats = b.stats()
+    assert stats["selects"] == n_sel and stats["lanes"] == len(trace) - n_sel
+    assert stats["queries"] == len(trace)
+    plan = e.compile(ServeQ(), CPU)
+    for i, row in enumerate(trace):
+        if len(row) == 2:
+            same_columns(got[i], e.compile(row[1], CPU)())
+        else:
+            r = eng.host_result(plan(eng.ServeBatch(*np.array([row[1:]], np.int32).T)))
+            assert same_answer(got[i], eng.decode_lane(row[1], r, 0)), i
+
+
+def test_submit_select_concurrent_with_lanes():
+    """``submit_select`` from several tenants while a heavy tenant streams
+    lanes: SELECT answers equal direct plan calls and lanes their oracle."""
+    st, _, ds = _trace_ds("preds16")
+    e = eng.Engine(st, device="cpu")
+    rows = ds.ids[np.random.default_rng(8).integers(0, ds.ids.shape[0], 40)]
+    qs = [SelectQ(where=(TriplePatternQ(int(r[0]), int(r[1]), "?o"),),
+                  optional=((TriplePatternQ("?o", "?p", "?z"),),), order_by=("-?o",), limit=5)
+          for r in rows[:8]]
+    lanes = [(eng.OP_CHECK, int(r[0]), int(r[1]), int(r[2])) for r in rows]
+
+    async def main():
+        async with ServeBroker(e, CPU, coalesce=CoalescePolicy(max_batch=8, max_delay_s=1e-3)) as b:
+            heavy = [b.submit_nowait("lanes", *q) for q in lanes]
+            sel = [b.submit_select(f"sel-{i % 3}", q) for i, q in enumerate(qs)]
+            return await asyncio.gather(*heavy), await asyncio.gather(*sel), b.stats()
+
+    got_lanes, got_sel, stats = asyncio.run(main())
+    assert all(got_lanes)
+    for g, q in zip(got_sel, qs):
+        same_columns(g, e.compile(q, CPU)())
+    assert stats["selects"] == len(qs) and stats["tenants"]["sel-0"]["queries"] == 3
+
+
+def test_select_budget_and_admission_quota():
+    """A SELECT that overflows its cap fails with ``CapOverflow`` once the
+    tenant's doubling budget is spent, and a tenant with no plan quota gets
+    ``AdmissionError`` (counted), as lane retries do."""
+    st, _, ds = _trace_ds("preds16")
+    s, p, _ = _hot_row(ds.ids)
+    q = SelectQ(where=(TriplePatternQ(s, p, "?o"),))
+
+    async def one(policy):
+        b = ServeBroker(eng.Engine(st, device="cpu"), ExecConfig(cap=1, device="cpu"),
+                        tenant_policy=policy)
+        async with b:
+            try:
+                await b.submit_select("t", q)
+            except (CapOverflow, AdmissionError) as exc:
+                return b, exc
+        return b, None
+
+    b, exc = asyncio.run(one(TenantPolicy(max_cap_doublings=0)))
+    assert isinstance(exc, CapOverflow) and b.stats()["tenants"]["t"]["failed"] == 1
+    b, exc = asyncio.run(one(TenantPolicy(max_plans=0)))
+    assert isinstance(exc, AdmissionError) and b.stats()["admission_denials"] == 1
+    b, exc = asyncio.run(one(TenantPolicy()))
+    assert exc is None and b.stats()["tenants"]["t"]["queries"] == 1
+
+
+def test_run_bench_select_frac_exports_valid_trace(tmp_path):
+    trace_path, metrics_path = tmp_path / "t.json", tmp_path / "m.json"
+    row = serve.run_bench(device="cpu", n_triples=20_000, n_preds=16, n_queries=256,
+                          max_batch=64, cap=256, warmup=32, select_frac=0.05, quiet=True,
+                          trace_path=str(trace_path), metrics_path=str(metrics_path))
+    assert row["selects"] > 0 and row["obs"] and row["queries"] == 256
+    assert validate.main([str(trace_path), "--require-queries"]) == 0
+    doc = json.loads(metrics_path.read_text())
+    assert doc["cost_profiles"]["base"]["geometry"]["padded_lanes"] == 64
+    assert doc["broker"]["broker.selects"]["value"] == row["selects"]
+    assert "broker_selects" in doc["prometheus"]

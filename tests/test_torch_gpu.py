@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from repro_torch.core import bitvec, engine as eng, k2triples, predindex
-from repro_torch.core.query import ExecConfig, JoinQ, ServeQ, TriplePatternQ
+from repro_torch.core.query import (
+    BgpQ, ExecConfig, JoinQ, SelectQ, ServeQ, TriplePatternQ,
+)
 from repro_torch.data import rdf
 from repro_torch.kernels import ops, ref
 
@@ -206,6 +208,64 @@ def test_patterns_and_joins_on_card_match_cpu(store, cuda):
             a = gpu.compile(q, ExecConfig(device="cuda", **kw))()
             b = cpu.compile(q, ExecConfig(device="cpu", **kw))()
             _same_answer(a, b)
+
+
+def _select_queries(ds):
+    from repro_torch.core.algebra import Cmp
+
+    s, p, o = (int(v) for v in ds.ids[17])
+    return [
+        SelectQ(where=(TriplePatternQ(s, p, "?o"),),
+                optional=((TriplePatternQ(s, 2, "?x"),),), order_by=("?o",), limit=16),
+        SelectQ(where=(TriplePatternQ("?s", p, o), TriplePatternQ("?s", "?q", "?x"))),
+        SelectQ(where=(TriplePatternQ(s, p, "?y"), TriplePatternQ("?y", "?q", "?z"))),
+        SelectQ(union=((TriplePatternQ(s, p, "?o"),), (TriplePatternQ(s, "?q", "?o"),)),
+                filter=(Cmp(">", "?o", 5),)),
+        SelectQ(where=(TriplePatternQ(s, p, "?c"), TriplePatternQ("?e", 1, "?g")),
+                order_by=("-?g",), limit=50),
+        BgpQ(((s, "?p", "?y"), ("?y", None, None))),
+    ]
+
+
+def test_select_path_on_card_matches_cpu(store, cuda):
+    """SELECT/BGP plans through the kernels (``k2_scan``, ``k2_check``,
+    ``k2_range``) equal the same plans on the CPU, column for column."""
+    st, ds = store
+    gpu = eng.Engine(st, device=cuda)
+    cpu = eng.Engine(st.to("cpu"), device="cpu")
+    n0 = dict(ops.LAUNCHES)
+    for q in _select_queries(ds):
+        a = gpu.compile(q, ExecConfig(cap=64, device="cuda"))()
+        b = cpu.compile(q, ExecConfig(cap=64, device="cpu"))()
+        _same_answer(a, b)
+    for k in ("k2_scan", "k2_check", "k2_range"):
+        assert ops.LAUNCHES[k] > n0[k], k
+
+
+def test_broker_selects_on_card_from_worker_threads(store, cuda):
+    """SELECTs run in the broker's worker threads beside the serve loop;
+    their tensors land on the engine's device and the answers equal the
+    CPU plans'."""
+    import asyncio
+
+    from repro_torch.launch.broker import ServeBroker
+
+    st, ds = store
+    gpu = eng.Engine(st, device=cuda)
+    cpu = eng.Engine(st.to("cpu"), device="cpu")
+    qs = _select_queries(ds)[:4]
+    lanes = [(eng.OP_CHECK, int(r[0]), int(r[1]), int(r[2])) for r in ds.ids[:64]]
+
+    async def main():
+        async with ServeBroker(gpu, ExecConfig(cap=64, device="cuda")) as b:
+            futs = [b.submit_nowait("lanes", *q) for q in lanes]
+            sel = [b.submit_select(f"t{i}", q) for i, q in enumerate(qs)]
+            return await asyncio.gather(*futs), await asyncio.gather(*sel)
+
+    got_lanes, got_sel = asyncio.run(main())
+    assert all(got_lanes)
+    for g, q in zip(got_sel, qs):
+        _same_answer(g, cpu.compile(q, ExecConfig(cap=64, device="cpu"))())
 
 
 def _same_answer(a, b):
