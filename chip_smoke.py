@@ -89,9 +89,39 @@ Phases (any failure exits non-zero before the result line):
    that separates f32 products from TF32 ones), each ``block_spmm`` case
    with the variant (kernel, tile rows, tile columns, k chunk, threads) that
    ``ops.block_spmm_variant`` chose for it, timed as in phase 6 beside one
-   PyTorch call (``torch.isin``, ``torch.matmul``) where there is one.  Then the
-   ``{"kernels": [...]}`` line, the card's name and power limit, and the
-   final ``{"ok": true, ...}`` line.
+   PyTorch call (``torch.isin``, ``torch.matmul``) where there is one;
+8. the dynamic store (``core.delta``, ``core.compaction``) and the string
+   path, with the launch counters reset just before each timed run:
+   8a. phase 4's store wrapped in a ``DynamicStore`` (no rebuild) and
+   churned (half tombstones of static triples, half inserts, 5% of them
+   with subjects, 5% with objects past the static extents and 5% on the
+   appended predicate ``n_preds + 1``) to 0, 4,096 and 5% of its triples;
+   at each size 128 ``ServeQ`` batches of 256 lanes in the serve mix at cap
+   1024, constants a third each from tombstoned, inserted and untouched
+   triples, every lane against a numpy oracle of (static − tombstones) ∪
+   inserts, with p50/p99 a batch and the snapshot's build time; at 4,096
+   also phase 5b's pattern and join work (the six serve-lane patterns
+   under both layouts, (?S,P,?O) of every predicate and the dump, joins
+   A-F over the four vpos pairs), first with every kernel call held against
+   its plain version;
+   8b. a ``ServeBroker`` with the default ``CompactionPolicy`` over a fresh
+   ``DynamicStore`` of the same store, 8 Zipf(1.1) tenants, phase 5's
+   coalescing: rounds of 512 writes then 256 reads checked against the
+   oracle until the 4,096th write trips a compaction; rounds of 8 writes
+   (at most 1,024) and 256 reads while it rebuilds; every raced write read
+   back after the swap; two more rounds at epoch 1; read qps and p99
+   before, during and after the rebuild, the compaction's split, the peak
+   device memory; the compacted epoch's ``k2_range`` dump in full against
+   its plain version, and its ids with the rebased delta against the truth;
+   8c. ``from_string_triples`` over 1,000,000 geonames-like string triples
+   (``--string-triples``), the dictionary's build and encode seconds and
+   bits per triple beside the k²-triples', 256 string queries (encode,
+   serve lanes, decode) against a Python evaluation over the strings, then
+   ``insert_strings`` of unseen terms and ``delete_strings`` read back
+   before and after a ``compact``, whose ids must not move.
+   Then the ``{"kernels": [...]}`` line (``launches_by_path`` gains
+   ``dynamic``, phase 8's launches), the card's name and power limit, and
+   the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -518,10 +548,23 @@ class Oracle:
         import numpy as np
 
         self.np = np
-        self.by_s = ids[np.lexsort((ids[:, 2], ids[:, 1], ids[:, 0]))]
-        self.by_o = ids[np.lexsort((ids[:, 0], ids[:, 1], ids[:, 2]))]
-        self.by_p = ids[np.lexsort((ids[:, 2], ids[:, 0], ids[:, 1]))]
-        self.n_preds = int(ids[:, 1].max())
+        s, p, o = ids[:, 0], ids[:, 1], ids[:, 2]
+        self.by_s = ids[self._order(s, p, o)]
+        self.by_o = ids[self._order(o, p, s)]
+        self.by_p = ids[self._order(p, s, o)]
+        self.n_preds = int(ids[:, 1].max()) if len(ids) else 0
+
+    def _order(self, *cols):
+        """``np.lexsort`` of the columns (most significant first) as one
+        stable argsort of packed keys when they fit in 63 bits."""
+        np = self.np
+        bits = [int(c.max()).bit_length() if len(c) else 1 for c in cols]
+        if sum(bits) > 63 or any(len(c) and c.min() < 0 for c in cols):
+            return np.lexsort(cols[::-1])
+        key = np.zeros(len(cols[0]), np.int64)
+        for c, b in zip(cols, bits):
+            key = (key << b) | c
+        return np.argsort(key, kind="stable")
 
     def _slice(self, arr, col, v):
         lo, hi = self.np.searchsorted(arr[:, col], [v, v + 1])
@@ -1601,6 +1644,554 @@ def entry_point_phase(store, ds, intersects, device, seed: int, err: dict) -> li
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the dynamic store and the string path
+# ---------------------------------------------------------------------------
+
+DELTA_FRAC = 0.05  # benchmarks/bench_dynamic.py's middle delta fraction
+APPENDED = 64  # appended-range entities the inserts draw from
+ROUND_WRITES, ROUND_READS, RACED_WRITES = 512, 256, 1024
+READ_BATCHES = 128  # 8a's batches a delta size: p99 needs 100
+STRING_TRIPLES = 1_000_000
+
+
+def pack(ids):
+    """int64 (s, p, o) keys ordered as the rows (o < 2^26, p < 64)."""
+    return (ids[:, 0] << 32) | (ids[:, 1] << 26) | ids[:, 2]
+
+
+def union_keys(*keys):
+    """Sorted unique keys of the arrays together (a sort and an adjacent
+    dedup: numpy 2.3's hash-based ``np.unique`` is slow at this size)."""
+    import numpy as np
+
+    k = np.sort(np.concatenate(keys))
+    return k[np.concatenate(([True], k[1:] != k[:-1]))] if k.size else k
+
+
+def unpack(keys):
+    import numpy as np
+
+    return np.stack([keys >> 32, (keys >> 26) & 63, keys & ((1 << 26) - 1)], axis=1)
+
+
+class Churn:
+    """Writes in the shape of ``bench_dynamic._churn``, mirrored on the host:
+    half tombstones of static triples (each at most once), half fresh
+    inserts from real subjects, objects and predicates, 5% of them with a
+    subject and 5% with an object in the appended range past the static
+    extents, and 5% on the appended predicate ``n_preds + 1``.  ``ins`` and
+    ``tomb`` follow ``DeltaStore``'s semantics; the truth is
+    (static − tomb) ∪ ins."""
+
+    def __init__(self, ds, seed: int):
+        import numpy as np
+
+        self.np = np
+        self.rng = np.random.default_rng(seed)
+        self.static = ds.ids
+        self.ext = max(ds.n_subjects, ds.n_objects)
+        self.n_preds = ds.n_preds
+        self.order = self.rng.permutation(ds.n_triples)
+        self.next_tomb = 0
+        self.ins: set = set()
+        self.tomb: set = set()
+
+    def draw(self, n: int) -> list:
+        np, rng, st = self.np, self.rng, self.static
+        half = n // 2
+        dels = st[self.order[self.next_tomb: self.next_tomb + half]]
+        self.next_tomb += half
+        m = n - half
+        s = st[rng.integers(0, st.shape[0], m), 0]
+        o = st[rng.integers(0, st.shape[0], m), 2]
+        p = rng.integers(1, self.n_preds + 1, m)
+        u = rng.random((3, m))
+        s = np.where(u[0] < 0.05, self.ext + 1 + rng.integers(0, APPENDED, m), s)
+        o = np.where(u[1] < 0.05, self.ext + 1 + rng.integers(0, APPENDED, m), o)
+        p = np.where(u[2] < 0.05, self.n_preds + 1, p)
+        ins = np.stack([s, p, o], axis=1)
+        out = []
+        for i in range(max(half, m)):
+            if i < half:
+                out.append(("del", tuple(int(v) for v in dels[i])))
+            if i < m:
+                out.append(("ins", tuple(int(v) for v in ins[i])))
+        return out
+
+    def apply(self, kind: str, t) -> None:
+        if kind == "ins":
+            self.tomb.discard(t)
+            self.ins.add(t)
+        else:
+            self.ins.discard(t)
+            self.tomb.add(t)
+
+    def arrays(self):
+        np = self.np
+        as_arr = lambda ts: np.asarray(sorted(ts), np.int64).reshape(-1, 3)  # noqa: E731
+        return as_arr(self.ins), as_arr(self.tomb)
+
+    def truth_ids(self):
+        """The merged id triples, unique and sorted."""
+        np = self.np
+        ins, tomb = self.arrays()
+        keys = np.setdiff1d(pack(self.static), pack(tomb), assume_unique=True)
+        return unpack(union_keys(keys, pack(ins)))
+
+    def pools(self, live_sample: int, seed: int):
+        """Constant pools: tombstoned, inserted, untouched static triples."""
+        np = self.np
+        ins, tomb = self.arrays()
+        rng = np.random.default_rng(seed)
+        rest = self.static[self.order[rng.integers(self.next_tomb, len(self.order), live_sample)]]
+        return [a for a in (tomb, ins, rest) if len(a)]
+
+
+class DeltaOracle:
+    """(static − tombstones) ∪ inserts per lane, from an ``Oracle`` of the
+    static triples and one each of the inserts and the tombstones."""
+
+    def __init__(self, base, churn):
+        import numpy as np
+
+        self.np = np
+        self.base = base
+        ins, tomb = churn.arrays()
+        self.ins, self.tomb = Oracle(ins), Oracle(tomb)
+
+    def answer(self, op, s, p, o):
+        np = self.np
+        a, i, t = (x.answer(op, s, p, o) for x in (self.base, self.ins, self.tomb))
+        if op == 0:
+            return (a and not t) or i
+        if op in (1, 2, 5):
+            return np.union1d(np.setdiff1d(a, t), i)
+        e = np.zeros(0, np.int64)
+        out = {}
+        for q in sorted(set(a) | set(i)):
+            v = np.union1d(np.setdiff1d(a.get(q, e), t.get(q, e)), i.get(q, e))
+            if v.size:
+                out[q] = v
+        return out
+
+
+def mixed_lanes(rng, pools, n: int):
+    """``n`` serve lanes in ``launch/serve.py``'s op mix, constants from the
+    pools in equal thirds (unbounded ops leave the predicate free)."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+
+    ops_pool = list(serve._OP_WEIGHTS)
+    w = np.array([serve._OP_WEIGHTS[op] for op in ops_pool])
+    ops = rng.choice(ops_pool, size=n, p=w / w.sum()).astype(np.int32)
+    which = rng.integers(0, len(pools), n)
+    rows = np.stack([pools[k][rng.integers(0, len(pools[k]))] for k in which])
+    p = np.where(ops >= 3, 0, rows[:, 1])
+    return np.stack([ops, rows[:, 0], p, rows[:, 2]]).astype(np.int32)
+
+
+def check_lanes(lanes, host, oracle, where: str) -> None:
+    from repro_torch.core import engine as eng
+
+    for i in range(lanes.shape[1]):
+        op, s, p, o = (int(v) for v in lanes[:, i])
+        if not same_answer(eng.decode_lane(op, host, i), oracle.answer(op, s, p, o)):
+            fail(f"{where}: lane {(op, s, p, o)} disagrees with the oracle")
+
+
+def serve_batches(engine, rng, pools, oracle, n_batches: int, label: str) -> dict:
+    """``n_batches`` 256-lane ``ServeQ`` batches at cap 1024, every lane
+    checked; -> p50/p99 ms a batch (``plan(batch)`` to the host result)."""
+    import torch
+
+    from repro_torch.core import engine as eng
+    from repro_torch.core.query import ServeQ
+    from repro_torch.launch.broker import tail_percentile
+
+    plan = engine.compile(ServeQ(), engine.default_config.replace(cap=1024))
+    secs = []
+    for _ in range(n_batches):
+        lanes = mixed_lanes(rng, pools, 256)
+        t0 = time.perf_counter()
+        host = eng.host_result(plan(eng.ServeBatch(*lanes)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check_lanes(lanes, host, oracle, label)
+    ms = lambda q: None if tail_percentile(secs, q) is None else 1e3 * tail_percentile(secs, q)  # noqa: E731
+    return dict(batches=n_batches, p50_ms=ms(50), p99_ms=ms(99), max_ms=1e3 * max(secs))
+
+
+def reads_8a(store, ds, oracle, device, seed: int, n_batches: int):
+    """Phase 8a: the geonames store wrapped in a ``DynamicStore`` (no
+    rebuild), churned to 0, 4,096 and 5% of its triples; at each size 256-
+    lane batches against the merged oracle, and at 4,096 the pattern and
+    join work.  -> (launches of the timed runs, kernel-check errors)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import delta, engine as eng
+    from repro_torch.kernels import ops
+
+    dyn = delta.DynamicStore(store)
+    engine = eng.Engine(dyn, device=device)
+    churn = Churn(ds, seed)
+    rng = np.random.default_rng(seed + 1)
+    launches = dict.fromkeys(KERNELS, 0)
+    err = dict.fromkeys(QUERY_KERNELS, 0)
+    sizes = sorted({0, 4096, int(DELTA_FRAC * ds.n_triples)})
+    for size in sizes:
+        t0 = time.perf_counter()
+        for kind, t in churn.draw(size - len(churn.ins) - len(churn.tomb)):
+            (dyn.insert if kind == "ins" else dyn.delete)(*t)
+            churn.apply(kind, t)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        view = delta.view_of(dyn)
+        snap_s = time.perf_counter() - t0
+        held = 0 if view is None else view.snap.n_inserts + view.snap.n_tombstones
+        if held != len(churn.ins) + len(churn.tomb):
+            fail(f"8a: the delta holds {held} entries, not {len(churn.ins) + len(churn.tomb)}")
+        t0 = time.perf_counter()
+        merged = churn.truth_ids() if size else ds.ids
+        m_oracle = Oracle(merged) if size else oracle
+        oracle_s = time.perf_counter() - t0
+        pools = churn.pools(4096, seed + size)
+        if size == 4096:
+            work = delta_work(ds, churn, m_oracle, pools, seed)
+            rec = Recorder()
+            with rec:  # the kernels against their plain versions on these inputs
+                run_work(engine, work)
+                serve_batches(engine, rng, pools, m_oracle, 1, "8a recorded")
+            torch.cuda.synchronize()
+            for k in QUERY_KERNELS:
+                err[k] = max(err[k], rec.err[k])
+            print(f"8a kernel checks on the delta inputs: "
+                  f"{ {k: len(v) for k, v in rec.calls.items()} } calls, max_abs_err {rec.err}",
+                  flush=True)
+            del rec
+        ops.reset_launches()
+        stats = serve_batches(engine, rng, pools, m_oracle, n_batches, f"8a delta {size}")
+        if size == 4096:
+            t0 = time.perf_counter()
+            results = run_work(engine, work)
+            torch.cuda.synchronize()
+            q_wall = time.perf_counter() - t0
+            lat, nonempty = check_work(work, results, m_oracle, merged.shape[0])
+            print(f"8a delta {size}: {len(work)} pattern/join plan calls in {q_wall:.3f}s, every "
+                  f"answer equals the merged oracle (dump: {merged.shape[0]} triples, "
+                  f"{len(m_oracle.pairs(ds.n_preds + 1))} on the appended predicate)", flush=True)
+            for label, runs in lat.items():
+                secs = [sec for sec, _ in runs]
+                print(f"8a latency {label}: {len(secs)} calls, median {1e3 * np.median(secs):.3f} ms, "
+                      f"max {1e3 * max(secs):.3f} ms, {nonempty.get(label, '-')} non-empty",
+                      flush=True)
+        torch.cuda.synchronize()
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        print(f"8a delta {size}: {len(churn.ins)} inserts + {len(churn.tomb)} tombstones written "
+              f"in {write_s:.3f}s, snapshot built in {1e3 * snap_s:.3f} ms, merged oracle in "
+              f"{oracle_s:.1f}s; {stats['batches']} batches of 256 lanes: p50 {stats['p50_ms']} "
+              f"ms, p99 {stats['p99_ms']} ms, max {stats['max_ms']} ms a batch; every lane "
+              f"equals the oracle; launches {dict(ops.LAUNCHES)}", flush=True)
+    return launches, err
+
+
+def delta_work(ds, churn, m_oracle, pools, seed: int) -> list:
+    """Phase 5b's pattern and join work over the dynamic store: the six
+    serve-lane patterns with constants from the three pools, (?S,P,?O) of
+    every predicate (the appended one included) and the dump, and joins
+    A-F over the four vpos pairs with constants from live triples."""
+    import types
+
+    import numpy as np
+
+    ext = churn.ext + APPENDED
+    mix = np.concatenate(pools)
+    like = lambda ids: types.SimpleNamespace(  # noqa: E731
+        ids=ids, n_triples=ids.shape[0], n_preds=ds.n_preds + 1, n_subjects=ext, n_objects=ext)
+    patterns = [w for w in query_work(like(mix), m_oracle, seed, per_join=0)]
+    live = np.concatenate(pools[1:]) if len(pools) > 1 else pools[0]
+    joins = [w for w in query_work(like(live), m_oracle, seed + 1, per_join=1)
+             if w[0].startswith("join")]
+    return patterns + joins
+
+
+async def writes_8b(engine, oracle, churn, n_tenants: int, seed: int) -> dict:
+    """Phase 8b: rounds of 512 writes then 256 checked reads through a
+    ``ServeBroker`` with the default ``CompactionPolicy``, until one
+    compaction trips and lands (rounds of 8 writes while it rebuilds, at
+    most 1,024 of them), then two full rounds at epoch 1."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import compaction
+    from repro_torch.launch import serve
+    from repro_torch.launch.broker import CoalescePolicy, ServeBroker
+
+    rng = np.random.default_rng(seed)
+    tenants = [f"tenant-{i}" for i in range(n_tenants)]
+    zipf = serve.zipf_weights(n_tenants, 1.1)
+    b = ServeBroker(engine, engine.default_config.replace(cap=1024),
+                    coalesce=CoalescePolicy(max_batch=256, max_delay_s=2e-3),
+                    compaction=compaction.CompactionPolicy())
+    out = {"rounds": {}, "raced": []}
+
+    def write(n):
+        for kind, t in churn.draw(n):
+            tenant = tenants[rng.choice(n_tenants, p=zipf)]
+            (b.submit_insert_nowait if kind == "ins" else b.submit_delete_nowait)(tenant, *t)
+            churn.apply(kind, t)
+            if out.get("t_trip") is None and b._compaction_task is not None:
+                out["t_trip"] = time.perf_counter()
+            elif out.get("t_trip") is not None and not b._compaction_task.done():
+                out["raced"].append((kind, t))
+
+    async def read(label):
+        d_oracle = DeltaOracle(oracle, churn)
+        lanes = mixed_lanes(rng, churn.pools(4096, int(rng.integers(1 << 30))), ROUND_READS)
+        who = rng.choice(n_tenants, size=ROUND_READS, p=zipf)
+        t0 = time.perf_counter()
+        futs = [b.submit_nowait(tenants[w], *(int(v) for v in lanes[:, i]))
+                for i, w in enumerate(who)]
+        answers = await asyncio.gather(*futs)
+        wall = time.perf_counter() - t0
+        for i, ans in enumerate(answers):
+            op, s, p, o = (int(v) for v in lanes[:, i])
+            if not same_answer(ans, d_oracle.answer(op, s, p, o)):
+                fail(f"8b {label}: lane {(op, s, p, o)} disagrees with the oracle")
+        r = out["rounds"].setdefault(label, dict(reads=0, wall=0.0))
+        r["reads"] += ROUND_READS
+        r["wall"] += wall
+
+    def close(label):
+        st = b.stats()
+        out["rounds"].setdefault(label, dict(reads=0, wall=0.0)).update(
+            p50_ms=st["p50_ms"], p99_ms=st["p99_ms"])
+        b.reset_stats()
+
+    torch.cuda.reset_peak_memory_stats(engine.device)
+    async with b:
+        b.reset_stats()
+        while b._compaction_task is None:
+            write(ROUND_WRITES)
+            if b._compaction_task is not None:
+                close("before")
+            await read("before" if b._compaction_task is None else "during")
+        while not b._compaction_task.done():
+            write(8 if len(out["raced"]) < RACED_WRITES else 0)
+            await read("during")
+        rep = await b._compaction_task
+        out["t_swap"] = time.perf_counter()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(engine.device)
+        close("during")
+        out["epoch"] = engine.store.epoch
+        # every write that raced the rebuild survives the swap
+        d_oracle = DeltaOracle(oracle, churn)
+        futs = [b.submit_nowait(tenants[0], 0, *t) for _, t in out["raced"]]
+        for (kind, t), ans in zip(out["raced"], await asyncio.gather(*futs)):
+            if bool(ans) != d_oracle.answer(0, *t):
+                fail(f"8b: the raced {kind} of {t} did not survive the swap")
+        for _ in range(2):
+            write(ROUND_WRITES)
+            await read("after")
+        out["stats"] = b.stats()
+        close("after")
+        out["compaction"] = b.last_compaction
+    out["report"] = rep
+    return out
+
+
+def strings_8c(device, n_triples: int, seed: int) -> dict:
+    """Phase 8c: ``from_string_triples`` over ``n_triples`` geonames-like
+    string triples, 256 string queries (encode, serve lanes, decode) against
+    a Python evaluation over the strings, then ``insert_strings`` of unseen
+    terms and ``delete_strings`` read back before and after ``compact``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import compaction, delta, dictionary, engine as eng, k2triples
+    from repro_torch.core.query import ServeQ
+    from repro_torch.data import rdf
+
+    out = {}
+    t0 = time.perf_counter()
+    strs = rdf.generate_strings(n_triples, like="geonames", seed=seed)
+    out["generate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = dictionary.build_compressed_dictionary(strs)
+    out["dictionary_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d.encode_triples(strs)
+    out["encode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = k2triples.from_string_triples(strs, device=device)
+    torch.cuda.synchronize()
+    out["from_string_triples_s"] = time.perf_counter() - t0
+    n = store.n_triples
+    out.update(n_string_triples=len(strs), n_triples=n,
+               dictionary_bits_per_triple=k2triples.size_dictionary_bits(store) / n,
+               k2_bits_per_triple=k2triples.size_k2triples_bits(store) / n,
+               pred_index_bits_per_triple=k2triples.size_pred_index_bits(store) / n)
+
+    # the Python evaluation over the string triples
+    by_s, by_o = {}, {}
+    for t in set(strs):
+        by_s.setdefault(t[0], []).append(t)
+        by_o.setdefault(t[2], []).append(t)
+
+    def truth(op, s, p, o):
+        if op == 0:
+            return any(t[1] == p and t[2] == o for t in by_s.get(s, ()))
+        if op == 1:
+            return sorted(t[2] for t in by_s.get(s, ()) if t[1] == p)
+        if op == 2:
+            return sorted(t[0] for t in by_o.get(o, ()) if t[1] == p)
+        if op == 5:
+            return sorted(t[1] for t in by_s.get(s, ()) if t[2] == o)
+        res = {}
+        for t in (by_s.get(s, ()) if op == 3 else by_o.get(o, ())):
+            res.setdefault(t[1], []).append(t[2] if op == 3 else t[0])
+        return {k: sorted(v) for k, v in res.items()}
+
+    def run(engine, queries, where):
+        dd = engine.store.dictionary
+        lanes = np.zeros((4, len(queries)), np.int32)
+        for i, (op, s, p, o) in enumerate(queries):
+            lanes[:, i] = (op, dd.encode_subject(s) if s else 0, dd.encode_predicate(p) if p else 0,
+                           dd.encode_object(o) if o else 0)
+        plan = engine.compile(ServeQ(), engine.default_config.replace(cap=1024))
+        host = eng.host_result(plan(eng.ServeBatch(*lanes)))
+        for i, (op, s, p, o) in enumerate(queries):
+            got = eng.decode_lane(op, host, i)
+            dec_o = dd.decode_object if op in (1, 3) else dd.decode_subject
+            if op == 0:
+                got = bool(got)
+            elif op == 5:
+                got = sorted(dd.decode_predicate(int(v)) for v in got)
+            elif op in (1, 2):
+                got = sorted(dec_o(int(v)) for v in got)
+            else:
+                got = {dd.decode_predicate(k): sorted(dec_o(int(v)) for v in vs)
+                       for k, vs in got.items()}
+            if got != truth(op, s, p, o):
+                fail(f"{where}: string query {(op, s, p, o)} disagrees with the evaluation")
+
+    rng = np.random.default_rng(seed)
+    engine = eng.Engine(store, device=device)
+    picks = [strs[i] for i in rng.integers(0, len(strs), 256)]
+    ops_ = rng.choice(6, 256)
+    queries = [(int(op), s if op in (0, 1, 3, 5) else None, p if op in (0, 1, 2) else None,
+                o if op in (0, 2, 4, 5) else None) for op, (s, p, o) in zip(ops_, picks)]
+    t0 = time.perf_counter()
+    run(engine, queries, "8c")
+    out["queries_s"] = time.perf_counter() - t0
+
+    # writes through the dictionary: unseen terms mint appended ids
+    dyn = delta.DynamicStore(store)
+    engine = eng.Engine(dyn, device=device)
+    new = [(f"http://ex.org/new/s{i:04d}", "http://ex.org/p/new" if i % 4 == 0 else picks[i][1],
+            f"http://ex.org/new/o{i:04d}" if i % 2 else picks[i][2]) for i in range(64)]
+    gone = picks[64:128]
+    dyn.insert_strings(new)
+    dyn.delete_strings(gone)
+    for t in new:
+        by_s.setdefault(t[0], []).append(t)
+        by_o.setdefault(t[2], []).append(t)
+    for t in set(gone):
+        by_s[t[0]].remove(t)
+        by_o[t[2]].remove(t)
+    dd = dyn.dictionary
+    ids_before = dd.encode_triples(new)
+    if not (ids_before[:, 0] > dd.ext_base).all():
+        fail("8c: unseen subjects did not get appended ids")
+    reads = ([(0, *t) for t in new + gone] + [(1, s, p, None) for s, p, _ in new]
+             + [(3, s, None, None) for s, _, _ in new] + [(2, None, p, o) for _, p, o in gone])
+    run(engine, reads, "8c before compaction")
+    t0 = time.perf_counter()
+    rep = compaction.compact(dyn)
+    out["compact_s"] = time.perf_counter() - t0
+    if rep.epoch != 1 or not np.array_equal(dd.encode_triples(new), ids_before):
+        fail("8c: an id moved across the compaction")
+    run(engine, reads, "8c at epoch 1")
+    out.update(epoch=dyn.epoch, written=len(new) + len(gone), reads=len(reads))
+    return out
+
+
+def dynamic_phase(store, ds, oracle, device, n_tenants: int, args) -> dict:
+    """Phase 8 (8a reads over a delta, 8b broker writes and a compaction,
+    8c strings); -> the launches of its timed runs and its kernel checks."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import compaction, delta, engine as eng
+    from repro_torch.kernels import ops
+
+    phase("8a. reads over a delta on the geonames store")
+    t0 = time.perf_counter()
+    launches, err = reads_8a(store, ds, oracle, device, args.seed + 5, n_batches=READ_BATCHES)
+    if any(err.values()):
+        fail(f"kernels disagree with their plain versions on the delta inputs: {err}")
+    if not all(launches[k] for k in SERVE_KERNELS + ("pred_gather", "k2_range")):
+        fail(f"a kernel of the dynamic read path never launched: {launches}")
+    print(f"8a done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    phase("8b. broker writes and one compaction at full size")
+    t0 = time.perf_counter()
+    engine = eng.Engine(delta.DynamicStore(store), device=device)
+    churn = Churn(ds, args.seed + 6)
+    ops.reset_launches()
+    out = asyncio.run(writes_8b(engine, oracle, churn, n_tenants, args.seed + 7))
+    torch.cuda.synchronize()
+    for k, v in ops.LAUNCHES.items():
+        launches[k] += v
+    st, rep, comp = out["stats"], out["report"], out["compaction"]
+    if out["epoch"] != 1 or rep.epoch != 1 or comp["report"] is not rep:
+        fail(f"8b: the store is at epoch {out['epoch']} after one compaction")
+    rounds = {k: dict(v, qps=v["reads"] / v["wall"]) for k, v in out["rounds"].items()}
+    print(f"8b: {json.dumps(rounds)}", flush=True)
+    print(f"8b compaction: epoch {rep.epoch}, {rep.n_triples} triples, {rep.delta_merged} inserts "
+          f"merged, {rep.tombstones_applied} tombstones applied, {1e3 * rep.duration_s:.1f} ms "
+          f"(split ms {json.dumps(rep.split_ms)}, base-plan refresh {comp['refresh_ms']:.1f} ms), "
+          f"tripped to swapped {out['t_swap'] - out['t_trip']:.1f}s; {len(out['raced'])} writes "
+          f"raced the rebuild and survived; peak device memory {out['peak_bytes']} bytes; "
+          f"broker after: inserts {st['inserts']}, deletes {st['deletes']}, delta "
+          f"{st['delta_triples']} + {st['tombstones']} tombstones", flush=True)
+    new = engine.store.static
+    # the compacted epoch's dump in full against the plain version, and its
+    # ids against the truth: (dump − rebased tombstones) ∪ rebased inserts
+    cap = max(int(new.host_nnz.max()), 1)
+    preds = torch.arange(new.n_preds, dtype=torch.int32, device=device)
+    got = ops.k2_range(new.meta, new.forest, preds, cap=cap)
+    e = max_abs_err(got, plain_of("k2_range", (new.meta, new.forest, preds), dict(cap=cap)))
+    err["k2_range"] = max(err["k2_range"], e)
+    snap = engine.store.delta.snapshot()
+    rins = np.asarray([(s, p, o) for p, v in snap.ins.items() for s, o in v], np.int64).reshape(-1, 3)
+    rtomb = np.asarray([(s, p, o) for p, v in snap.tomb.items() for s, o in v], np.int64).reshape(-1, 3)
+    keys = union_keys(np.setdiff1d(pack(compaction.dump_static_ids(new)), pack(rtomb),
+                                   assume_unique=True), pack(rins))
+    if e or not np.array_equal(keys, pack(churn.truth_ids())):
+        fail(f"8b: the compacted epoch's dump disagrees (max_abs_err {e}) or its ids miss the truth")
+    print(f"8b: the compacted dump ({new.n_triples} triples, cap {cap}) equals its plain version "
+          f"and, with the rebased delta, the truth; done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    phase("8c. the string path")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sres = strings_8c(device, args.string_triples, args.seed + 8)
+    torch.cuda.synchronize()
+    for k, v in ops.LAUNCHES.items():
+        launches[k] += v
+    print(f"8c: {json.dumps(sres)}; done in {time.perf_counter() - t0:.1f}s", flush=True)
+    return dict(launches=launches, err=err)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1612,6 +2203,8 @@ def main(argv=None) -> int:
                     help="geonames-like corpus size (default: the paper's full size)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write phase 5c's traced broker run as Chrome trace JSON")
+    ap.add_argument("--string-triples", type=int, default=STRING_TRIPLES,
+                    help="phase 8c's string corpus size")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -1831,6 +2424,14 @@ def main(argv=None) -> int:
 
     phase("7. kernel entry points at store scale")
     rows += entry_point_phase(store, ds, rec_q.intersects, device, args.seed, err)
+
+    dyn_launches = dynamic_phase(store, ds, oracle, device, n_tenants, args)
+    for row in rows:
+        name = row["name"]
+        row["launches_by_path"] = dict(row.get("launches_by_path", {}),
+                                       dynamic=dyn_launches["launches"][name])
+        row["launches"] += dyn_launches["launches"][name]
+        row["max_abs_err"] = max(row["max_abs_err"], dyn_launches["err"].get(name, 0))
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,14 @@ rest is elementwise torch.  Nothing on ``Plan.submit`` synchronises with
 the device: the batch is uploaded from pinned memory without blocking, and
 the fetch (:func:`host_result`) waits on an event recorded at dispatch.
 
+Dynamic stores (``core.delta.DynamicStore``): every dispatch pins a
+``DynView`` (static epoch + delta snapshot), masks the lanes whose
+constants lie past the static extents to dead on the host before the
+batch is uploaded, and folds the snapshot into the fetched result on the
+host — (static − tombstones) ∪ inserts.  Executors pin the store epoch
+they were compiled at and raise :class:`StaleEpoch` after a compaction
+swap; ``compile`` drops every cached executor of an older epoch.
+
 With observability on (``repro_torch.obs``) a ``ServeQ`` call records
 ``plan.call`` around ``plan.dispatch`` (the launches) and ``plan.sync``
 (the overflow check, where the host waits for the card); a D–F join the
@@ -55,14 +63,15 @@ from repro_torch import obs
 from repro_torch.core import (
     algebra, joins, k2forest, optimizer, planner, predindex, sortedset,
 )
+from repro_torch.core import delta as dyn
 from repro_torch.core.k2forest import K2Forest
 from repro_torch.core.k2tree import K2Meta, compact
 from repro_torch.core.k2triples import K2TriplesStore
 from repro_torch.core.predindex import PredIndex, PredIndexMeta
 from repro_torch.core.query import (
     AdmissionError, BgpQ, CapOverflow, ExecConfig, JoinQ, Plan, SelectQ,
-    ServeQ, TriplePatternQ, is_var, resolve_device, run_with_policy,
-    shape_key,
+    ServeQ, StaleEpoch, TriplePatternQ, is_var, resolve_device,
+    run_with_policy, shape_key,
 )
 from repro_torch.obs import cost as obs_cost
 from repro_torch.core.sortedset import SENTINEL, IdSet
@@ -164,6 +173,13 @@ def _host_result(r: ServeResult, unbounded: bool) -> ServeResult:
             u_count=np.zeros((b, 0), np.int32),
         )
     return ServeResult(**out)
+
+
+def _on_device(r: ServeResult, device: torch.device) -> ServeResult:
+    """A host (merged) result back on ``device``; tensors pass through."""
+    return ServeResult(**{
+        n: torch.as_tensor(getattr(r, n), device=device) for n in RESULT_FIELDS
+    }, ready=r.ready)
 
 
 def decode_lane(op: int, r: ServeResult, i: int):
@@ -373,8 +389,12 @@ class _ExecBase:
         self.cfg = cfg
         self.cap = cfg.cap
         self.cap_y = cfg.cap_y
+        # the store epoch this executor was compiled at: running it after a
+        # compaction swap would serve dropped triples from the old forest
+        self.epoch = engine.store_epoch
 
     def _grow(self, fn):
+        self.engine._check_epoch(self.epoch)
         t, m = obs.STATE.tracer, obs.STATE.metrics
         if t is not None or m is not None:
             inner = fn
@@ -478,7 +498,7 @@ class _PatternExec(_ExecBase):
         h = host_result(r, unbounded=op in UNBOUNDED_OPS)
         return [decode_lane(op, h, i) for i in idxs]
 
-    def _run_pairs(self, p, b, cap):
+    def _static_pairs(self, p, b, cap):
         eng = self.engine
         r = k2forest.range_scan_batch(eng.meta, eng.forest, p - 1, cap)
         self._overflow_guard(r)
@@ -488,10 +508,49 @@ class _PatternExec(_ExecBase):
             for i in range(b)
         ]
 
+    def _run_pairs(self, p, b, cap):
+        view = self.engine.dynamic_view()
+        if view is None:
+            return self._static_pairs(p, b, cap)
+        # dynamic: delta-only preds (past the static forest) are clamped to
+        # tree 1 for dispatch and answered from the snapshot alone
+        eng = self.engine
+        p = np.asarray(p, np.int64).reshape(-1)
+        safe = p <= view.preds_static
+        empty = np.empty(0, np.int64)
+        if safe.any():
+            r = k2forest.range_scan_batch(eng.meta, eng.forest, np.where(safe, p, 1) - 1, cap)
+            rows, cols, valid, ovf = (_host(a) for a in (r.rows, r.cols, r.valid, r.overflow))
+            if (ovf & safe).any():
+                raise CapOverflow("result lane truncated at cap; CapPolicy(grow=True) doubles")
+        out = []
+        for i in range(b):
+            if safe[i]:
+                ss = rows[i][valid[i]].astype(np.int64) + 1
+                oo = cols[i][valid[i]].astype(np.int64) + 1
+            else:
+                ss, oo = empty, empty
+            ss, oo = view.snap.merge_pairs(int(p[i]), ss, oo)
+            out.append(np.stack([ss, oo], axis=1).reshape(-1, 2))
+        return out
+
     def _run_dump(self, cap):
+        view = self.engine.dynamic_view()
         n = self.engine.store.n_preds
-        pairs = self._run_pairs(np.arange(1, n + 1), n, cap)
-        return [{pi + 1: pr for pi, pr in enumerate(pairs) if pr.shape[0]}]
+        pairs = self._static_pairs(np.arange(1, n + 1), n, cap)
+        out = {pi + 1: pr for pi, pr in enumerate(pairs) if pr.shape[0]}
+        if view is None:
+            return [out]
+        merged = {}
+        empty = np.empty(0, np.int64)
+        for p in range(1, view.total_preds + 1):
+            pr = out.get(p)
+            ss = pr[:, 0].astype(np.int64) if pr is not None else empty
+            oo = pr[:, 1].astype(np.int64) if pr is not None else empty
+            ss, oo = view.snap.merge_pairs(p, ss, oo)
+            if len(ss):
+                merged[p] = np.stack([np.asarray(ss), np.asarray(oo)], axis=1)
+        return [merged]
 
 
 class _JoinExec(_ExecBase):
@@ -521,7 +580,9 @@ class _JoinExec(_ExecBase):
 
     def _run_abc(self, q, cap):
         eng, cfg = self.engine, self.cfg
-        Pn = eng.store.n_preds
+        # the B/C side lists cover delta-only appended predicates too: their
+        # lanes go dead on the card and the snapshot answers them
+        Pn = dyn.total_preds(eng.store)
         if q.category == "A":
             lanes = [self._lane(q.vpos1, q.p1, q.c1), self._lane(q.vpos2, q.p2, q.c2)]
         elif q.category == "B":
@@ -535,6 +596,7 @@ class _JoinExec(_ExecBase):
         arr = np.asarray(lanes, np.int64)
         r = eng._run_lanes(cfg, cap, arr[:, 0], arr[:, 1], arr[:, 2], arr[:, 3])
         self._overflow_guard(r)
+        r = _on_device(r, eng.device)
 
         if q.category == "A":
             rr = sortedset.intersect(self._idset(r, 0), self._idset(r, 1))
@@ -556,6 +618,11 @@ class _JoinExec(_ExecBase):
         return _host(rr.ids)[_host(rr.valid)]
 
     def _run_def(self, q, cap, cap_y):
+        if self.engine.dynamic_view() is not None:
+            # the fused scan->rebind kernels read only the static forest;
+            # with a live delta the join decomposes into two serve-lane
+            # stages, each through the sanitize+merge path
+            return self._run_def_dynamic(q, cap, cap_y)
         t = obs.STATE.tracer
         if t is None:
             return self._def_call(q, cap, cap_y)
@@ -577,6 +644,57 @@ class _JoinExec(_ExecBase):
             self._overflow_guard(r)
         with obs.span("plan.decode", cat="plan"):
             return _pairs_to_dict(r) if q.category == "D" else _pairs_to_dict_pred(r)
+
+
+    def _run_def_dynamic(self, q, cap, cap_y):
+        eng, cfg = self.engine, self.cfg
+        pe = _PatternExec(eng, cfg)
+        # stage 1: the shared-variable side list X
+        if q.category in ("D", "E"):
+            lane = np.asarray([self._lane(q.vpos1, q.p1, q.c1)], np.int64)
+            r = eng._run_lanes(cfg, cap, lane[:, 0], lane[:, 1], lane[:, 2], lane[:, 3])
+            self._overflow_guard(r)
+            r = host_result(r, unbounded=False)
+            xs = r.ids[0][r.valid[0]].astype(np.int64)
+        else:  # F: ?X linked to c1 by ANY predicate: an unbounded lane, unioned
+            op1 = OP_ANY_ANY_O if q.vpos1 == "s" else OP_S_ANY_ANY
+            key = np.asarray([q.c1], np.int64)
+            zero = np.zeros(1, np.int64)
+            s1, o1 = (zero, key) if q.vpos1 == "s" else (key, zero)
+            per = pe._run_serve(op1, s1, zero, o1, 1, cap)[0]
+            xs = (
+                np.unique(np.concatenate([np.asarray(v) for v in per.values()])).astype(np.int64)
+                if per else np.empty(0, np.int64)
+            )
+        if not xs.size:
+            return {}
+        # stage 2: re-bind each x
+        if q.category == "D":
+            if q.vpos2 == "s":
+                ops2 = np.full(xs.size, OP_ROW, np.int32)
+                s2, o2 = xs, np.zeros(xs.size, np.int64)
+            else:
+                ops2 = np.full(xs.size, OP_COL, np.int32)
+                s2, o2 = np.zeros(xs.size, np.int64), xs
+            p2 = np.full(xs.size, q.p2, np.int64)
+            r2 = eng._run_lanes(cfg, cap_y, ops2, s2, p2, o2)
+            self._overflow_guard(r2)
+            r2 = host_result(r2, unbounded=False)
+            return {
+                int(x): r2.ids[i][r2.valid[i]]
+                for i, x in enumerate(xs)
+                if r2.valid[i].any()
+            }
+        op2 = OP_S_ANY_ANY if q.vpos2 == "s" else OP_ANY_ANY_O
+        zero = np.zeros(xs.size, np.int64)
+        s2, o2 = (xs, zero) if q.vpos2 == "s" else (zero, xs)
+        per_x = pe._run_serve(op2, s2, zero, o2, xs.size, cap_y)
+        out: dict[int, dict[int, np.ndarray]] = {}
+        for i, x in enumerate(xs):
+            for pl, ys in per_x[i].items():
+                if len(ys):
+                    out.setdefault(int(pl), {})[int(x)] = np.asarray(ys)
+        return {p: d for p, d in sorted(out.items())}
 
 
 def _pairs_to_dict(r: joins.JoinPairs) -> dict[int, np.ndarray]:
@@ -666,18 +784,32 @@ class _ServeExec(_ExecBase):
         return upload_batch(ServeBatch(*batch), self.engine.device)
 
     def run(self, q: ServeQ, batch) -> ServeResult:
-        batch = self._coerce(batch)
+        if batch is None:
+            raise ValueError("ServeQ plans take a ServeBatch")
+        batch = ServeBatch(*batch)
+        uploaded = []  # the static path uploads once, whatever the growth
+
+        def one(cap):
+            view = self.engine.dynamic_view()
+            if view is None:
+                if not uploaded:
+                    uploaded.append(self._coerce(batch))
+                return self._call(uploaded[0], cap, q.unbounded)
+            # sanitize on the host before the upload, merge after the fetch
+            # against the ORIGINAL lane constants
+            r = self._call(self._coerce(view.sanitize_batch(batch)), cap, q.unbounded)
+            return view.merge_lanes(*batch, host_result(r, unbounded=q.unbounded))
 
         def fn(cap, _):
             t = obs.STATE.tracer
             if t is None:
-                r = self._call(batch, cap, q.unbounded)
+                r = one(cap)
                 self._overflow_guard(r)
                 return r
             with t.span("plan.call", cat="plan", b=int(batch.op.shape[0]),
                         cap=cap, unbounded=q.unbounded):
                 with t.span("plan.dispatch", cat="plan"):
-                    r = self._call(batch, cap, q.unbounded)
+                    r = one(cap)
                 # the overflow check reads the result: the host waits here
                 with t.span("plan.sync", cat="plan"):
                     self._overflow_guard(r)
@@ -688,7 +820,12 @@ class _ServeExec(_ExecBase):
     def submit(self, q: ServeQ, batch) -> ServeResult:
         """Streamed dispatch: device ``ServeResult`` with NO host sync; the
         overflow guard and any cap growth are the caller's job, and the
-        executor's cap never grows through this path."""
+        executor's cap never grows through this path.
+
+        Dynamic stores: this is the STATIC lane only — the caller pins
+        ``Engine.dynamic_view()``, sanitizes the batch before this call and
+        merges the same view into the fetched result (the broker does)."""
+        self.engine._check_epoch(self.epoch)
         t = obs.STATE.tracer
         if t is None:
             return self._call(self._coerce(batch), self.cap, q.unbounded)
@@ -742,12 +879,42 @@ class Engine:
     ``(shape_key(query), config)`` and the serve programs per geometry.
     """
 
-    def __init__(self, store: K2TriplesStore, *, device="cuda"):
+    def __init__(self, store: K2TriplesStore | dyn.DynamicStore, *, device="cuda"):
         self.device = resolve_device(device)
+        if isinstance(store, dyn.DynamicStore) and store.device != self.device:
+            raise ValueError(
+                f"a DynamicStore serves from its own device ({store.device}); "
+                f"build its static store on {self.device}"
+            )
         self.store = store if store.device == self.device else store.to(self.device)
         self._plan_cache: dict = {}
         self._programs: dict = {}
         self._stats = {"hits": 0, "misses": 0, "denied": 0}
+        # the store epoch the caches were built at; a DynamicStore bumps it
+        # at a compaction swap and ``compile`` then drops every executor
+        self._built_epoch = self.store_epoch
+
+    @property
+    def store_epoch(self) -> int:
+        """Compaction epoch of a dynamic store (0 for a static one)."""
+        return getattr(self.store, "epoch", 0)
+
+    def _check_epoch(self, epoch: int) -> None:
+        cur = self.store_epoch
+        if epoch != cur:
+            raise StaleEpoch(
+                f"plan compiled at store epoch {epoch}, store is now at "
+                f"{cur} (compacted); recompile"
+            )
+
+    def dynamic_view(self):
+        """The delta read view for this dispatch, or ``None`` when the
+        store is static (or the delta is empty): the static fast path."""
+        return dyn.view_of(self.store)
+
+    def _static(self) -> K2TriplesStore:
+        """The current static epoch (the store itself when static)."""
+        return self.store.static if isinstance(self.store, dyn.DynamicStore) else self.store
 
     @property
     def meta(self) -> K2Meta:
@@ -777,6 +944,13 @@ class Engine:
             raise ValueError(
                 f"config device {cfg.device!r} is not the engine's {self.device}"
             )
+        cur = self.store_epoch
+        if self._built_epoch != cur:
+            # after a compaction swap every cached executor serves the old
+            # epoch: drop them all before compiling
+            self._plan_cache.clear()
+            self._programs.clear()
+            self._built_epoch = cur
         self._validate(q)
         key = (shape_key(q), cfg)
         t, m = obs.STATE.tracer, obs.STATE.metrics
@@ -864,17 +1038,17 @@ class Engine:
     def _u_width(self) -> int:
         return max(self.store.pred_index.meta.max_degree, 1)
 
-    def _program(self, cfg: ExecConfig, cap: int, u_width: int, with_index: bool):
-        """One cached serve program per geometry, shared by all executors."""
-        key = (cap, u_width, with_index, cfg.pred_index_layout)
+    def _program(self, st: K2TriplesStore, cfg: ExecConfig, cap: int, u_width: int,
+                 with_index: bool):
+        """One cached serve program per geometry of the static store ``st``,
+        shared by all executors (keyed by the metas' values, so a program
+        never meets a forest of another geometry)."""
+        pmeta = st.pred_index.select(cfg.pred_index_layout)[1] if with_index else None
+        key = (cap, u_width, st.meta, pmeta)
         fn = self._programs.get(key)
         if fn is None:
-            pmeta = (
-                self.store.pred_index.select(cfg.pred_index_layout)[1]
-                if with_index else None
-            )
             fn = self._programs[key] = make_serve_step(
-                self.meta, cap, pmeta=pmeta, u_width=u_width
+                st.meta, cap, pmeta=pmeta, u_width=u_width
             )
         return fn
 
@@ -889,13 +1063,14 @@ class Engine:
                      u_width: int = 0, with_index: bool = False) -> ServeResult:
         """One uploaded batch through the cached program of its geometry;
         on the card, ``ready`` records the stream after its last launch."""
-        fn = self._program(cfg, cap, u_width, with_index)
+        st = self._static()  # one epoch for the program, forest and index
+        fn = self._program(st, cfg, cap, u_width, with_index)
         if with_index:
-            r = fn(self.forest, qb, self.store.pred_index.select(cfg.pred_index_layout)[0])
+            r = fn(st.forest, qb, st.pred_index.select(cfg.pred_index_layout)[0])
         elif u_width > 0:
-            r = fn(self.forest, qb, None)
+            r = fn(st.forest, qb, None)
         else:
-            r = fn(self.forest, qb)
+            r = fn(st.forest, qb)
         if self.device.type == "cuda":
             r.ready = torch.cuda.Event()
             r.ready.record(torch.cuda.current_stream(self.device))
@@ -925,16 +1100,24 @@ class Engine:
             out[:b] = np.asarray(a, np.int64)
             return out
 
-        qb = upload_batch(
-            ServeBatch(pad(ops_a, -1), pad(s, 0), pad(p, 0), pad(o, 0)), self.device
-        )
-        r = self._run_program(cfg, cap, qb, u_width=u_width, with_index=with_index)
-        return ServeResult(**{name: getattr(r, name)[:b] for name in RESULT_FIELDS},
-                           ready=r.ready)
+        view = self.dynamic_view()
+        qb = ServeBatch(pad(ops_a, -1), pad(s, 0), pad(p, 0), pad(o, 0))
+        if view is not None:
+            qb = view.sanitize_batch(qb)  # on the host, before the upload
+        r = self._run_program(cfg, cap, upload_batch(qb, self.device),
+                              u_width=u_width, with_index=with_index)
+        r = ServeResult(**{name: getattr(r, name)[:b] for name in RESULT_FIELDS},
+                        ready=r.ready)
+        if view is not None:
+            # the delta lane: subtract tombstones, union inserts and widen
+            # caps on the host, so the delta never causes a false overflow
+            r = view.merge_lanes(ops_a, s, p, o, host_result(r, unbounded=u_width > 0))
+        return r
 
     def _lanes_runner(self, cfg: ExecConfig, cap: int):
         """Bound-pred serve-lane callable handed to the planner: dispatches
-        CHECK/ROW/COL lanes and returns the fetched host ``ServeResult``."""
+        CHECK/ROW/COL lanes and returns the fetched host ``ServeResult``
+        (merged with the delta on a dynamic store)."""
         return lambda ops_a, s, p, o: host_result(
             self._run_lanes(cfg, cap, ops_a, s, p, o), unbounded=False
         )

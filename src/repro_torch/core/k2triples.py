@@ -1,9 +1,12 @@
-"""K2TriplesStore — the paper's engine state: per-predicate forest + SP/OP index.
+"""K2TriplesStore — the paper's engine state: dictionary + per-predicate
+forest + SP/OP index.
 
 Builds the vertical-partitioned k²-tree arena from 1-based ID triples on the
 host and places it on one device, keeps the |SO| boundary, and exposes the
-paper's size accounting.  Only ID-level stores exist in this package (no
-string dictionary).
+paper's size accounting.  :func:`from_string_triples` builds the 4-range
+dictionary (``core.dictionary``, front-coded by default) on the host, where
+it stays, and the store from the encoded ids; ``from_id_triples`` stores
+carry no dictionary.
 """
 
 from __future__ import annotations
@@ -14,6 +17,12 @@ import functools
 import numpy as np
 
 from repro_torch.core import k2forest, k2tree, predindex
+from repro_torch.core.dictionary import (
+    CompressedTripleDictionary,
+    TripleDictionary,
+    build_compressed_dictionary,
+    build_dictionary,
+)
 from repro_torch.core.k2forest import ForestStats, K2Forest
 from repro_torch.core.k2tree import K2Meta
 from repro_torch.core.predindex import BuiltPredIndex
@@ -32,6 +41,9 @@ class K2TriplesStore:
     n_triples: int
     # k²-triples+ (arXiv:1310.4954) SP/OP index; None = all-preds sweep
     pred_index: BuiltPredIndex | None = None
+    # the host-side term <-> id mapping; None for ID-level stores
+    dictionary: TripleDictionary | CompressedTripleDictionary | None = dataclasses.field(
+        default=None, kw_only=True)
 
     @property
     def device(self):
@@ -57,6 +69,7 @@ def from_id_triples(
     n_subjects: int,
     n_objects: int,
     n_preds: int,
+    dictionary: TripleDictionary | CompressedTripleDictionary | None = None,
     k4_levels: int = k2tree.HYBRID_K4_LEVELS,
     with_pred_index: bool = True,
     device="cuda",
@@ -86,7 +99,21 @@ def from_id_triples(
     return K2TriplesStore(
         meta=meta, forest=forest, stats=stats, n_so=n_so,
         n_subjects=n_subjects, n_objects=n_objects, n_preds=n_preds,
-        n_triples=int(ids.shape[0]), pred_index=pidx,
+        n_triples=int(ids.shape[0]), pred_index=pidx, dictionary=dictionary,
+    )
+
+
+def from_string_triples(triples, *, compressed: bool = True, device="cuda") -> K2TriplesStore:
+    """String triples -> store.  ``compressed=True`` (default) keeps the
+    dictionary as front-coded byte pools (:class:`CompressedTripleDictionary`,
+    same API); ``compressed=False`` keeps plain Python string tuples.  The
+    dictionary stays on the host; the arenas go to ``device``."""
+    device = resolve_device(device)
+    d = build_compressed_dictionary(triples) if compressed else build_dictionary(triples)
+    ids = np.unique(d.encode_triples(triples), axis=0)  # the paper cleans duplicates
+    return from_id_triples(
+        ids, n_so=d.n_so, n_subjects=d.n_subjects, n_objects=d.n_objects,
+        n_preds=d.n_preds, dictionary=d, device=device,
     )
 
 
@@ -114,6 +141,22 @@ def size_pred_index_bits(store: K2TriplesStore) -> int:
     if st is None:
         raise ValueError("converted store carries no index stats")
     return st.payload_bits + st.offsets_bits
+
+
+def size_dictionary_bits(store: K2TriplesStore) -> int:
+    """Measured dictionary bits: front-coded pools + EF offset indexes for a
+    :class:`CompressedTripleDictionary`; raw UTF-8 bytes for a plain
+    :class:`TripleDictionary`; 0 for ID-only stores."""
+    d = store.dictionary
+    if d is None:
+        return 0
+    if isinstance(d, CompressedTripleDictionary):
+        return d.size_bits()
+    return 8 * sum(
+        len(t.encode())
+        for terms in (d.so_terms, d.s_terms, d.o_terms, d.p_terms)
+        for t in terms
+    )
 
 
 def size_raw_triples_bits(n_triples: int) -> int:

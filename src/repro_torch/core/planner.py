@@ -32,11 +32,13 @@ a ``serve`` runner the steps call ``k2forest`` directly, with lane tensors
 on the store's device: the hand-written kernels on a CUDA store, their
 plain versions on a CPU one.
 
-The JAX package's planner also reads a dynamic store's delta
-(``delta.total_preds``, ``snapshot_of``, ``view_of`` and the raw-launch
-runner ``_dyn_raw_runner``).  This package has no dynamic store yet, so
-those calls take their static-store values here (``store.n_preds``,
-``None``, ``None``) and the dynamic branches are left out.
+On a dynamic store (``core.delta.DynamicStore``) the planner reads the
+delta too: predicate counts include delta-only appended predicates
+(``delta.total_preds``), the SP/OP candidates of an unbounded ``?p`` gain
+each key's delta predicates, pair enumeration merges every predicate's
+pair list through the snapshot, ground patterns consult the snapshot
+first, and without a ``serve`` runner the raw steps run through
+:func:`_dyn_raw_runner`, which sanitizes and merges like the engine's.
 
 Planner decisions are observable: when tracing is on, each block emits a
 ``planner.order`` span carrying the chosen order plus estimated-vs-actual
@@ -54,6 +56,7 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.core import algebra, k2forest
+from repro_torch.core import delta as dyn
 from repro_torch.core.algebra import Table, TriplePattern
 from repro_torch.core.k2triples import K2TriplesStore
 from repro_torch.core.query import CapOverflow
@@ -299,7 +302,7 @@ def _ragged_candidates(store: K2TriplesStore, keys: np.ndarray, axis: int):
     bi = store.pred_index
     if bi is None:  # index-free fallback: every predicate for every row
         n_rows = keys.shape[0]
-        P = store.n_preds
+        P = dyn.total_preds(store)
         return (
             np.repeat(np.arange(n_rows), P),
             np.tile(np.arange(P, dtype=np.int64), n_rows),
@@ -313,6 +316,24 @@ def _ragged_candidates(store: K2TriplesStore, keys: np.ndarray, axis: int):
     deg = np.where(in_range, offs[rows + 1] - offs[rows], 0)
     row_idx, elem = _ragged_take(start, deg)
     cand = host_preds[elem].astype(np.int64)
+    snap = dyn.snapshot_of(store)
+    if snap is not None:
+        # the static SP/OP index knows nothing about recent inserts: union
+        # each row's delta predicates from the snapshot's per-entity bitmap
+        pm = snap.s_preds if axis == 0 else snap.o_preds
+        extra_r: list[int] = []
+        extra_c: list[np.ndarray] = []
+        for i, k in enumerate(np.asarray(keys).tolist()):
+            ps = pm.preds_of(int(k))
+            if ps.size:
+                extra_r.extend([i] * ps.size)
+                extra_c.append(ps - 1)  # candidates are 0-based
+        if extra_r:
+            row_idx = np.concatenate([row_idx, np.asarray(extra_r)])
+            cand = np.concatenate([cand, np.concatenate(extra_c)])
+            big = np.int64(dyn.total_preds(store) + 1)
+            uk = np.unique(row_idx * big + cand)  # dedup, (row, cand) order
+            row_idx, cand = uk // big, uk % big
     return row_idx, cand
 
 
@@ -345,7 +366,12 @@ def _resolve_with_bindings(
     """
     meta, f = store.meta, store.forest
     dev = store.device
-    P_tot = store.n_preds
+    view = dyn.view_of(store)
+    if view is not None and serve is None:
+        # no pooled engine runner handed in: a raw-launch runner keeps the
+        # delta sanitize+merge around every check/scan lane
+        serve = _dyn_raw_runner(store, view, cap)
+    P_tot = dyn.total_preds(store)
     n_rows = len(next(iter(bindings.values()))) if bindings else 1
     pvar = _is_var(pat.p)
 
@@ -477,16 +503,45 @@ def _resolve_with_bindings(
         if p_free
         else np.unique(np.clip(p_arr, 1, P_tot))
     )
-    pr = k2forest.range_scan_batch(meta, f, upreds - 1, cap)
-    pr = type(pr)(*(_host(a) for a in pr))
-    if bool(pr.overflow.any()):
-        raise CapOverflow("BGP pair enumeration truncated at cap")
-    pv = pr.valid
-    prow, pcol = pr.rows + 1, pr.cols + 1
-    counts = pv.sum(axis=1)
-    pair_p = np.repeat(upreds, counts)
-    lanes, slots = np.nonzero(pv)
-    pair_s, pair_o = prow[lanes, slots], pcol[lanes, slots]
+    if view is None:
+        pr = k2forest.range_scan_batch(meta, f, upreds - 1, cap)
+        pr = type(pr)(*(_host(a) for a in pr))
+        if bool(pr.overflow.any()):
+            raise CapOverflow("BGP pair enumeration truncated at cap")
+        pv = pr.valid
+        prow, pcol = pr.rows + 1, pr.cols + 1
+        counts = pv.sum(axis=1)
+        pair_p = np.repeat(upreds, counts)
+        lanes, slots = np.nonzero(pv)
+        pair_s, pair_o = prow[lanes, slots], pcol[lanes, slots]
+    else:
+        # dynamic: scan only the static trees, then merge each predicate's
+        # pair list through the snapshot, keeping pair_p grouped in
+        # ascending predicate order for the searchsorted below
+        sta = upreds[upreds <= view.preds_static]
+        per: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        if sta.size:
+            pr = k2forest.range_scan_batch(meta, f, sta - 1, cap)
+            pr = type(pr)(*(_host(a) for a in pr))
+            if bool(pr.overflow.any()):
+                raise CapOverflow("BGP pair enumeration truncated at cap")
+            for i, p in enumerate(sta.tolist()):
+                per[p] = (
+                    pr.rows[i][pr.valid[i]].astype(np.int64) + 1,
+                    pr.cols[i][pr.valid[i]].astype(np.int64) + 1,
+                )
+        empty = np.empty(0, np.int64)
+        pp, ps, po = [], [], []
+        for p in upreds.tolist():
+            ss, oo = per.get(p, (empty, empty))
+            ss, oo = view.snap.merge_pairs(int(p), ss, oo)
+            if len(ss):
+                pp.append(np.full(len(ss), p, np.int64))
+                ps.append(np.asarray(ss, np.int64))
+                po.append(np.asarray(oo, np.int64))
+        pair_p = np.concatenate(pp) if pp else empty
+        pair_s = np.concatenate(ps) if ps else empty
+        pair_o = np.concatenate(po) if po else empty
     if p_free:
         n_pairs = pair_p.shape[0]
         rows = np.repeat(np.arange(n_rows), n_pairs)
@@ -503,6 +558,14 @@ def _resolve_with_bindings(
 
 def _pattern_holds(store: K2TriplesStore, pat: TriplePattern) -> bool:
     """Ground (variable-free) pattern: does the triple exist?"""
+    snap = dyn.snapshot_of(store)
+    if snap is not None:
+        if snap.contains(pat.s, pat.p, pat.o):
+            return True
+        if snap.tomb_contains(pat.s, pat.p, pat.o):
+            return False
+        if pat.s > store.n_subjects or pat.o > store.n_objects:
+            return False  # appended-range id the static forest cannot hold
     if not (1 <= pat.p <= store.n_preds):
         return False
     dev = store.device
@@ -515,6 +578,63 @@ def _pattern_holds(store: K2TriplesStore, pat: TriplePattern) -> bool:
             )
         )[0]
     )
+
+
+def _dyn_raw_runner(store, view, cap: int):
+    """Serve-shaped CHECK/ROW/COL lane runner over raw ``k2forest`` calls,
+    wrapped in the delta sanitize+merge: the fallback when
+    :func:`_resolve_with_bindings` meets a dynamic store without a pooled
+    engine runner.  Sanitized lanes reach the kernels with zeroed
+    constants."""
+    from repro_torch.core import engine as _eng
+
+    meta, f, dev = store.meta, store.forest, store.device
+
+    def run(ops, s, p, o):
+        ops0 = np.asarray(ops, np.int32).reshape(-1)
+        s = np.asarray(s, np.int64).reshape(-1)
+        p = np.asarray(p, np.int64).reshape(-1)
+        o = np.asarray(o, np.int64).reshape(-1)
+        ops_r = view.sanitize_ops(ops0, s, p, o)
+        b = ops_r.shape[0]
+        hit = np.zeros(b, np.bool_)
+        ids = np.zeros((b, cap), np.int32)
+        valid = np.zeros((b, cap), np.bool_)
+        count = np.zeros(b, np.int32)
+        ovf = np.zeros(b, np.bool_)
+        is_chk = ops_r == _eng.OP_CHECK
+        if is_chk.any():
+            hit = _host(k2forest.check(
+                meta, f,
+                k2forest.as_lanes(np.where(is_chk, p - 1, 0), dev),
+                k2forest.as_lanes(np.where(is_chk, s - 1, 0), dev),
+                k2forest.as_lanes(np.where(is_chk, o - 1, 0), dev),
+            )) & is_chk
+        is_scan = (ops_r == _eng.OP_ROW) | (ops_r == _eng.OP_COL)
+        if is_scan.any():
+            axis = (ops_r == _eng.OP_COL).astype(np.int32)
+            key = np.where(axis == 1, o, s)
+            r = k2forest.scan_batch_mixed(
+                meta, f,
+                k2forest.as_lanes(np.where(is_scan, p - 1, 0), dev),
+                k2forest.as_lanes(np.where(is_scan, key - 1, 0), dev),
+                k2forest.as_lanes(axis, dev), cap,
+            )
+            rv = _host(r.valid) & is_scan[:, None]
+            ids = np.where(rv, _host(r.ids) + 1, 0).astype(np.int32)
+            valid = rv
+            count = rv.sum(axis=1).astype(np.int32)
+            ovf = _host(r.overflow) & is_scan
+        res = _eng.ServeResult(
+            hit=hit, ids=ids, valid=valid, count=count, overflow=ovf,
+            u_preds=np.zeros((b, 0), np.int32),
+            u_ids=np.zeros((b, 0, cap), np.int32),
+            u_valid=np.zeros((b, 0, cap), np.bool_),
+            u_count=np.zeros((b, 0), np.int32),
+        )
+        return view.merge_lanes(ops0, s, p, o, res)
+
+    return run
 
 
 # ---------------------------------------------------------------------------

@@ -362,3 +362,51 @@ def gather_batch(pmeta: PredIndexMeta, index: PredIndex, rows, cap: int) -> Quer
     if pmeta.layout == "dac":
         return QueryResult(*ops.pred_gather_dac(pmeta, index, rows, cap=cap))
     return QueryResult(*ops.pred_gather(pmeta, index, rows, cap=cap))
+
+
+# ---------------------------------------------------------------------------
+# the delta lane's host-side stand-in for the index
+# ---------------------------------------------------------------------------
+
+
+class PredBitmap:
+    """Tiny host-side entity -> predicate-set bitmap for the delta lane.
+
+    The SP/OP candidate-predicate index above is static (built once with the
+    forest) and is consulted only for the STATIC side of a dynamic store.
+    Recent inserts are covered by this structure instead: one arbitrary-width
+    Python-int bitmask per touched entity (1-based predicate p sets bit p-1),
+    so the delta lane's unbounded-?P merges cost a dict lookup plus a
+    popcount-sized decode — no device rebuild per write.
+    """
+
+    __slots__ = ("_bits",)
+
+    def __init__(self) -> None:
+        self._bits: dict[int, int] = {}
+
+    def add(self, entity: int, pred: int) -> None:
+        self._bits[entity] = self._bits.get(entity, 0) | (1 << (pred - 1))
+
+    def preds_of(self, entity: int) -> np.ndarray:
+        """Sorted 1-based predicate ids recorded for ``entity``."""
+        w = self._bits.get(entity, 0)
+        if not w:
+            return np.empty(0, dtype=np.int64)
+        out = []
+        p = 1
+        while w:
+            if w & 1:
+                out.append(p)
+            w >>= 1
+            p += 1
+        return np.asarray(out, dtype=np.int64)
+
+    def __contains__(self, entity: int) -> bool:
+        return entity in self._bits
+
+    def __len__(self) -> int:
+        return len(self._bits)
+
+    def entities(self):
+        return self._bits.keys()

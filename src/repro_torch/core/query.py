@@ -45,6 +45,16 @@ class AdmissionError(RuntimeError):
     ``Engine.compile`` vetoed a cache miss."""
 
 
+class StaleEpoch(RuntimeError):
+    """A compiled plan outlived a compaction swap of its dynamic store.
+
+    Executors pin the store epoch they were compiled against; running one
+    after ``DynamicStore.swap`` would silently serve dropped triples from
+    the old forest, so the engine raises this instead.  ``Plan.__call__``
+    recompiles transparently; ``Plan.submit`` (the raw device path) lets it
+    propagate so the broker can refresh its base plan."""
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; CUDA without a card raises.
 
@@ -350,7 +360,15 @@ class Plan:
         ``batch``: ``None`` runs the query's own constants; a dict of
         bound position -> id array re-runs a ``TriplePatternQ`` shape over
         many constants; a ``ServeBatch`` feeds a ``ServeQ``."""
-        return self._executor.run(self.query, batch)
+        try:
+            return self._executor.run(self.query, batch)
+        except StaleEpoch:
+            # the store was compacted under us: recompile against the new
+            # epoch (ids are stable across swaps, so the query means the
+            # same thing) and retry once
+            eng = self._executor.engine
+            self._executor = eng.compile(self.query, self.config)._executor
+            return self._executor.run(self.query, batch)
 
     def submit(self, batch=None):
         """Asynchronous dispatch: launch and return DEVICE results at once —

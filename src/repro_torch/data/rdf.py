@@ -4,7 +4,9 @@ The paper's 2011 corpora are not redistributable offline, so benchmarks run
 on synthetic datasets that mirror the published shape statistics (Table 1):
 #triples and the |S| / |P| / |O| ratios, power-law predicate and object
 frequencies, and an SO overlap.  A seed gives the same triples as the JAX
-package's ``repro.data.rdf`` (same draws in the same order).
+package's ``repro.data.rdf`` (same draws in the same order).  String
+corpora (:func:`generate_strings`) map those ids to URI-ish terms that
+honour the SO overlap; :func:`parse_n3` reads a minimal N-Triples subset.
 """
 
 from __future__ import annotations
@@ -100,3 +102,75 @@ def generate_like(name: str, n_triples: int, seed: int = 0) -> RdfDataset:
         n_objects=max(4, int(d["objects"] * f)),
         seed=seed,
     )
+
+
+def to_strings(ds: RdfDataset) -> list[tuple[str, str, str]]:
+    """URI-ish string triples honoring the SO overlap (for dictionary tests)."""
+    out = []
+    for s, p, o in ds.ids:
+        s_term = (
+            f"http://ex.org/so/{s:08d}" if s <= ds.n_so else f"http://ex.org/s/{s:08d}"
+        )
+        o_term = (
+            f"http://ex.org/so/{o:08d}" if o <= ds.n_so else f"http://ex.org/o/{o:08d}"
+        )
+        out.append((s_term, f"http://ex.org/p/{p:04d}", o_term))
+    return out
+
+
+def generate_strings(
+    n_triples: int, *, like: str | None = None, seed: int = 0, **kw
+) -> list[tuple[str, str, str]]:
+    """Synthetic *string* triples for the dictionary/end-to-end path.
+
+    ``like`` scales a paper dataset's ratios (as ``generate_like``);
+    otherwise ``kw`` is forwarded to ``generate``.  URIs honor the SO
+    overlap so the shared [1,|SO|] range is exercised.
+    """
+    if like is not None:
+        ds = generate_like(like, n_triples, seed)
+    else:
+        ds = generate(n_triples, seed=seed, **kw)
+    return to_strings(ds)
+
+
+def parse_n3(text: str) -> list[tuple[str, str, str]]:
+    """Minimal N3/N-Triples subset: ``<s> <p> <o> .`` / quoted literals."""
+    triples = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        if line.endswith("."):
+            line = line[:-1].strip()
+        parts = _split_terms(line)
+        if len(parts) != 3:
+            raise ValueError(f"bad N3 line: {line!r}")
+        triples.append((parts[0], parts[1], parts[2]))
+    return triples
+
+
+def _split_terms(line: str) -> list[str]:
+    terms, i, n = [], 0, len(line)
+    while i < n:
+        while i < n and line[i].isspace():
+            i += 1
+        if i >= n:
+            break
+        if line[i] == "<":
+            j = line.index(">", i)
+            terms.append(line[i + 1 : j])
+            i = j + 1
+        elif line[i] == '"':
+            j = i + 1
+            while j < n and (line[j] != '"' or line[j - 1] == "\\"):
+                j += 1
+            terms.append(line[i : j + 1])
+            i = j + 1
+        else:
+            j = i
+            while j < n and not line[j].isspace():
+                j += 1
+            terms.append(line[i:j])
+            i = j
+    return terms

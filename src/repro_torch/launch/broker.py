@@ -33,6 +33,20 @@ Pipeline (one background task)::
   queue bound, growth budget and admission quota, and runs each query off
   the event loop through ``Engine.compile(SelectQ)``; ``stream`` takes lane
   tuples and ``SelectQ`` items mixed.
+* **Writes (dynamic stores)**: over a :class:`~repro_torch.core.delta.
+  DynamicStore`, ``submit_insert`` / ``submit_delete`` apply live mutations
+  to its delta synchronously (an in-memory set op), budgeted per tenant by
+  ``TenantPolicy.max_writes`` (:class:`WriteBudgetExhausted` past it; the
+  budget refills at compaction).  Reads stay on the raw static lane:
+  dispatch pins the delta view and sanitizes the batch on the host, and
+  decode merges the SAME view off the event loop.  With a
+  :class:`~repro_torch.core.compaction.CompactionPolicy`, a write that
+  trips it starts a background compaction in a worker thread on the
+  engine's device; the epoch swap is atomic, in-flight batches finish
+  against the old epoch, and the base plan is rebuilt right after so the
+  serve loop meets ``StaleEpoch`` at most once (it then refreshes and
+  retries).  A failed compaction warns (``RuntimeWarning``) and counts in
+  ``compaction_errors``; the broker keeps serving the old epoch.
 
 ``stats()`` reads an always-on ``MetricsRegistry`` of counters.  With
 observability on (``repro_torch.obs``) the broker also records batch
@@ -40,10 +54,10 @@ occupancy, queue depth, queue wait and per-query latency histograms, and
 once a batch has delivered, its timeline as retroactive spans: a
 ``broker.batch`` span over ``broker.coalesce`` / ``dispatch`` /
 ``inflight`` / ``fetch`` / ``decode_deliver`` on a ``batch-slot-*`` track,
-and each query's lifetime as async ``query`` events with its ``queue`` →
-``dispatch`` → ``inflight`` → ``fetch`` → ``decode`` phases.  The write
-path of the JAX package's broker (dynamic stores, compaction) is not in
-this package yet.
+each query's lifetime as async ``query`` events with its ``queue`` →
+``dispatch`` → ``inflight`` → ``fetch`` → ``decode`` phases, a
+``broker.compaction`` span around each background compaction and the
+``broker.epoch`` gauge after its swap.
 """
 
 from __future__ import annotations
@@ -53,25 +67,36 @@ import collections
 import dataclasses
 import math
 import time
+import warnings
 
 import numpy as np
+import torch
 
 from repro_torch import obs
+from repro_torch.core import delta as dyn
 from repro_torch.core import engine as eng
+from repro_torch.core.compaction import CompactionPolicy, compact, needs_compaction
 from repro_torch.core.query import (
     AdmissionError, CapOverflow, CapPolicy, ExecConfig, SelectQ, ServeQ,
+    StaleEpoch,
 )
 from repro_torch.obs import LATENCY_MS_BUCKETS, MetricsRegistry
 
 __all__ = [
     "CoalescePolicy", "TenantPolicy", "QueueFull", "ServeBroker",
-    "tail_percentile",
+    "WriteBudgetExhausted", "tail_percentile",
 ]
 
 
 class QueueFull(RuntimeError):
     """Shed signal: the tenant's bounded queue is at ``queue_depth``; the
     request was NOT enqueued."""
+
+
+class WriteBudgetExhausted(RuntimeError):
+    """The tenant spent its ``TenantPolicy.max_writes`` budget; the write
+    was NOT applied.  The budget counts writes resident in the delta and
+    refills when a compaction folds the delta into a new static epoch."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,17 +122,21 @@ class CoalescePolicy:
 class TenantPolicy:
     """Per-tenant budgets: ``queue_depth`` accepted-but-unresolved requests,
     ``max_cap_doublings`` cap growth above the base cap, ``max_plans``
-    plan-cache misses (one per distinct retry cap level)."""
+    plan-cache misses (one per distinct retry cap level), ``max_writes``
+    inserts + deletes resident in the delta at once."""
 
     queue_depth: int = 1024
     max_cap_doublings: int = 4
     max_plans: int = 4
+    max_writes: int = 4096
 
     def __post_init__(self):
         if self.queue_depth < 1:
             raise ValueError("queue_depth must be >= 1")
         if self.max_cap_doublings < 0 or self.max_plans < 0:
             raise ValueError("budgets must be >= 0")
+        if self.max_writes < 1:
+            raise ValueError("max_writes must be >= 1")
 
 
 def tail_percentile(samples, q: float) -> float | None:
@@ -168,12 +197,16 @@ class _TenantState:
     plans_charged: int = 0  # plan-cache misses charged against max_plans
     cap_growth_events: int = 0
     admission_denials: int = 0
+    inserts: int = 0
+    deletes: int = 0
+    writes_resident: int = 0  # writes in the live delta (budget state)
     lat_s: list = dataclasses.field(default_factory=list)
 
 
 _COUNTERS = (
     "batches", "lanes", "flush_size", "flush_deadline", "flush_drain",
     "shed", "cap_growth_events", "admission_denials", "selects",
+    "inserts", "deletes", "compactions", "compaction_ms", "compaction_errors",
 )
 
 
@@ -192,8 +225,10 @@ class ServeBroker:
         unbounded: bool = True,
         coalesce: CoalescePolicy = CoalescePolicy(),
         tenant_policy: TenantPolicy = TenantPolicy(),
+        compaction: CompactionPolicy | None = None,
     ):
         self.engine = engine
+        self.compaction = compaction
         cfg = config or engine.default_config
         # growth is broker-managed (per tenant); the base plan never grows
         self.config = cfg.replace(cap_policy=CapPolicy(grow=False))
@@ -219,6 +254,8 @@ class ServeBroker:
         # pipeline, not a lane); the semaphore bounds their threads
         self._select_sem = asyncio.Semaphore(max(2, coalesce.max_inflight))
         self._select_tasks: set[asyncio.Task] = set()
+        self._compaction_task: asyncio.Task | None = None
+        self.last_compaction: dict | None = None  # its report and refresh ms
         self._queue_peak = 0
         self._seq = 0  # per-query trace ids
         self._bid = 0  # batch ids
@@ -251,6 +288,8 @@ class ServeBroker:
             await self._task
             if self._select_tasks:  # selects accepted before the drain finish
                 await asyncio.gather(*self._select_tasks)
+            if self._compaction_task is not None and not self._compaction_task.done():
+                await asyncio.gather(self._compaction_task, return_exceptions=True)
         finally:
             self._running = False
 
@@ -293,6 +332,126 @@ class ServeBroker:
     async def submit(self, tenant: str, op: int, s: int = 0, p: int = 0,
                      o: int = 0):
         return await self.submit_nowait(tenant, op, s, p, o)
+
+    # -- the write path -------------------------------------------------
+
+    def submit_insert_nowait(self, tenant: str, s: int, p: int, o: int) -> None:
+        """Insert one id triple into the dynamic store's delta.
+
+        Applies synchronously and is visible to every batch dispatched after
+        this call.  Raises ``TypeError`` unless the engine serves a
+        :class:`~repro_torch.core.delta.DynamicStore`, and
+        :class:`WriteBudgetExhausted` past the tenant's ``max_writes``; may
+        start a background compaction when a ``CompactionPolicy`` is set.
+        """
+        self._write(tenant, s, p, o, insert=True)
+
+    async def submit_insert(self, tenant: str, s: int, p: int, o: int) -> None:
+        self.submit_insert_nowait(tenant, s, p, o)
+
+    def submit_delete_nowait(self, tenant: str, s: int, p: int, o: int) -> None:
+        """Delete one id triple (tombstone it in the delta); the contract of
+        :meth:`submit_insert_nowait`."""
+        self._write(tenant, s, p, o, insert=False)
+
+    async def submit_delete(self, tenant: str, s: int, p: int, o: int) -> None:
+        self.submit_delete_nowait(tenant, s, p, o)
+
+    def _write(self, tenant: str, s: int, p: int, o: int, *, insert: bool):
+        if not self._running or self._draining:
+            raise RuntimeError("broker is not accepting requests")
+        store = self.engine.store
+        if not isinstance(store, dyn.DynamicStore):
+            raise TypeError(
+                "writes need a DynamicStore; wrap the static store in "
+                "repro_torch.core.delta.DynamicStore"
+            )
+        st = self._tenant(tenant)
+        if st.writes_resident >= self.tenant_policy.max_writes:
+            raise WriteBudgetExhausted(
+                f"tenant {tenant!r} has {st.writes_resident} writes resident "
+                f"(max_writes={self.tenant_policy.max_writes}); budget "
+                "refills at the next compaction"
+            )
+        if insert:
+            store.insert(s, p, o)
+            st.inserts += 1
+            self._c["inserts"].inc()
+        else:
+            store.delete(s, p, o)
+            st.deletes += 1
+            self._c["deletes"].inc()
+        st.writes_resident += 1
+        self._maybe_compact()
+
+    def _maybe_compact(self):
+        """Start a background compaction when the policy says the delta is
+        due and none is running.  Reads keep serving the old epoch until the
+        swap lands."""
+        if self.compaction is None or not needs_compaction(self.engine.store, self.compaction):
+            return
+        if self._compaction_task is not None and not self._compaction_task.done():
+            return
+        task = asyncio.get_running_loop().create_task(self._run_compaction())
+        task.add_done_callback(self._observe_compaction)
+        self._compaction_task = task
+
+    def _observe_compaction(self, task: asyncio.Task) -> None:
+        """Surface a failed background compaction when its task ends: count
+        it and warn.  The broker keeps serving the old epoch; the delta
+        grows until the next write re-triggers the policy."""
+        if task.cancelled():
+            return
+        exc = task.exception()
+        if exc is not None:
+            self._c["compaction_errors"].inc()
+            warnings.warn(f"background compaction failed: {exc!r}", RuntimeWarning,
+                          stacklevel=2)
+
+    async def _run_compaction(self):
+        # writes resident now are the entries the pinned snapshot absorbs;
+        # writes racing in during the rebuild stay resident in the rebased
+        # delta and keep paying budget, so the refill below subtracts this
+        # capture instead of zeroing (a write between the capture and the
+        # pin is absorbed but stays counted: strict, never lenient)
+        absorbed = {name: st.writes_resident for name, st in self._tenants.items()}
+        with obs.span("broker.compaction", cat="broker"):
+            rep = await asyncio.to_thread(self._compact_on_device)
+            # the swap bumped the epoch: rebuild the base plan now, off the
+            # loop, so dispatch meets StaleEpoch at most once
+            t0 = time.perf_counter()
+            await asyncio.to_thread(self._refresh_base_plan)
+            refresh_ms = (time.perf_counter() - t0) * 1e3
+        for name, st in self._tenants.items():
+            st.writes_resident = max(0, st.writes_resident - absorbed.get(name, 0))
+        self._c["compactions"].inc()
+        self._c["compaction_ms"].inc(rep.duration_s * 1e3)
+        self.last_compaction = dict(report=rep, refresh_ms=refresh_ms)
+        m = obs.STATE.metrics
+        if m is not None:
+            m.gauge("broker.epoch").set(rep.epoch)
+        return rep
+
+    def _compact_on_device(self):
+        """``compact`` in a worker thread, with the engine's card current
+        (the rebuild allocates on the static store's own device)."""
+        dev = self.engine.device
+        if dev.type != "cuda":
+            return compact(self.engine.store)
+        with torch.cuda.device(dev):
+            return compact(self.engine.store)
+
+    def _refresh_base_plan(self):
+        self.base_plan = self.engine.compile(self._query, self.config)
+        self._retry_cfgs.clear()  # stale cap levels; recompiled on demand
+
+    def _submit_dyn(self, plan, qb: eng.ServeBatch):
+        """Static-lane dispatch for a possibly dynamic store: pin the view,
+        sanitize the host batch (delta-only ids never reach the card),
+        submit raw, and return ``(raw, view)`` — decode merges the SAME
+        view.  ``view`` is None for static stores and empty deltas."""
+        view = self.engine.dynamic_view()
+        return plan.submit(qb if view is None else view.sanitize_batch(qb)), view
 
     def submit_select_nowait(self, tenant: str, q: SelectQ) -> asyncio.Future:
         """Enqueue one :class:`~repro_torch.core.query.SelectQ`; the future
@@ -413,13 +572,19 @@ class ServeBroker:
     def _dispatch(self, reqs: list[_Req], tc0: float = 0.0, tc1: float = 0.0):
         td0 = time.perf_counter()
         qb = self._encode(reqs, self._pad_to)
-        raw = self.base_plan.submit(qb)
+        # the view is pinned AT dispatch and decode merges the same one:
+        # writes landing mid-flight wait for the next batch
+        try:
+            raw, view = self._submit_dyn(self.base_plan, qb)
+        except StaleEpoch:  # a compaction swapped under the base plan
+            self._refresh_base_plan()
+            raw, view = self._submit_dyn(self.base_plan, qb)
         meta = _BatchMeta(
             bid=self._bid, n_padded=int(qb.op.shape[0]),
             tc0=tc0 or td0, tc1=tc1 or td0, td0=td0, td1=time.perf_counter(),
         )
         self._bid += 1
-        self._inflight.append((raw, reqs, meta))
+        self._inflight.append((raw, reqs, meta, qb, view))
         self._c["batches"].inc()
         self._c["lanes"].inc(len(reqs))
         m = obs.STATE.metrics
@@ -440,14 +605,22 @@ class ServeBroker:
 
     # -- streamed decode + per-tenant growth ----------------------------
 
-    async def _deliver(self, raw, reqs: list[_Req], meta: _BatchMeta):
+    async def _deliver(self, raw, reqs: list[_Req], meta: _BatchMeta,
+                       qb: eng.ServeBatch, view):
         has_u = any(r.op in eng.UNBOUNDED_OPS for r in reqs)
         meta.tf0 = time.perf_counter()
-        # the blocking fetch runs off-loop so submitters keep filling the
-        # next batch while this one decodes
-        host = await asyncio.to_thread(
-            eng.host_result, raw, unbounded=has_u and self.unbounded
-        )
+
+        # the blocking fetch (and the delta merge of a dynamic store) runs
+        # off-loop so submitters keep filling the next batch meanwhile
+        def fetch():
+            host = eng.host_result(raw, unbounded=has_u and self.unbounded)
+            if view is not None:
+                # against the ORIGINAL lane constants: lanes masked off the
+                # card get their delta-only answers here
+                host = view.merge_lanes(*qb, host)
+            return host
+
+        host = await asyncio.to_thread(fetch)
         meta.tf1 = time.perf_counter()
         retry_tenants = {
             reqs[i].tenant for i in np.nonzero(host.overflow[: len(reqs)])[0]
@@ -577,10 +750,17 @@ class ServeBroker:
             self._retry_cfgs.add(cfg)
             with obs.span("broker.retry", cat="broker", tenant=tenant,
                           level=level, cap=cfg.cap, lanes=len(rs)):
+                qb = self._encode(rs, 0)
+                try:
+                    raw, view = self._submit_dyn(plan, qb)
+                except StaleEpoch:  # a compaction swapped mid-retry
+                    plan = self.engine.compile(self._query, cfg, admit=self._admit(st))
+                    raw, view = self._submit_dyn(plan, qb)
                 host = eng.host_result(
-                    plan.submit(self._encode(rs, 0)),
-                    unbounded=any(r.op in eng.UNBOUNDED_OPS for r in rs),
+                    raw, unbounded=any(r.op in eng.UNBOUNDED_OPS for r in rs),
                 )
+                if view is not None:
+                    host = view.merge_lanes(*qb, host)
             if not host.overflow[: len(rs)].any():
                 return [eng.decode_lane(r.op, host, i) for i, r in enumerate(rs)]
             level += 1
@@ -606,21 +786,30 @@ class ServeBroker:
 
     def reset_stats(self) -> None:
         """Zero every counter ``stats()`` reports (the benchmark warmup
-        boundary).  Budget state (``cap_level``, ``plans_charged``) stays."""
+        boundary).  Budget state (``cap_level``, ``plans_charged``,
+        ``writes_resident``) stays, and ``delta_triples`` / ``tombstones``
+        are live gauges of the store."""
         self.metrics.reset()
         self._queue_peak = 0
         for st in self._tenants.values():
             st.lat_s.clear()
             st.completed = st.failed = st.shed = 0
             st.cap_growth_events = st.admission_denials = 0
+            st.inserts = st.deletes = 0
 
     def stats(self) -> dict:
-        """Structured serving stats (JSON-ready), since ``reset_stats``."""
+        """Structured serving stats (JSON-ready), since ``reset_stats``;
+        ``delta_triples`` / ``tombstones`` are live store gauges (0 for a
+        static store)."""
         all_lat = [t for st in self._tenants.values() for t in st.lat_s]
         counts = {name: c.value for name, c in self._c.items()}
         batches = counts["batches"]
+        store = self.engine.store
+        d = store.delta if isinstance(store, dyn.DynamicStore) else None
         return {
             **counts,
+            "delta_triples": d.n_inserts if d is not None else 0,
+            "tombstones": d.n_tombstones if d is not None else 0,
             "coalesce_factor": counts["lanes"] / batches if batches else 0.0,
             "queue_depth": len(self._queue),
             "queue_peak": self._queue_peak,
@@ -636,6 +825,9 @@ class ServeBroker:
                     "cap_level": st.cap_level,
                     "plans_charged": st.plans_charged,
                     "cap_growth_events": st.cap_growth_events,
+                    "inserts": st.inserts,
+                    "deletes": st.deletes,
+                    "writes_resident": st.writes_resident,
                     "p50_ms": _ms(tail_percentile(st.lat_s, 50)),
                     "p99_ms": _ms(tail_percentile(st.lat_s, 99)),
                 }

@@ -268,6 +268,162 @@ def test_broker_selects_on_card_from_worker_threads(store, cuda):
         _same_answer(g, cpu.compile(q, ExecConfig(cap=64, device="cpu"))())
 
 
+# --- the dynamic store on the card -----------------------------------------
+
+_APPENDED_SCRIPT = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, "src")
+from repro_torch.core import delta, engine as eng, k2triples
+from repro_torch.core.query import ExecConfig, JoinQ, ServeQ, TriplePatternQ
+from repro_torch.data import rdf
+
+ds = rdf.generate(2500, n_subjects=150, n_preds=16, n_objects=150, seed=11)
+kw = dict(n_so=ds.n_so, n_subjects=ds.n_subjects, n_objects=ds.n_objects, n_preds=ds.n_preds)
+E, P = max(ds.n_subjects, ds.n_objects), ds.n_preds
+stores = [delta.DynamicStore(k2triples.from_id_triples(ds.ids, device=d, **kw))
+          for d in ("cuda", "cpu")]
+rng = np.random.default_rng(3)
+writes = [(int(rng.integers(1, E + 9)), int(rng.integers(1, P + 3)), int(rng.integers(1, E + 9)))
+          for _ in range(400)]
+writes += [(E + 1, P + 1, E + 2), (E + 2, P + 2, 3), (5, P + 1, E + 8)]
+for st in stores:
+    for t in writes:
+        st.insert(*t)
+    for t in ds.ids[::7][:100].tolist():
+        st.delete(*t)
+gpu, cpu = (eng.Engine(st, device=st.device) for st in stores)
+n = 512
+lanes = np.stack([rng.integers(-1, 6, n), rng.integers(-3, E + 12, n), rng.integers(-2, P + 5, n),
+                  rng.integers(-3, E + 12, n)]).astype(np.int32)
+for cap in (1, 8, 1024):
+    a = gpu.compile(ServeQ(), ExecConfig(cap=cap, device="cuda"))(eng.ServeBatch(*lanes))
+    b = cpu.compile(ServeQ(), ExecConfig(cap=cap, device="cpu"))(eng.ServeBatch(*lanes))
+    for f in eng.RESULT_FIELDS:
+        assert np.array_equal(np.asarray(getattr(a, f)), np.asarray(getattr(b, f))), f
+pairs = {"p": np.arange(0, P + 4)}
+q = TriplePatternQ("?s", 1, "?o")
+a = gpu.compile(q, ExecConfig(cap=4096, device="cuda"))(pairs)
+b = cpu.compile(q, ExecConfig(cap=4096, device="cpu"))(pairs)
+assert all(np.array_equal(x, y) for x, y in zip(a, b)) and len(a[P + 1]) > 0
+for q in (TriplePatternQ("?s", "?p", "?o"), TriplePatternQ(E + 1, None, None),
+          JoinQ("C", "s", "o", c1=E + 2, c2=3), JoinQ("F", "o", "s", c1=E + 1)):
+    a = gpu.compile(q, ExecConfig(cap=4096, device="cuda"))()
+    b = cpu.compile(q, ExecConfig(cap=4096, device="cpu"))()
+    assert repr(a) == repr(b), q
+torch.cuda.synchronize()
+print("ok")
+"""
+
+
+def test_appended_range_lanes_no_fault(cuda):
+    """Lanes whose ids lie past the static extents (appended entities and
+    predicates, negatives too) through every serve op at caps 1, 8 and
+    1024, the pair enumeration with delta-only predicates and the dump,
+    in a process with ``CUDA_LAUNCH_BLOCKING=1``: no fault, and every
+    merged answer equals the CPU engine's on the same dynamic state."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, CUDA_LAUNCH_BLOCKING="1")
+    r = subprocess.run([sys.executable, "-c", _APPENDED_SCRIPT], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr[-4000:]
+
+
+def _churned_pair(cuda, seed):
+    from repro_torch.core import delta
+
+    ds = rdf.generate(3000, n_subjects=160, n_preds=16, n_objects=160, seed=seed)
+    kw = dict(n_so=ds.n_so, n_subjects=ds.n_subjects, n_objects=ds.n_objects,
+              n_preds=ds.n_preds)
+    stores = [delta.DynamicStore(k2triples.from_id_triples(ds.ids, device=d, **kw))
+              for d in (cuda, "cpu")]
+    rng = np.random.default_rng(seed)
+    ext = max(ds.n_subjects, ds.n_objects)
+    dels = ds.ids[rng.permutation(ds.ids.shape[0])[:300]].tolist()
+    ins = [(int(rng.integers(1, ext + 5)), int(rng.integers(1, ds.n_preds + 2)),
+            int(rng.integers(1, ext + 5))) for _ in range(300)]
+    for st in stores:
+        for t in dels:
+            st.delete(*t)
+        for t in ins:
+            st.insert(*t)
+    return stores, ds
+
+
+def test_cuda_compaction_matches_cpu(cuda):
+    """``compact`` of a card store rebuilds on the card and gives the CPU
+    compaction's arenas, report and epoch."""
+    from repro_torch.core import compaction
+
+    (gpu, cpu), _ = _churned_pair(cuda, 21)
+    r_gpu, r_cpu = compaction.compact(gpu), compaction.compact(cpu)
+    assert gpu.static.device == cuda and cpu.static.device.type == "cpu"
+    fields = ("epoch", "n_triples", "delta_merged", "tombstones_applied")
+    assert [getattr(r_gpu, f) for f in fields] == [getattr(r_cpu, f) for f in fields]
+    assert "dump_device_ms" in r_gpu.split_ms
+    assert gpu.epoch == cpu.epoch == 1
+    a, b = gpu.static.forest.numpy(), cpu.static.forest.numpy()
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+    for layout in ("dac", "fixed"):
+        a = gpu.static.pred_index.select(layout)[0].numpy()
+        b = cpu.static.pred_index.select(layout)[0].numpy()
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def test_broker_compaction_from_worker_thread(cuda):
+    """Writes through the broker trip a compaction that rebuilds in a
+    worker thread on the engine's card while the serve loop keeps reading;
+    every read equals the CPU engine's on the same writes."""
+    import asyncio
+
+    from repro_torch.core import compaction
+    from repro_torch.launch.broker import CoalescePolicy, ServeBroker
+
+    (gpu_st, cpu_st), ds = _churned_pair(cuda, 22)
+    gpu, cpu = eng.Engine(gpu_st, device=cuda), eng.Engine(cpu_st, device="cpu")
+    rng = np.random.default_rng(5)
+    cpu_plan = cpu.compile(ServeQ(), ExecConfig(cap=256, device="cpu"))
+
+    async def main():
+        async with ServeBroker(gpu, ExecConfig(cap=256, device=str(cuda)),
+                               coalesce=CoalescePolicy(max_batch=64, max_delay_s=1e-3),
+                               compaction=compaction.CompactionPolicy(max_delta=700)) as b:
+            for rnd in range(12):
+                for t in ds.ids[rng.integers(0, ds.ids.shape[0], 20)].tolist():
+                    b.submit_insert_nowait("w", t[0], t[1] % 17 + 1, t[2])
+                    cpu_st.insert(t[0], t[1] % 17 + 1, t[2])
+                rows = ds.ids[rng.integers(0, ds.ids.shape[0], 64)]
+                lanes = np.stack([rng.integers(0, 6, 64), rows[:, 0], rows[:, 1], rows[:, 2]]
+                                 ).astype(np.int32)
+                lanes[2][lanes[0] >= 3] = 0
+                got = await asyncio.gather(*(b.submit_nowait("r", *map(int, lanes[:, i]))
+                                             for i in range(64)))
+                want = eng.host_result(cpu_plan(eng.ServeBatch(*lanes)))
+                for i, g in enumerate(got):
+                    w = eng.decode_lane(int(lanes[0, i]), want, i)
+                    assert repr(_plain(g)) == repr(_plain(w)), (rnd, i)
+            await b._compaction_task
+            return b.stats()
+
+    st = asyncio.run(main())
+    assert st["compactions"] == 1 and st["compaction_errors"] == 0
+    assert gpu_st.epoch == 1 and gpu_st.static.device == cuda
+
+
+def _plain(a):
+    if isinstance(a, dict):
+        return {int(k): np.asarray(v).tolist() for k, v in a.items()}
+    if isinstance(a, (bool, np.bool_)):
+        return bool(a)
+    return np.asarray(a).tolist()
+
+
 def _same_answer(a, b):
     if isinstance(b, dict):
         assert list(a) == list(b)

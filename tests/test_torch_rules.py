@@ -45,7 +45,8 @@ def test_no_jax_imports(path):
 
 def test_entry_points_default_to_cuda():
     assert ExecConfig().device == "cuda"
-    for fn in (eng.Engine.__init__, k2triples.from_id_triples, serve.run_bench):
+    for fn in (eng.Engine.__init__, k2triples.from_id_triples,
+               k2triples.from_string_triples, serve.run_bench):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert serve.parse_args([]).device == "cuda"
 
@@ -58,6 +59,8 @@ def test_cuda_without_card_raises(monkeypatch):
     kw = dict(n_so=0, n_subjects=2, n_objects=2, n_preds=1)
     with pytest.raises(RuntimeError):
         k2triples.from_id_triples(ids, **kw)
+    with pytest.raises(RuntimeError):
+        k2triples.from_string_triples([("a", "p", "b")])
     st = k2triples.from_id_triples(ids, device="cpu", **kw)
     with pytest.raises(RuntimeError):
         eng.Engine(st)
