@@ -119,14 +119,47 @@ Phases (any failure exits non-zero before the result line):
    serve lanes, decode) against a Python evaluation over the strings, then
    ``insert_strings`` of unseen terms and ``delete_strings`` read back
    before and after a ``compact``, whose ids must not move.
+9. predicate-sharded serving, quantile-sized lanes and the functional
+   API on phase 4's store (no rebuild), every kernel call recorded and a
+   sample of each kernel's calls (the first 4, then every 16th) held
+   against its plain version:
+   9a. ``Engine.compile(ServeQ(), ExecConfig(mesh=...))`` on meshes that
+   repeat the card, (1, 4), (2, 4) and (1, 8) (20 trees padded to 24):
+   two 256-lane serve-mix batches each (all six ops, unbounded lanes
+   through the DAC index, one (2, 4) batch through the fixed layout)
+   equal the unsharded plan field by field, with
+   sampled lanes against the oracle; the six serve-lane patterns of phase
+   5b (256 constants each) on the (2, 4) mesh equal the unsharded plans;
+   ``make_sharded_unbounded_scan`` on 64 keys over the (1, 8) mesh equals
+   the unsharded all-preds sweep; pairs, dump, joins D-F, BGP and SELECT
+   refuse a mesh and ``run_bench(sharded=True)`` refuses one card; then
+   the broker serves phase 5's trace unsharded, twice on the (1, 4) mesh,
+   and unsharded again, every answer against the oracle, with qps,
+   p50/p99, launches a batch, ``cost_profile`` device ms of one 256-lane
+   batch, the shards' devices and bytes and the device memory peak; one
+   profiled sharded run gives the idle share and one untimed sharded run
+   is recorded;
+   9b. (S,?P,?O) and (?S,?P,O) on 256 real constants each at
+   ``u_width_quantile`` 0.5 and 1.0, single-device and on the (1, 4) mesh,
+   every answer against the oracle, with both widths, the share of lanes
+   routed to the sweep and the median ms of a call; then the same shapes
+   at 0.5, 0.9, 0.99 and 1.0 on a 1 M dbpedia-en-shaped store with hub
+   entities that touch every predicate (single-device);
+   9c. every ``patterns`` function (with and without the index),
+   ``row_scan_all_preds`` and ``range_scan`` on 8 real constants, the
+   dump, and ``join_a`` / ``join_b`` / ``join_c`` on 8 queries each,
+   against the oracle and the matching plan.
    Then the ``{"kernels": [...]}`` line (``launches_by_path`` gains
-   ``dynamic``, phase 8's launches), the card's name and power limit, and
-   the final ``{"ok": true, ...}`` line.
+   ``dynamic``, phase 8's launches, ``sharded``, those of 9a's and 9b's
+   mesh runs, and
+   ``functional``, those of 9c), the card's name and power limit, and the
+   final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -290,11 +323,15 @@ class Recorder:
     Also records every (A ids, B row ids, kept ids) that
     ``sortedset.intersect`` computes, one entry per row of B's batch."""
 
-    def __init__(self):
+    def __init__(self, every: int = 1):
         from repro_torch.core import sortedset
         from repro_torch.kernels import ops
 
         self.ops, self.sortedset = ops, sortedset
+        # with every > 1 only a sample is kept and checked: each kernel's
+        # first 4 calls and every ``every``-th after
+        self.every = every
+        self.seen = dict.fromkeys(QUERY_KERNELS, 0)
         self.calls: dict[str, list] = {k: [] for k in QUERY_KERNELS}
         self.err: dict[str, int] = dict.fromkeys(QUERY_KERNELS, 0)
         self.orig = {k: getattr(ops, k) for k in QUERY_KERNELS}
@@ -323,6 +360,10 @@ class Recorder:
 
             def wrapped(*args, **kw):
                 out = orig(*args, **kw)
+                n = self.seen[name]
+                self.seen[name] += 1
+                if n >= 4 and n % self.every:
+                    return out
                 self.calls[name].append((args, kw, out))
                 return self.check(name, args, kw, out)
 
@@ -2192,6 +2233,488 @@ def dynamic_phase(store, ds, oracle, device, n_tenants: int, args) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: sharded serving, quantile-sized lanes and the functional API
+# ---------------------------------------------------------------------------
+
+MESHES = ((1, 4), (2, 4), (1, 8))  # of the one card, repeated; (1, 8) pads 20 -> 24
+
+
+class Tally:
+    """The kernel launches of the calls made inside ``with tally:`` (or
+    through ``tally(fn, ...)``), so that a path's count leaves out the
+    unsharded runs it is compared with."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(KERNELS, 0)
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.before = dict(ops.LAUNCHES)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        for k in self.counts:
+            self.counts[k] += ops.LAUNCHES[k] - self.before[k]
+
+    def __call__(self, fn, *args, **kw):
+        with self:
+            return fn(*args, **kw)
+
+
+def same_result(got, want, where: str) -> None:
+    """Two ``ServeResult``s equal field by field (values, dtypes, shapes)."""
+    from repro_torch.core import engine as eng
+
+    for name in eng.RESULT_FIELDS:
+        g, w = getattr(got, name), getattr(want, name)
+        if g.dtype != w.dtype or g.shape != w.shape or not (g == w).all():
+            fail(f"{where}: field {name} differs from the unsharded plan")
+
+
+def check_decoded(ops_, lanes, host, oracle, idx, where: str) -> None:
+    from repro_torch.core import engine as eng
+
+    for i in idx:
+        args = [int(v) for v in lanes[1:, i]]
+        if not same_answer(eng.decode_lane(int(ops_[i]), host, i), oracle.answer(int(ops_[i]), *args)):
+            fail(f"{where}: lane {i} {int(ops_[i])} {args} disagrees with the oracle")
+
+
+def sharded_9a(engine, ds, oracle, trace, work, device, tally, seed: int) -> dict:
+    """Sharded serve plans on three meshes of the card against the
+    unsharded plan and the oracle, the six serve-lane patterns on (2, 4),
+    the sharded all-preds sweep, the refusals.  -> the meshes by shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine as eng
+    from repro_torch.core.query import (
+        BgpQ, ExecConfig, JoinQ, SelectQ, ServeQ, TriplePatternQ,
+    )
+    from repro_torch.launch import mesh as meshlib, serve
+
+    rng = np.random.default_rng(seed)
+    base = ExecConfig(cap=1024, device=str(device))
+    meshes = {shape: meshlib.make_mesh(shape, ("data", "model"), [device] * (shape[0] * shape[1]))
+              for shape in MESHES}
+    lanes_all = np.array([row[1:] for row in trace], np.int32).T
+    n_checked = 0
+    for k, (shape, mesh) in enumerate(meshes.items()):
+        for b in range(2):
+            # the second batch on (2, 4) reads the fixed-layout index
+            cfg = base.replace(pred_index_layout="fixed" if (shape, b) == ((2, 4), 1) else "dac")
+            plain = engine.compile(ServeQ(), cfg)
+            plan = engine.compile(ServeQ(), cfg.replace(mesh=mesh))
+            lo = (2 * k + b) * 256
+            lanes = lanes_all[:, lo:lo + 256]
+            if set(lanes[0]) != set(range(6)):
+                fail(f"9a: batch {lo} covers ops {sorted(set(lanes[0]))}, not all six")
+            qb = eng.ServeBatch(*lanes)
+            got, want = eng.host_result(tally(plan, qb)), eng.host_result(plain(qb))
+            same_result(got, want, f"9a mesh {shape} batch {lo}")
+            idx = rng.choice(256, 512 // (2 * len(meshes)) + 1, replace=False)
+            check_decoded(lanes[0], lanes, got, oracle, idx, f"9a mesh {shape}")
+            n_checked += len(idx)
+    print(f"9a: ServeQ on meshes {list(meshes)} of {device}: 6 batches of 256 lanes (all six "
+          f"ops, unbounded through the DAC index, one batch through the fixed layout) equal "
+          f"the unsharded plan field by field; "
+          f"{n_checked} sampled lanes match the oracle", flush=True)
+
+    mesh24 = meshes[(2, 4)]
+    n_pat = 0
+    for label, q, cfg, batch in work:
+        if not label.startswith("pattern (") or label.split()[-1] != "dac" or batch is None:
+            continue
+        got = tally(engine.compile(q, cfg.replace(device=str(device), mesh=mesh24)), batch)
+        want = engine.compile(q, cfg.replace(device=str(device)))(batch)
+        if not all(same_answer(g, w) for g, w in zip(got, want)) or len(got) != len(want):
+            fail(f"9a: {label} on the (2, 4) mesh disagrees with the unsharded plan")
+        n_pat += 1
+    if n_pat != 6:
+        fail(f"9a: {n_pat} serve-lane pattern shapes ran on the mesh, not 6")
+    print("9a: the six serve-lane TriplePatternQ shapes (256 constants each) on the (2, 4) "
+          "mesh equal the unsharded plans", flush=True)
+
+    mesh18 = meshes[(1, 8)]
+    st = engine.store
+    shards = eng.shard_forest(eng.pad_preds(st.forest, 8), mesh18)
+    rows = ds.ids[rng.integers(0, ds.n_triples, 64)]
+    axes = (np.arange(64) % 2).astype(np.int32)
+    keys = np.where(axes == 1, rows[:, 2], rows[:, 0]).astype(np.int32)
+    cap = 1024
+    ids_u, valid_u, count_u = tally(eng.make_sharded_unbounded_scan(st.meta, mesh18, cap),
+                                    shards, keys, axes)
+    P = st.n_preds
+    kt = torch.as_tensor(keys, device=device)
+    at = torch.as_tensor(axes, device=device)
+    r = eng.k2forest.scan_batch_mixed(
+        st.meta, st.forest, torch.arange(P, dtype=torch.int32, device=device).repeat(64),
+        torch.repeat_interleave(kt - 1, P), torch.repeat_interleave(at, P), cap)
+    want_ids = torch.where(r.valid, r.ids + 1, 0).reshape(64, P, cap)
+    if (ids_u.shape != (64, -(-P // 8) * 8, cap) or not torch.equal(ids_u[:, :P], want_ids)
+            or not torch.equal(valid_u[:, :P], r.valid.reshape(64, P, cap))
+            or not torch.equal(count_u[:, :P], r.count.reshape(64, P))
+            or valid_u[:, P:].any() or count_u[:, P:].any()):
+        fail("9a: make_sharded_unbounded_scan disagrees with the unsharded all-preds sweep")
+    print(f"9a: make_sharded_unbounded_scan on 64 keys over the (1, 8) mesh ({P} trees padded "
+          f"to {ids_u.shape[1]}) equals the unsharded all-preds sweep", flush=True)
+
+    refused = 0
+    cfg = base.replace(mesh=meshes[(1, 4)])
+    for q in (TriplePatternQ("?s", 1, "?o"), TriplePatternQ("?s", "?p", "?o"),
+              JoinQ("D", "s", "o", p1=1, c1=1, p2=1), JoinQ("E", "s", "o", p1=1, c1=1),
+              JoinQ("F", "s", "o", c1=1), BgpQ((TriplePatternQ(1, "?p", "?o"),)),
+              SelectQ(where=(TriplePatternQ(1, 2, "?o"),))):
+        try:
+            engine.compile(q, cfg)
+        except ValueError:
+            refused += 1
+    if refused != 7:
+        fail(f"9a: {7 - refused} of the 7 mesh refusals did not raise")
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        try:
+            serve.run_bench(sharded=True, n_triples=1000, n_queries=8, quiet=True)
+            fail("9a: run_bench(sharded=True) served on one card")
+        except ValueError:
+            bench = "run_bench(sharded=True) refuses one card"
+    else:
+        bench = f"run_bench(sharded=True) not tried: {n_cards} cards can serve it"
+    print(f"9a: pairs, dump, joins D-F, BGP and SELECT refuse a mesh; {bench}", flush=True)
+    return meshes
+
+
+def sharded_broker_9a(engine, trace, oracle, meshes, device, tally, rec, n_tenants, cap,
+                      max_batch) -> dict:
+    """The broker over the (1, 4) mesh beside the unsharded broker, on
+    phase 5's trace: every answer against the oracle, qps, p50/p99,
+    launches and device ms a batch, the shards and the memory peak; a
+    sharded run under ``torch.profiler`` (CUDA activity only) gives the
+    device's idle share, and an untimed one under ``rec`` holds its
+    kernel calls against their plain versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine as eng
+    from repro_torch.core.query import ServeQ
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    mesh = meshes[(1, 4)]
+    out = {}
+    profiled = {}
+
+    @contextlib.contextmanager
+    def cuda_profile():
+        before = dict(ops.LAUNCHES)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            yield
+        profiled.update(prof=prof, launches=sum(ops.LAUNCHES[k] - before[k] for k in before))
+
+    for label, m in (("unsharded", None), ("sharded (1, 4)", mesh), ("sharded (1, 4) again", mesh),
+                     ("unsharded again", None), ("sharded (1, 4) profiled", mesh),
+                     ("sharded (1, 4) recorded", mesh)):
+        torch.cuda.reset_peak_memory_stats(device)
+        before = dict(ops.LAUNCHES)
+        with contextlib.ExitStack() as held:
+            if m is not None:
+                held.enter_context(tally)
+            if label.endswith("recorded"):
+                held.enter_context(rec)
+            stats, answers, wall, _ = serve.serve_trace(
+                engine, trace, n_tenants=n_tenants, cap=cap, max_batch=max_batch,
+                deadline_ms=2.0, warmup=64, mesh=m,
+                window=cuda_profile if label.endswith("profiled") else None)
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in ops.LAUNCHES.items()}
+        bad = [i for i, a in enumerate(answers) if a is None or not same_answer(a, oracle.answer(*trace[i][1:]))]
+        if bad:
+            fail(f"9a broker {label}: {len(bad)} of {len(trace)} answers disagree with the oracle")
+        if label.endswith("recorded"):  # checked, not timed
+            continue
+        batches = stats["batches"]
+        out[label] = dict(qps=len(trace) / wall, p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"],
+                          batches=batches,
+                          launches_a_batch=sum(launches.values()) / max(batches, 1),
+                          peak_bytes=torch.cuda.max_memory_allocated(device))
+    busy = device_busy(profiled["prof"])
+    if busy["kernels"] < profiled["launches"]:
+        fail(f"9a: the profiler saw {busy['kernels']} kernels, fewer than the "
+             f"{profiled['launches']} launches of the port's kernels")
+    untraced = (out["sharded (1, 4)"]["qps"] + out["sharded (1, 4) again"]["qps"]) / 2
+    out["sharded (1, 4) profiled"].update(
+        busy, device_idle_share=1.0 - busy["busy_ms"] * out["sharded (1, 4) profiled"]["qps"]
+        / (1e3 * len(trace)),
+        idle_share_of_untraced_wall=1.0 - busy["busy_ms"] * untraced / (1e3 * len(trace)))
+    lanes = np.array([row[1:] for row in trace[:max_batch]], np.int32).T
+    for label, m in (("unsharded", None), ("sharded (1, 4)", mesh)):
+        cfg = engine.default_config.replace(cap=cap, mesh=m)
+        prof = engine.compile(ServeQ(), cfg).cost_profile(eng.ServeBatch(*lanes))
+        out[label].update(device_ms_a_batch=prof.get("device_ms", prof.get("device_ms_error")),
+                          launches_a_batch_profile=sum(prof["launches"].values()),
+                          geometry=prof["geometry"])
+    shards = engine._shards(engine._static(), engine.default_config.replace(mesh=mesh))
+    views = sorted({(str(f.t_words.device), f.t_words.data_ptr()) for f in shards})
+    out["shards"] = dict(
+        devices=sorted({str(f.t_words.device) for f in shards}), count=len(shards),
+        trees_each=shards[0].n_preds,
+        bytes_each=[sum(getattr(f, n).nbytes for n in ("t_words", "t_rank", "l_words",
+                                                         "ones_before", "level_start", "nnz"))
+                    for f in shards],
+        distinct_arenas=len(views))
+    print(f"9a broker over phase 5's {len(trace)}-query trace, every answer equal to the "
+          f"oracle: {json.dumps(out)}", flush=True)
+    return out
+
+
+def quantile_9b(engine, ds, oracle, meshes, device, tally, seed: int) -> dict:
+    """(S,?P,?O) and (?S,?P,O) on 256 real constants each at quantile 0.5
+    and 1.0, single-device and on the (1, 4) mesh, every answer against
+    the oracle; widths, the share routed to the sweep, ms a call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import predindex
+    from repro_torch.core.query import ExecConfig, TriplePatternQ
+
+    rng = np.random.default_rng(seed)
+    bi = engine.store.pred_index
+    base = ExecConfig(cap=1024, device=str(device))
+    out = {}
+    for name, q, key, op in (("(S,?P,?O)", TriplePatternQ(1, "?p", "?o"), "s", 3),
+                             ("(?S,?P,O)", TriplePatternQ("?s", "?p", 1), "o", 4)):
+        col = 0 if key == "s" else 2
+        consts = ds.ids[rng.integers(0, ds.n_triples, 256), col]
+        rows = consts - 1 if key == "s" else bi.meta.n_subjects + consts - 1
+        for qq in (0.5, 1.0):
+            cfg = base.replace(u_width_quantile=qq)
+            width = engine._u_width(cfg)
+            share = float((predindex.host_degrees(bi, rows) > width).mean())
+            for where, m in (("single", None), ("mesh (1, 4)", meshes[(1, 4)])):
+                plan = engine.compile(q, cfg.replace(mesh=m))
+                # the single-device runs stay out of the sharded path's count
+                got = tally(plan, {key: consts}) if m is not None else plan({key: consts})
+                for i, c in enumerate(consts):
+                    args = (int(c), 0, 0) if key == "s" else (0, 0, int(c))
+                    if not same_answer(got[i], oracle.answer(op, *args)):
+                        fail(f"9b: {name} at quantile {qq} {where}, constant {c}, disagrees")
+                secs = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    plan({key: consts})
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                out[f"{name} q={qq} {where}"] = dict(
+                    u_width=width, share_to_sweep=share, ms_a_call=1e3 * float(np.median(secs)))
+    print(f"9b: every answer equals the oracle; {json.dumps(out)}", flush=True)
+    return out
+
+
+HUB_TRIPLES, HUB_COUNT = 1_000_000, 64  # dbpedia-en's Table 1 ratios (173 preds at 1 M)
+
+
+def hub_cell_9b(device, seed: int) -> dict:
+    """The other side of the width choice: a dbpedia-en-shaped store of
+    1 M triples with 64 subject and 64 object hubs that touch every
+    predicate (``rdf.with_hubs``), so ``max_degree`` is P while the other
+    lists stay short.  (S,?P,?O) and (?S,?P,O) on 256 real constants each
+    at quantile 0.5, 0.9, 0.99 and 1.0, single-device, every answer
+    against the oracle; widths, the share routed to the sweep, ms a call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine as eng, k2triples, predindex
+    from repro_torch.core.query import ExecConfig, TriplePatternQ
+    from repro_torch.data import rdf
+
+    t0 = time.perf_counter()
+    ds = rdf.with_hubs(rdf.generate_like("dbpedia-en", HUB_TRIPLES, seed=seed), HUB_COUNT,
+                       seed=seed)
+    store = k2triples.from_id_triples(
+        ds.ids, n_so=ds.n_so, n_subjects=ds.n_subjects, n_objects=ds.n_objects,
+        n_preds=ds.n_preds, device=device,
+    )
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine, oracle, bi = eng.Engine(store, device=device), Oracle(ds.ids), store.pred_index
+    rng = np.random.default_rng(seed)
+    base = ExecConfig(cap=1024, device=str(device))
+    out = dict(store=dict(triples=store.n_triples, preds=store.n_preds,
+                          max_degree=bi.meta.max_degree, built_s=build_s))
+    for name, q, key, op in (("(S,?P,?O)", TriplePatternQ(1, "?p", "?o"), "s", 3),
+                             ("(?S,?P,O)", TriplePatternQ("?s", "?p", 1), "o", 4)):
+        col = 0 if key == "s" else 2
+        consts = ds.ids[rng.integers(0, ds.n_triples, 256), col]
+        rows = consts - 1 if key == "s" else bi.meta.n_subjects + consts - 1
+        for qq in (0.5, 0.9, 0.99, 1.0):
+            cfg = base.replace(u_width_quantile=qq)
+            width = engine._u_width(cfg)
+            plan = engine.compile(q, cfg)
+            got = plan({key: consts})
+            for i, c in enumerate(consts):
+                args = (int(c), 0, 0) if key == "s" else (0, 0, int(c))
+                if not same_answer(got[i], oracle.answer(op, *args)):
+                    fail(f"9b hubs: {name} at quantile {qq}, constant {c}, disagrees")
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                plan({key: consts})
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            out[f"{name} q={qq}"] = dict(
+                u_width=width,
+                share_to_sweep=float((predindex.host_degrees(bi, rows) > width).mean()),
+                ms_a_call=1e3 * float(np.median(secs)))
+    print(f"9b hubs: every answer equals the oracle; {json.dumps(out)}", flush=True)
+    return out
+
+
+def functional_9c(engine, ds, oracle, work, device, T, seed: int) -> None:
+    """Each ``patterns`` function, ``join_a/b/c``, ``row_scan_all_preds``
+    and ``range_scan`` on 8 real constants against the oracle and the
+    matching plan."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import joins, k2forest, patterns
+    from repro_torch.core.query import ExecConfig, TriplePatternQ
+
+    st = engine.store
+    m, f = st.meta, st.forest
+    index, pmeta = st.pred_index.select("dac")
+    cap = 1024
+    cfg = ExecConfig(cap=cap, device=str(device))
+    rows = ds.ids[np.random.default_rng(seed).integers(0, ds.n_triples, 8)]
+
+    def ids_of(r):
+        if bool(torch.as_tensor(r.overflow).any()):
+            fail("9c: a functional call overflowed cap 1024")
+        return r.ids[r.valid].cpu().numpy()
+
+    def plan(s, p, o):
+        q = TriplePatternQ(*(v if v else f"?{k}" for k, v in zip("spo", (s, p, o))))
+        return engine.compile(q, cfg)()
+
+    def check(label, got, want, planned):
+        if not (same_answer(got, want) and same_answer(got, planned)):
+            fail(f"9c: {label} disagrees with the oracle or its plan")
+
+    for s, p, o in (tuple(int(v) for v in row) for row in rows):
+        check("spo", bool(T(patterns.spo, m, f, s, p, o)), oracle.answer(0, s, p, o), plan(s, p, o))
+        hits = T(patterns.s_any_o, m, f, s, o).cpu().numpy()
+        check("s_any_o", np.nonzero(hits)[0] + 1, oracle.answer(5, s, 0, o), plan(s, 0, o))
+        check("s_any_o index", ids_of(T(patterns.s_any_o, m, f, s, o, index=index, pmeta=pmeta)),
+              oracle.answer(5, s, 0, o), plan(s, 0, o))
+        check("sp_any", ids_of(T(patterns.sp_any, m, f, s, p, cap)), oracle.answer(1, s, p, 0),
+              plan(s, p, 0))
+        check("any_po", ids_of(T(patterns.any_po, m, f, p, o, cap)), oracle.answer(2, 0, p, o),
+              plan(0, p, o))
+        for fn, op, key, args in ((patterns.s_any_any, 3, s, (s, 0, 0)),
+                                  (patterns.any_any_o, 4, o, (0, 0, o))):
+            r = T(fn, m, f, key, cap)
+            per = {pi + 1: ids_of(type(r)(*(a[pi] for a in r))) for pi in range(st.n_preds)}
+            check(fn.__name__, {k: v for k, v in per.items() if v.size},
+                  oracle.answer(op, *args), plan(*args))
+            r = T(fn, m, f, key, cap, index=index, pmeta=pmeta)
+            if bool(r.truncated) or bool(r.overflow.any()):
+                fail(f"9c: {fn.__name__} through the index overflowed")
+            per = {int(r.preds[i]): r.ids[i][r.valid[i]].cpu().numpy()
+                   for i in range(r.preds.shape[0]) if r.pvalid[i] and r.valid[i].any()}
+            check(f"{fn.__name__} index", per, oracle.answer(op, *args), plan(*args))
+        r = T(k2forest.row_scan_all_preds, m, f, s - 1, cap)
+        per = {pi + 1: ids_of(type(r)(*(a[pi] for a in r))) + 1 for pi in range(st.n_preds)}
+        check("row_scan_all_preds", {k: v for k, v in per.items() if v.size != 0},
+              oracle.answer(3, s, 0, 0), plan(s, 0, 0))
+        for r, label in ((T(k2forest.range_scan, m, f, p - 1, PAIR_CAP), "range_scan"),
+                         (T(patterns.any_p_any, m, f, p, PAIR_CAP), "any_p_any")):
+            pairs = torch.stack([r.rows[r.valid], r.cols[r.valid]], 1).cpu().numpy()
+            pairs = pairs + (1 if label == "range_scan" else 0)
+            if not same_pairs(pairs, oracle.pairs(p)) or bool(r.overflow):
+                fail(f"9c: {label} of predicate {p} disagrees with the oracle")
+    s, p, o = (rows[:, i].astype(np.int32) for i in range(3))
+    if not np.array_equal(T(patterns.spo_batch, m, f, s, p, o).cpu().numpy(),
+                          np.array([oracle.answer(0, *t) for t in rows.tolist()])):
+        fail("9c: spo_batch disagrees with the oracle")
+    for fn, op, args in ((patterns.sp_any_batch, 1, (s, p)), (patterns.any_po_batch, 2, (p, o))):
+        r = T(fn, m, f, *args, cap)
+        for i, t in enumerate(rows.tolist()):
+            want = oracle.answer(op, t[0], t[1], 0) if op == 1 else oracle.answer(op, 0, t[1], t[2])
+            if not same_answer(r.ids[i][r.valid[i]].cpu().numpy(), want):
+                fail(f"9c: {fn.__name__} lane {i} disagrees with the oracle")
+    d = T(patterns.dump, m, f, PAIR_CAP)
+    total = int(d.valid.sum())
+    if total != ds.n_triples:
+        fail(f"9c: the dump holds {total} triples, not {ds.n_triples}")
+    n_join = 0
+    for label, q, jcfg, _ in work:
+        if not label.startswith("join") or q.category not in "ABC" or n_join >= 24:
+            continue
+        kw = dict(cap=jcfg.cap)
+        if q.category == "A":
+            r = T(joins.join_a, m, f, q.p1, q.c1, q.vpos1, q.p2, q.c2, q.vpos2, **kw)
+            got = r.ids[r.valid].cpu().numpy()
+        elif q.category == "B":
+            r = T(joins.join_b, m, f, q.p1, q.c1, q.vpos1, q.c2, q.vpos2, **kw)
+            got = {int(r.preds[i]): r.ids[i][r.valid[i]].cpu().numpy()
+                   for i in range(r.preds.shape[0]) if r.valid[i].any()}
+        else:
+            r = T(joins.join_c, m, f, q.c1, q.vpos1, q.c2, q.vpos2, **kw)
+            got = r.ids[r.valid].cpu().numpy()
+        if bool(torch.as_tensor(r.overflow).any()):
+            fail(f"9c: {label} overflowed cap {jcfg.cap}")
+        check(label, got, oracle.join(q), engine.compile(q, jcfg.replace(device=str(device)))())
+        n_join += 1
+    print(f"9c: every patterns function, row_scan_all_preds, range_scan ({len(rows)} constants), "
+          f"the dump ({total} triples) and {n_join} joins A-C (join_a/b/c) equal the oracle and "
+          f"their plans", flush=True)
+
+
+def sharded_phase(engine, ds, oracle, trace, work, device, n_tenants, cap, max_batch,
+                  seed: int) -> dict:
+    """Phase 9; -> the launches of the sharded and quantile runs (9a, 9b)
+    and of the functional calls (9c), the kernel checks and the numbers."""
+    import torch
+
+    phase("9a. sharded serving over meshes of the card")
+    t0 = time.perf_counter()
+    rec = Recorder(every=16)
+    sharded, functional = Tally(), Tally()
+    with rec:
+        meshes = sharded_9a(engine, ds, oracle, trace, work, device, sharded, seed)
+    broker = sharded_broker_9a(engine, trace, oracle, meshes, device, sharded, rec, n_tenants,
+                               cap, max_batch)
+    phase("9b. quantile-sized unbounded lanes")
+    with rec:
+        quant = quantile_9b(engine, ds, oracle, meshes, device, sharded, seed + 1)
+        quant["hubs"] = hub_cell_9b(device, seed + 3)
+    torch.cuda.synchronize()
+    print(f"9a-9b done in {time.perf_counter() - t0:.1f}s; launches {sharded.counts}", flush=True)
+
+    phase("9c. the functional pattern/join API")
+    t0 = time.perf_counter()
+    with rec:
+        functional_9c(engine, ds, oracle, work, device, functional, seed + 2)
+    torch.cuda.synchronize()
+    held = {k: len(v) for k, v in rec.calls.items()}
+    print(f"9c done in {time.perf_counter() - t0:.1f}s; launches {functional.counts}; kernel "
+          f"calls of phase 9 {rec.seen}, held against their plain versions {held}, "
+          f"max_abs_err {rec.err}", flush=True)
+    if any(rec.err.values()):
+        fail(f"kernels disagree with their plain versions in phase 9: {rec.err}")
+    for k in ("k2_scan", "k2_check", "pred_gather_dac", "pred_gather"):
+        if not sharded.counts[k]:
+            fail(f"{k} never launched on the sharded path: {sharded.counts}")
+    for k in ("k2_scan", "k2_check", "pred_gather_dac", "k2_range"):
+        if not functional.counts[k]:
+            fail(f"{k} never launched on the functional path: {functional.counts}")
+    return dict(sharded=sharded.counts, functional=functional.counts, err=rec.err,
+                broker=broker, quantile=quant)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2432,6 +2955,15 @@ def main(argv=None) -> int:
                                        dynamic=dyn_launches["launches"][name])
         row["launches"] += dyn_launches["launches"][name]
         row["max_abs_err"] = max(row["max_abs_err"], dyn_launches["err"].get(name, 0))
+
+    shard = sharded_phase(engine, ds, oracle, trace, work, device, n_tenants, cap, max_batch,
+                          args.seed + 9)
+    for row in rows:
+        name = row["name"]
+        row["launches_by_path"].update(sharded=shard["sharded"][name],
+                                       functional=shard["functional"][name])
+        row["launches"] += shard["sharded"][name] + shard["functional"][name]
+        row["max_abs_err"] = max(row["max_abs_err"], shard["err"].get(name, 0))
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,18 @@ rest is elementwise torch.  Nothing on ``Plan.submit`` synchronises with
 the device: the batch is uploaded from pinned memory without blocking, and
 the fetch (:func:`host_result`) waits on an event recorded at dispatch.
 
+Quantile-sized lanes (``ExecConfig.u_width_quantile`` below 1): pattern
+plans size the unbounded lane at a quantile of the entity degrees and
+send the entities whose list is longer (read off the host CSR) to the
+single-device all-preds sweep; raw ``ServeQ`` plans refuse it.
+
+Distribution (the paper's vertical partitioning over a device mesh,
+``ExecConfig.mesh``): the forest is split by predicate over the model
+axis and a batch over the data axes; one process launches every shard's
+step on its device and sums the masked partials on the mesh's lead device
+(:func:`make_sharded_serve_step`).  Only serve-lane shapes are sharded:
+pair enumeration, the dump, joins D–F and BGP/SELECT plans refuse a mesh.
+
 Dynamic stores (``core.delta.DynamicStore``): every dispatch pins a
 ``DynView`` (static epoch + delta snapshot), masks the lanes whose
 constants lie past the static extents to dead on the host before the
@@ -75,6 +87,7 @@ from repro_torch.core.query import (
 )
 from repro_torch.obs import cost as obs_cost
 from repro_torch.core.sortedset import SENTINEL, IdSet
+from repro_torch.launch.mesh import MODEL_AXIS
 
 # serve IR ops
 OP_CHECK = 0
@@ -336,6 +349,239 @@ def make_serve_step(
     return serve_step
 
 
+# ---------------------------------------------------------------------------
+# sharded serving: the forest split by predicate over a device mesh
+# ---------------------------------------------------------------------------
+
+
+def pad_preds(f: K2Forest, multiple: int) -> K2Forest:
+    """Pad the predicate axis to a multiple of ``multiple`` with all-zero
+    trees, which are valid empty trees: lanes routed to them answer
+    nothing."""
+    pad = (-f.n_preds) % multiple
+    if pad == 0:
+        return f
+    return K2Forest(*(
+        torch.cat([a, a.new_zeros((pad, *a.shape[1:]))])
+        for a in (getattr(f, fld.name) for fld in dataclasses.fields(K2Forest))
+    ))
+
+
+def shard_forest(f: K2Forest, mesh) -> tuple[K2Forest, ...]:
+    """The forest shard of every mesh position (``mesh.devices`` order):
+    model shard ``j`` holds trees ``j·P/mp .. (j+1)·P/mp - 1``, local ids
+    from 0.  On ``f``'s device a shard is a row view of the arena, with no
+    copy; on another device one copy a (device, shard) is shared by the
+    positions that name it.  ``f.n_preds`` must divide by the ``model``
+    axis size (:func:`pad_preds`)."""
+    mp = mesh.shape[MODEL_AXIS]
+    if f.n_preds % mp:
+        raise ValueError(f"{f.n_preds} trees do not split over {mp} shards; pad_preds first")
+    p_loc = f.n_preds // mp
+    arrays = [getattr(f, fld.name) for fld in dataclasses.fields(K2Forest)]
+    views = [K2Forest(*(a[j * p_loc:(j + 1) * p_loc] for a in arrays)) for j in range(mp)]
+    out: list = [None] * len(mesh.devices)
+    copies: dict = {}
+    coords = {pos: j for row in mesh.grid() for j, pos in enumerate(row)}
+    for pos, j in coords.items():
+        dev = mesh.devices[pos]
+        if dev == f.device:
+            out[pos] = views[j]
+        else:
+            if (dev, j) not in copies:
+                copies[dev, j] = views[j].to(dev)
+            out[pos] = copies[dev, j]
+    return tuple(out)
+
+
+def replicate_index(index: PredIndex, mesh) -> dict:
+    """{device: the index on it} for every device of the mesh (the index is
+    replicated: one copy a distinct device, none on the index's own)."""
+    return {dev: (index if dev == index.offsets.device else index.to(dev))
+            for dev in dict.fromkeys(mesh.devices)}
+
+
+def _to(q: ServeBatch, dev: torch.device) -> ServeBatch:
+    return q if q.op.device == dev else ServeBatch(*(a.to(dev) for a in q))
+
+
+def _reduce(parts, lead: torch.device) -> torch.Tensor:
+    """Sum int32 partials over the model axis on the lead device, in shard
+    order.  A partial on another card is a peer copy: PyTorch orders it
+    after the producing stream's work and makes the lead's stream wait on
+    it (an event each way), so no second path is needed for it."""
+    acc = parts[0].to(lead, non_blocking=True)
+    for p in parts[1:]:
+        acc = acc + p.to(lead, non_blocking=True)
+    return acc
+
+
+def make_sharded_serve_step(
+    meta: K2Meta, mesh, cap: int, *,
+    pmeta: PredIndexMeta | None = None, u_width: int | None = None,
+):
+    """Sharded serve program: ``fn(shards, batch[, indexes])`` with
+    ``shards`` from :func:`shard_forest` and ``indexes`` from
+    :func:`replicate_index`; the result lands on the mesh's lead device.
+
+    The batch splits into equal slices over the data axes (every axis but
+    ``model``).  Within a
+    slice, every model shard holds P/mp trees; a lane of global predicate
+    g is owned by shard g // P_loc and resolved there with local id
+    g % P_loc, and the other shards see it dead (op -1).  With ``pmeta``
+    the unbounded lanes are served too: candidates are gathered from the
+    replicated index, each shard scans and checks only the candidates it
+    owns.  Only masked int32 partials are summed over the model axis: the
+    ids, one ``hit + 2·overflow`` word a lane, the unbounded ids + 1, one
+    ``check hit + 2·count`` word a candidate and the pair-overflow flag;
+    ``valid``, ``count`` and the S?PO compaction are re-derived after the
+    sum, as the JAX package's ``make_sharded_serve_step`` does.
+    """
+    if u_width is None:
+        u_width = pmeta.max_degree if pmeta is not None else 0
+    if u_width > 0 and pmeta is None:
+        raise ValueError("sharded unbounded serve requires a pred index (pmeta)")
+    grid = mesh.grid()
+    lead = mesh.lead
+
+    def local(f_loc: K2Forest, j: int, q: ServeBatch, cand):
+        """Shard ``j``'s masked partials for slice ``q`` (on its device)."""
+        p_loc = f_loc.n_preds
+        g = q.p - 1
+        mine = torch.div(g, p_loc, rounding_mode="floor") == j
+        q_loc = ServeBatch(torch.where(mine, q.op, -1), q.s,
+                           torch.where(mine, g % p_loc, 0) + 1, q.o)
+        r = _serve_local(meta, f_loc, q_loc, cap)
+        parts = [
+            torch.where(mine[:, None], r.ids, 0),
+            torch.where(mine, r.hit.to(torch.int32) + 2 * r.overflow.to(torch.int32), 0),
+        ]
+        if u_width <= 0:
+            return parts
+        b = q.op.shape[0]
+        is_u_pair, is_u_check, u_key, u_axis, cpreds, cvalid, _ = cand
+        mine_u = cvalid & (torch.div(cpreds, p_loc, rounding_mode="floor") == j)
+        preds_f = torch.where(mine_u, cpreds % p_loc, 0).reshape(b * u_width)
+        ru = k2forest.scan_batch_mixed(
+            meta, f_loc, preds_f, torch.repeat_interleave(u_key, u_width),
+            torch.repeat_interleave(u_axis, u_width), cap,
+        )
+        pair_mine = mine_u & is_u_pair[:, None]
+        uv_loc = ru.valid.reshape(b, u_width, cap) & pair_mine[:, :, None]
+        hitm_loc = k2forest.check(
+            meta, f_loc, preds_f,
+            torch.repeat_interleave((q.s - 1).clamp(min=0), u_width),
+            torch.repeat_interleave((q.o - 1).clamp(min=0), u_width),
+        ).reshape(b, u_width) & mine_u & is_u_check[:, None]
+        return parts + [
+            torch.where(uv_loc, ru.ids.reshape(b, u_width, cap) + 1, 0),
+            hitm_loc.to(torch.int32)
+            + 2 * torch.where(pair_mine, ru.count.reshape(b, u_width), 0),
+            (ru.overflow.reshape(b, u_width) & pair_mine).any(dim=1).to(torch.int32),
+        ]
+
+    def one_slice(shards, q: ServeBatch, indexes, row) -> ServeResult:
+        b = q.op.shape[0]
+        dev = q.op.device
+        batches, cands = {lead: q}, {}
+        partials = []
+        for j, pos in enumerate(row):
+            d = mesh.devices[pos]
+            if d not in batches:
+                batches[d] = _to(q, d)
+            if u_width > 0 and d not in cands:
+                cands[d] = _u_candidates(batches[d], shards[pos], u_width, indexes[d], pmeta)
+            partials.append(local(shards[pos], j, batches[d], cands.get(d)))
+        ids, flags, *u_parts = (_reduce(list(ps), lead) for ps in zip(*partials))
+        valid = ids != 0
+        hit = (flags & 1).to(torch.bool)
+        overflow = ((flags >> 1) & 1).to(torch.bool)
+        count = valid.sum(dim=-1, dtype=torch.int32)
+        if u_width <= 0:
+            return ServeResult(
+                hit=hit, ids=ids, valid=valid, count=count, overflow=overflow,
+                u_preds=torch.zeros((b, 0), dtype=torch.int32, device=dev),
+                u_ids=torch.zeros((b, 0, cap), dtype=torch.int32, device=dev),
+                u_valid=torch.zeros((b, 0, cap), dtype=torch.bool, device=dev),
+                u_count=torch.zeros((b, 0), dtype=torch.int32, device=dev),
+            )
+        u_ids, packed, pair_ovf = u_parts
+        if lead not in cands:
+            cands[lead] = _u_candidates(q, shards[0], u_width, indexes[lead], pmeta)
+        is_u_pair, is_u_check, _, _, cpreds, cvalid, ctrunc = cands[lead]
+        hitm = (packed & 1) == 1
+        valid5, count5, ovf5, (ids5,) = compact(hitm, cap, torch.where(hitm, cpreds + 1, 0))
+        return ServeResult(
+            hit=hit,
+            ids=torch.where(is_u_check[:, None], ids5, ids),
+            valid=torch.where(is_u_check[:, None], valid5, valid),
+            count=torch.where(is_u_check, count5, count),
+            overflow=(overflow | (is_u_pair & ((pair_ovf > 0) | ctrunc))
+                      | (is_u_check & (ovf5 | ctrunc))),
+            u_preds=torch.where(cvalid & is_u_pair[:, None], cpreds + 1, 0),
+            u_ids=u_ids, u_valid=u_ids != 0, u_count=packed >> 1,
+        )
+
+    def step(shards, q: ServeBatch, indexes=None) -> ServeResult:
+        n = q.op.shape[0]
+        if n % len(grid):
+            raise ValueError(f"a batch of {n} lanes does not split over {len(grid)} data slices")
+        if u_width > 0 and indexes is None:
+            raise ValueError("sharded unbounded serve requires the replicated index")
+        w = n // len(grid)
+        outs = [one_slice(shards, ServeBatch(*(a[i * w:(i + 1) * w] for a in q)), indexes, row)
+                for i, row in enumerate(grid)]
+        if len(outs) == 1:
+            return outs[0]
+        return ServeResult(**{name: torch.cat([getattr(o, name) for o in outs])
+                              for name in RESULT_FIELDS})
+
+    return step
+
+
+def make_sharded_unbounded_scan(meta: K2Meta, mesh, cap: int):
+    """(S,?P,?O) / (?S,?P,O) sweep: ``fn(shards, keys, axes) -> (ids, valid,
+    count)`` shaped ``[B, P_padded, cap]``, on the lead device.
+
+    Each shard scans all its local predicates for its data slice's keys
+    (1-based) in one flat (b·P_loc)-lane scan launch; the shards' blocks
+    are concatenated along P in shard order (the JAX package's tiled
+    ``all_gather``).  The index-free reference of the pruned unbounded
+    lanes.
+    """
+    grid = mesh.grid()
+    lead = mesh.lead
+
+    def local(f_loc: K2Forest, keys, axes):
+        p_loc = f_loc.n_preds
+        b = keys.shape[0]
+        preds_f = torch.arange(p_loc, dtype=torch.int32, device=keys.device).repeat(b)
+        r = k2forest.scan_batch_mixed(
+            meta, f_loc, preds_f, torch.repeat_interleave(keys - 1, p_loc),
+            torch.repeat_interleave(axes, p_loc), cap,
+        )
+        ids = torch.where(r.valid, r.ids + 1, 0).reshape(b, p_loc, cap)
+        return ids, r.valid.reshape(b, p_loc, cap), r.count.reshape(b, p_loc)
+
+    def fn(shards, keys, axes):
+        keys = k2forest.as_lanes(keys, lead)
+        axes = k2forest.as_lanes(axes, lead, keys.shape[0])
+        n = keys.shape[0]
+        if n % len(grid):
+            raise ValueError(f"{n} keys do not split over {len(grid)} data slices")
+        w = n // len(grid)
+        slices = []
+        for i, row in enumerate(grid):
+            k, a = keys[i * w:(i + 1) * w], axes[i * w:(i + 1) * w]
+            parts = [local(shards[pos], k.to(mesh.devices[pos]), a.to(mesh.devices[pos]))
+                     for pos in row]
+            slices.append([torch.cat([p[x].to(lead, non_blocking=True) for p in parts], dim=1)
+                           for x in range(3)])
+        return tuple(torch.cat([s[x] for s in slices]) for x in range(3))
+
+    return fn
+
+
 def int32_lanes(values) -> np.ndarray:
     """Python ints as an int32 array, refusing one outside int32 with
     ``OverflowError`` as numpy's element assignment does (an int64 array
@@ -483,13 +729,42 @@ class _PatternExec(_ExecBase):
 
     def _run_serve(self, op, s, p, o, b, cap):
         eng, cfg = self.engine, self.cfg
-        with_index = False
-        u_width = 0
-        if op in UNBOUNDED_OPS:
-            with_index = cfg.use_pred_index and eng.store.pred_index is not None
-            u_width = eng._u_width() if with_index else max(eng.store.n_preds, 1)
-        r = eng._run_lanes(cfg, cap, np.full(b, op, np.int32), s, p, o,
-                           u_width=u_width, with_index=with_index)
+        if op not in UNBOUNDED_OPS:
+            return self._lanes(op, cfg, cap, s, p, o)
+        bi = eng.store.pred_index if cfg.use_pred_index else None
+        sweep = max(eng.store.n_preds, 1)
+        if bi is None:
+            if cfg.mesh is not None:
+                raise ValueError(
+                    "sharded unbounded-?P serving needs the SP/OP index; "
+                    "build the store with its index or drop mesh"
+                )
+            return self._lanes(op, cfg, cap, s, p, o, u_width=sweep)
+        u_width = eng._u_width(cfg)
+        if cfg.u_width_quantile >= 1.0:  # the lane holds every list
+            return self._lanes(op, cfg, cap, s, p, o, u_width=u_width, with_index=True)
+        # quantile-sized lanes: entities whose list is longer than the lane
+        # (the gather's overflow bit, read off the host CSR) go to the
+        # single-device all-preds sweep, exact at any quantile
+        rows = bi.meta.n_subjects + o - 1 if op == OP_ANY_ANY_O else s - 1
+        outlier = predindex.host_degrees(bi, rows) > u_width
+        out = [None] * b
+        for idx, run_cfg, width, with_index in (
+            (np.nonzero(~outlier)[0], cfg, u_width, True),
+            (np.nonzero(outlier)[0], cfg.replace(mesh=None), sweep, False),
+        ):
+            if idx.size:
+                got = self._lanes(op, run_cfg, cap, s[idx], p[idx], o[idx],
+                                  u_width=width, with_index=with_index)
+                for j, res in zip(idx, got):
+                    out[j] = res
+        return out
+
+    def _lanes(self, op, cfg, cap, s, p, o, *, u_width=0, with_index=False):
+        """One dispatch of host lanes of ``op``, overflow-guarded, decoded."""
+        b = len(s)
+        r = self.engine._run_lanes(cfg, cap, np.full(b, op, np.int32), s, p, o,
+                                   u_width=u_width, with_index=with_index)
         self._overflow_guard(r)
         return self._decode(op, r, range(b))
 
@@ -839,7 +1114,9 @@ class _ServeExec(_ExecBase):
         if not unbounded:
             return 0
         if cfg.use_pred_index and eng.store.pred_index is not None:
-            return eng._u_width()
+            return eng._u_width(cfg)
+        if cfg.mesh is not None:
+            raise ValueError("sharded unbounded-?P serving needs the SP/OP index")
         return max(eng.store.n_preds, 1)
 
     def _call(self, qb: ServeBatch, cap: int, unbounded: bool) -> ServeResult:
@@ -854,7 +1131,7 @@ class _ServeExec(_ExecBase):
         as the JAX package profiles)."""
         eng, cfg = self.engine, self.cfg
         if batch is None:
-            z = np.zeros(eng._pad_b(1), np.int32)
+            z = np.zeros(eng._pad_b(1, cfg), np.int32)
             batch = ServeBatch(z, z, z, z)
         qb = self._coerce(batch)
         u_width = self._u_width_of(q.unbounded)
@@ -866,6 +1143,8 @@ class _ServeExec(_ExecBase):
             "unbounded": q.unbounded,
             "layout": cfg.pred_index_layout if u_width and cfg.use_pred_index else None,
             "device": str(eng.device),
+            "sharded": cfg.mesh is not None,
+            "mesh": None if cfg.mesh is None else cfg.mesh.shape,
         }
         return obs_cost.profile_call(
             lambda: self._call(qb, self.cap, q.unbounded), geometry, eng.device
@@ -889,6 +1168,10 @@ class Engine:
         self.store = store if store.device == self.device else store.to(self.device)
         self._plan_cache: dict = {}
         self._programs: dict = {}
+        # per (mesh, model axis): the static epoch's shards, and per (mesh,
+        # layout) its index replicas, each beside the static store it was
+        # cut from, so a compaction swap never meets old shards
+        self._sharded: dict = {}
         self._stats = {"hits": 0, "misses": 0, "denied": 0}
         # the store epoch the caches were built at; a DynamicStore bumps it
         # at a compaction swap and ``compile`` then drops every executor
@@ -944,14 +1227,21 @@ class Engine:
             raise ValueError(
                 f"config device {cfg.device!r} is not the engine's {self.device}"
             )
+        if cfg.mesh is not None:
+            if cfg.mesh.lead != self.device:
+                raise ValueError(
+                    f"the mesh's lead device {cfg.mesh.lead} is not the engine's {self.device}"
+                )
+            cfg.mesh.grid()  # raises on a mesh without a model axis
         cur = self.store_epoch
         if self._built_epoch != cur:
             # after a compaction swap every cached executor serves the old
             # epoch: drop them all before compiling
             self._plan_cache.clear()
             self._programs.clear()
+            self._sharded.clear()
             self._built_epoch = cur
-        self._validate(q)
+        self._validate(q, cfg)
         key = (shape_key(q), cfg)
         t, m = obs.STATE.tracer, obs.STATE.metrics
         ex = self._plan_cache.get(key)
@@ -979,8 +1269,7 @@ class Engine:
                 m.counter("engine.plan_cache.hits").inc()
         return Plan(q, cfg, ex)
 
-    @staticmethod
-    def _validate(q) -> None:
+    def _validate(self, q, cfg: ExecConfig) -> None:
         if isinstance(q, TriplePatternQ):
             named = q.variables
             if len(named) != len(set(named)):
@@ -988,6 +1277,37 @@ class Engine:
                     "a variable repeated inside one pattern needs join "
                     f"semantics; wrap it in BgpQ: {q!r}"
                 )
+        # a mesh is never dropped in silence: only the serve-lane shapes are
+        # sharded.  Pair enumeration and the dump (k2_range), the fused
+        # re-binds of joins D-F and the BGP/SELECT planner's enumeration
+        # steps run on the unsharded forest, so they refuse a mesh.
+        if cfg.mesh is not None:
+            if isinstance(q, TriplePatternQ) and q.bound in (
+                (False, True, False), (False, False, False)
+            ):
+                raise ValueError(
+                    "pair-enumeration/dump plans are not sharded; drop "
+                    "ExecConfig.mesh for this shape"
+                )
+            if isinstance(q, JoinQ) and q.category in "DEF":
+                raise ValueError(
+                    f"join category {q.category} (fused scan->rebind) is "
+                    "not sharded; drop ExecConfig.mesh"
+                )
+            if isinstance(q, (BgpQ, SelectQ)):
+                raise ValueError(
+                    "BGP/SELECT plans are not sharded (enumeration steps "
+                    "run single-device); drop ExecConfig.mesh"
+                )
+        if (
+            isinstance(q, ServeQ) and q.unbounded and cfg.u_width_quantile < 1.0
+            and cfg.use_pred_index and self.store.pred_index is not None
+        ):
+            raise ValueError(
+                "quantile-sized unbounded lanes need the pattern plans' sweep "
+                "fallback; raw ServeQ plans require u_width_quantile=1.0 "
+                "(use TriplePatternQ plans for quantile sizing)"
+            )
         if isinstance(q, BgpQ):
             names = {v for tp in q.patterns for v in tp.variables}
             if any(v.startswith(algebra.ANON) for v in names):
@@ -1035,8 +1355,18 @@ class Engine:
             return _ServeExec(self, cfg)
         raise TypeError(f"not a Query of this package: {q!r}")
 
-    def _u_width(self) -> int:
-        return max(self.store.pred_index.meta.max_degree, 1)
+    def _u_width(self, cfg: ExecConfig) -> int:
+        """Unbounded-lane width: ``max_degree``, or at a quantile below 1
+        ``predindex.quantile_u_width``, memoised per quantile (the pass
+        walks the whole host CSR)."""
+        bi = self.store.pred_index
+        if cfg.u_width_quantile >= 1.0:
+            return max(bi.meta.max_degree, 1)
+        key = ("u_width", cfg.u_width_quantile)
+        w = self._programs.get(key)
+        if w is None:
+            w = self._programs[key] = max(predindex.quantile_u_width(bi, cfg.u_width_quantile), 1)
+        return w
 
     def _program(self, st: K2TriplesStore, cfg: ExecConfig, cap: int, u_width: int,
                  with_index: bool):
@@ -1044,19 +1374,47 @@ class Engine:
         shared by all executors (keyed by the metas' values, so a program
         never meets a forest of another geometry)."""
         pmeta = st.pred_index.select(cfg.pred_index_layout)[1] if with_index else None
-        key = (cap, u_width, st.meta, pmeta)
+        key = (cap, u_width, st.meta, pmeta, cfg.mesh)
         fn = self._programs.get(key)
         if fn is None:
-            fn = self._programs[key] = make_serve_step(
-                st.meta, cap, pmeta=pmeta, u_width=u_width
-            )
+            if cfg.mesh is None:
+                fn = make_serve_step(st.meta, cap, pmeta=pmeta, u_width=u_width)
+            else:
+                fn = make_sharded_serve_step(st.meta, cfg.mesh, cap, pmeta=pmeta,
+                                             u_width=u_width)
+            self._programs[key] = fn
         return fn
 
-    def _pad_b(self, b: int) -> int:
-        """pow2 bucket (>= 8) for a batch of ``b`` lanes."""
+    def _sharded_entry(self, st: K2TriplesStore, key, build):
+        """The cached ``build()`` for ``key``, rebuilt when it was cut from
+        another static epoch than ``st``."""
+        entry = self._sharded.get(key)
+        if entry is None or entry[0] is not st:
+            entry = self._sharded[key] = (st, build())
+        return entry[1]
+
+    def _shards(self, st: K2TriplesStore, cfg: ExecConfig):
+        mp = cfg.mesh.shape[MODEL_AXIS]
+        return self._sharded_entry(
+            st, ("forest", cfg.mesh),
+            lambda: shard_forest(pad_preds(st.forest, mp), cfg.mesh),
+        )
+
+    def _index_replicas(self, st: K2TriplesStore, cfg: ExecConfig):
+        return self._sharded_entry(
+            st, ("index", cfg.mesh, cfg.pred_index_layout),
+            lambda: replicate_index(st.pred_index.select(cfg.pred_index_layout)[0], cfg.mesh),
+        )
+
+    def _pad_b(self, b: int, cfg: ExecConfig | None = None) -> int:
+        """pow2 bucket (>= 8) for a batch of ``b`` lanes; under a mesh also
+        a multiple of the data slices."""
         n = 8
         while n < b:
             n <<= 1
+        if cfg is not None and cfg.mesh is not None:
+            d = len(cfg.mesh.grid())
+            n = -(-max(n, d) // d) * d
         return n
 
     def _run_program(self, cfg: ExecConfig, cap: int, qb: ServeBatch, *,
@@ -1065,12 +1423,18 @@ class Engine:
         on the card, ``ready`` records the stream after its last launch."""
         st = self._static()  # one epoch for the program, forest and index
         fn = self._program(st, cfg, cap, u_width, with_index)
-        if with_index:
+        if cfg.mesh is not None:
+            if u_width > 0 and not with_index:
+                raise ValueError("sharded unbounded-?P serving needs the SP/OP index")
+            r = fn(self._shards(st, cfg), qb,
+                   self._index_replicas(st, cfg) if with_index else None)
+        elif with_index:
             r = fn(st.forest, qb, st.pred_index.select(cfg.pred_index_layout)[0])
         elif u_width > 0:
             r = fn(st.forest, qb, None)
         else:
             r = fn(st.forest, qb)
+        # recorded after the model-axis reduce: the fetch waits on all of it
         if self.device.type == "cuda":
             r.ready = torch.cuda.Event()
             r.ready.record(torch.cuda.current_stream(self.device))
@@ -1086,7 +1450,7 @@ class Engine:
         Every pattern plan, join side list and BGP/SELECT step shares this
         dispatch."""
         b = int(np.shape(ops_a)[0])
-        n = self._pad_b(b)
+        n = self._pad_b(b, cfg)
         t = obs.STATE.tracer
         if t is None:
             return self._run_lanes_inner(cfg, cap, ops_a, s, p, o, b, n, u_width, with_index)

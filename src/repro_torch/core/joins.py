@@ -8,8 +8,15 @@ pattern 2 carries a second, unbounded variable ?Y:
   E — D with the pattern-2 predicate free  -> D per predicate
   F — D with both predicates free          -> union X over predicates, then E
 
-(Categories A–C bind both non-join positions; the engine resolves them as
-serve-IR side lists plus ``core.sortedset``.)
+Categories A–C bind both non-join positions:
+
+  A — both predicates bound                -> list ∩ list
+  B — pattern 2's predicate free           -> list ∩ each of P lists
+  C — both predicates free                 -> union ∩ union
+
+``join_a`` / ``join_b`` / ``join_c`` compute them here over scan launches
+and ``core.sortedset``; join plans (``Engine.compile(JoinQ)``) resolve
+them as serve-IR side lists with the same set algebra.
 
 Inputs are 1-based ids; outputs are fixed-capacity ``JoinPairs`` with
 validity masks.  ``vpos`` ∈ {"s","o"} names the position of the join
@@ -48,6 +55,16 @@ def _axis(vpos: str) -> int:
     return 1 if vpos == "s" else 0
 
 
+def _side_list(meta, f, p, const, vpos: str, cap: int) -> sortedset.IdSet:
+    """Sorted candidate values of the join variable for one bound pattern,
+    1-based: (?X, P, O) is a column scan, (S, P, ?X) a row scan."""
+    scan = k2forest.col_scan if vpos == "s" else k2forest.row_scan
+    r = scan(meta, f, torch.as_tensor(p) - 1, torch.as_tensor(const) - 1, cap)
+    return sortedset.from_result(
+        torch.where(r.valid, r.ids + 1, SENTINEL), r.valid, r.count, r.overflow
+    )
+
+
 def _side_list_all_preds(meta, f, const, vpos: str, cap: int):
     """-> (ids[P, cap], valid[P, cap], overflow[P]), sorted within each pred:
     one scan launch over every tree with a broadcast key."""
@@ -59,6 +76,45 @@ def _side_list_all_preds(meta, f, const, vpos: str, cap: int):
         torch.full((P,), _axis(vpos), dtype=torch.int32, device=d), cap,
     )
     return torch.where(r.valid, r.ids + 1, SENTINEL), r.valid, r.overflow
+
+
+class PerPredSets(NamedTuple):
+    ids: torch.Tensor  # int32[P, cap]
+    valid: torch.Tensor  # bool[P, cap]
+    preds: torch.Tensor  # int32[P] 1-based predicate ids
+    counts: torch.Tensor  # int32[P] per-predicate result counts
+    overflow: torch.Tensor  # bool[P] per-predicate truncation flags
+
+
+def join_a(meta, f, p1, c1, vpos1: str, p2, c2, vpos2: str, cap: int) -> sortedset.IdSet:
+    """Two bound patterns: intersect their side lists."""
+    a = _side_list(meta, f, p1, c1, vpos1, cap)
+    b = _side_list(meta, f, p2, c2, vpos2, cap)
+    return sortedset.intersect(a, b)
+
+
+def join_b(meta, f, p1, c1, vpos1: str, c2, vpos2: str, cap: int) -> PerPredSets:
+    """Pattern 2's predicate free: the bound side list ∩ each predicate's."""
+    a = _side_list(meta, f, p1, c1, vpos1, cap)
+    ids2, valid2, ovf2 = _side_list_all_preds(meta, f, c2, vpos2, cap)
+    P = f.n_preds
+    b = sortedset.IdSet(ids2, valid2, valid2.sum(dim=-1, dtype=torch.int32),
+                        torch.zeros(P, dtype=torch.bool, device=f.device))
+    r = sortedset.intersect(a, b)
+    return PerPredSets(
+        r.ids, r.valid, torch.arange(1, P + 1, dtype=torch.int32, device=f.device),
+        r.valid.sum(dim=-1, dtype=torch.int32), a.overflow | ovf2,
+    )
+
+
+def join_c(meta, f, c1, vpos1: str, c2, vpos2: str, cap: int) -> sortedset.IdSet:
+    """Both predicates free: the union of each side over predicates, then
+    the intersection of the unions."""
+    ids1, valid1, ovf1 = _side_list_all_preds(meta, f, c1, vpos1, cap)
+    ids2, valid2, ovf2 = _side_list_all_preds(meta, f, c2, vpos2, cap)
+    u1 = sortedset.union_rows(ids1, valid1, cap, ovf1.any())
+    u2 = sortedset.union_rows(ids2, valid2, cap, ovf2.any())
+    return sortedset.intersect(u1, u2)
 
 
 def _wrap_rebind(x_valid, y_ids, y_valid, y_ovf):

@@ -155,12 +155,69 @@ def first_lane(r):
     return type(r)(*(a[0] for a in r))
 
 
+def check_all_preds(meta: K2Meta, f: K2Forest, row, col) -> torch.Tensor:
+    """(S, ?P, O): bool[P], the paper's "check the cell in every tree"."""
+    P = f.n_preds
+    d = f.device
+    return check(meta, f, torch.arange(P, dtype=torch.int32, device=d),
+                 as_lanes(row, d, P), as_lanes(col, d, P))
+
+
+def _scan(meta: K2Meta, f: K2Forest, preds, keys, axis: int, cap: int, n=None) -> QueryResult:
+    """``scan_batch_mixed`` of one axis over lanes placed on the forest's
+    device (``n`` broadcasts scalar lanes)."""
+    d = f.device
+    preds = as_lanes(preds, d, n)
+    keys = as_lanes(keys, d, preds.shape[0])
+    axes = torch.full(preds.shape, axis, dtype=torch.int32, device=d)
+    return scan_batch_mixed(meta, f, preds, keys, axes, cap)
+
+
+def row_scan(meta: K2Meta, f: K2Forest, pred, row, cap: int) -> QueryResult:
+    """(S, P, ?O): direct neighbours, ascending object id."""
+    return first_lane(_scan(meta, f, pred, row, 0, cap, 1))
+
+
+def col_scan(meta: K2Meta, f: K2Forest, pred, col, cap: int) -> QueryResult:
+    """(?S, P, O): reverse neighbours, ascending subject id."""
+    return first_lane(_scan(meta, f, pred, col, 1, cap, 1))
+
+
+def row_scan_batch(meta: K2Meta, f: K2Forest, preds, rows, cap: int) -> QueryResult:
+    return _scan(meta, f, preds, rows, 0, cap)
+
+
+def col_scan_batch(meta: K2Meta, f: K2Forest, preds, cols, cap: int) -> QueryResult:
+    return _scan(meta, f, preds, cols, 1, cap)
+
+
+def row_scan_all_preds(meta: K2Meta, f: K2Forest, row, cap: int) -> QueryResult:
+    """(S, ?P, ?O): per-predicate object lists, axis 0 = predicate; the
+    all-preds sweep is one scan launch with a broadcast key."""
+    return _scan(meta, f, torch.arange(f.n_preds, dtype=torch.int32), row, 0, cap)
+
+
+def col_scan_all_preds(meta: K2Meta, f: K2Forest, col, cap: int) -> QueryResult:
+    """(?S, ?P, O): per-predicate subject lists."""
+    return _scan(meta, f, torch.arange(f.n_preds, dtype=torch.int32), col, 1, cap)
+
+
 def range_scan_batch(meta: K2Meta, f: K2Forest, preds, cap: int) -> PairResult:
     """Batched (?S, P, ?O) pair enumeration, one lane per predicate, pairs
     in Morton order."""
     from repro_torch.kernels import ops
 
     return PairResult(*ops.k2_range(meta, f, as_lanes(preds, f.device), cap=cap))
+
+
+def range_scan(meta: K2Meta, f: K2Forest, pred, cap: int) -> PairResult:
+    """(?S, P, ?O): every pair of one predicate's matrix (Morton order)."""
+    return first_lane(range_scan_batch(meta, f, as_lanes(pred, f.device, 1), cap))
+
+
+def range_scan_all_preds(meta: K2Meta, f: K2Forest, cap: int) -> PairResult:
+    """(?S, ?P, ?O): the dataset dump, axis 0 = predicate."""
+    return range_scan_batch(meta, f, torch.arange(f.n_preds, dtype=torch.int32), cap)
 
 
 def scan_rebind_batch(

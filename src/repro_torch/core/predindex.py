@@ -25,9 +25,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import bitvec
+from repro_torch.core import bitvec, k2forest
 from repro_torch.core.bitvec import popcount_np
-from repro_torch.core.k2tree import QueryResult
+from repro_torch.core.k2tree import K2Meta, QueryResult, compact
 
 DAC_CHUNK_BITS = 8
 
@@ -152,6 +152,16 @@ class BuiltPredIndex:
             device_fixed=(None if self.device_fixed is None
                           else self.device_fixed.to(device)),
         )
+
+
+def subject_row(s):
+    """Entity row of 1-based subject id ``s``."""
+    return s - 1
+
+
+def object_row(pmeta: PredIndexMeta, o):
+    """Entity row of 1-based object id ``o``."""
+    return pmeta.n_subjects + o - 1
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +354,42 @@ def build(
     )
 
 
+def quantile_u_width(bi: BuiltPredIndex, quantile: float) -> int:
+    """Candidate-lane width at a degree quantile, sized PER AXIS.
+
+    ``max_degree`` is set by hub entities (a class object touching nearly
+    every predicate widens every unbounded lane back toward the sweep).
+    The width here is the quantile of the nonzero per-entity degrees,
+    taken separately over the SP (subject) and OP (object) halves, then
+    the larger of the two, so either axis of a mixed batch is covered at
+    its own quantile.  Entities whose list exceeds it must be routed to
+    the all-preds sweep (:func:`host_degrees` gives the host-side
+    pre-route).  ``quantile=1.0`` gives ``max(max_sp_degree,
+    max_op_degree, 1)``.  Needs the host CSR.
+    """
+    if not (0.0 < quantile <= 1.0):
+        raise ValueError(f"quantile must be in (0, 1], got {quantile}")
+    offs, _ = bi.csr()
+    ns = bi.meta.n_subjects
+    widths = []
+    for deg in (np.diff(offs[: ns + 1]), np.diff(offs[ns:])):
+        deg = deg[deg > 0]
+        if deg.size:
+            widths.append(int(np.ceil(np.quantile(deg, quantile))))
+    return max(widths, default=1)
+
+
+def host_degrees(bi: BuiltPredIndex, rows) -> np.ndarray:
+    """Candidate-list lengths of 0-based entity ``rows`` from the host CSR;
+    rows out of range report 0.  The host mirror of the device gather's
+    overflow bit (``degree > u_width``)."""
+    offs, _ = bi.csr()
+    rows = np.asarray(rows, np.int64)
+    ok = (rows >= 0) & (rows < offs.shape[0] - 1)
+    r = np.where(ok, rows, 0)
+    return np.where(ok, offs[r + 1] - offs[r], 0)
+
+
 # ---------------------------------------------------------------------------
 # device queries
 # ---------------------------------------------------------------------------
@@ -362,6 +408,70 @@ def gather_batch(pmeta: PredIndexMeta, index: PredIndex, rows, cap: int) -> Quer
     if pmeta.layout == "dac":
         return QueryResult(*ops.pred_gather_dac(pmeta, index, rows, cap=cap))
     return QueryResult(*ops.pred_gather(pmeta, index, rows, cap=cap))
+
+
+class PredScanResult(NamedTuple):
+    """Pruned unbounded scan: per-candidate-predicate result lists, 0-based
+    ids, ``u_width`` candidate slots a query (``pvalid`` marks live ones)."""
+
+    preds: torch.Tensor  # int32[..., L] candidate predicate ids (0 where dead)
+    pvalid: torch.Tensor  # bool[..., L]
+    ids: torch.Tensor  # int32[..., L, cap]
+    valid: torch.Tensor  # bool[..., L, cap]
+    count: torch.Tensor  # int32[..., L]
+    overflow: torch.Tensor  # bool[..., L] per-candidate scan overflow
+    truncated: torch.Tensor  # bool[...] candidate list longer than L
+
+
+def scan_pruned_batch(
+    meta: K2Meta, f, pmeta: PredIndexMeta, index: PredIndex, keys, axes,
+    cap: int, u_width: int,
+) -> PredScanResult:
+    """(S,?P,?O) / (?S,?P,O) batch through the index: ``keys`` int32[B]
+    0-based subjects (axes 0) or objects (axes 1); one scan launch of
+    B·u_width lanes over the candidates replaces the B·P sweep."""
+    d = f.device
+    keys = k2forest.as_lanes(keys, d)
+    axes = k2forest.as_lanes(axes, d, keys.shape[0])
+    b = keys.shape[0]
+    g = gather_batch(pmeta, index, torch.where(axes == 1, pmeta.n_subjects + keys, keys),
+                     u_width)
+    preds = torch.where(g.valid, g.ids, 0)
+    r = k2forest.scan_batch_mixed(
+        meta, f, preds.reshape(b * u_width), torch.repeat_interleave(keys, u_width),
+        torch.repeat_interleave(axes, u_width), cap,
+    )
+    valid = r.valid.reshape(b, u_width, cap) & g.valid[:, :, None]
+    return PredScanResult(
+        preds=preds, pvalid=g.valid,
+        ids=torch.where(valid, r.ids.reshape(b, u_width, cap), 0),
+        valid=valid,
+        count=torch.where(g.valid, r.count.reshape(b, u_width), 0),
+        overflow=r.overflow.reshape(b, u_width) & g.valid,
+        truncated=g.overflow,
+    )
+
+
+def check_pruned_batch(
+    meta: K2Meta, f, pmeta: PredIndexMeta, index: PredIndex, rows, cols,
+    u_width: int,
+) -> QueryResult:
+    """(S,?P,O) batch through the SP index: check the candidates only.
+    ``rows`` / ``cols`` int32[B] 0-based subjects / objects.  Returns the
+    matching predicates (0-based, ascending, compacted into ``u_width``
+    slots); ``overflow`` is set only when the candidate list was
+    truncated."""
+    d = f.device
+    rows = k2forest.as_lanes(rows, d)
+    cols = k2forest.as_lanes(cols, d, rows.shape[0])
+    b = rows.shape[0]
+    g = gather_batch(pmeta, index, rows, u_width)
+    hit = k2forest.check(
+        meta, f, torch.where(g.valid, g.ids, 0).reshape(b * u_width),
+        torch.repeat_interleave(rows, u_width), torch.repeat_interleave(cols, u_width),
+    ).reshape(b, u_width) & g.valid
+    valid, count, _, (ids,) = compact(hit, u_width, torch.where(hit, g.ids, 0))
+    return QueryResult(ids=ids, valid=valid, count=count, overflow=g.overflow)
 
 
 # ---------------------------------------------------------------------------

@@ -98,12 +98,22 @@ class ExecConfig:
         Serve unbounded-``?P`` lanes through the SP/OP index when the store
         carries one; ``False`` forces the all-preds sweep.
     ``u_width_quantile``
-        Only ``1.0`` (lane width = ``max_degree``) in this package so far.
+        Sizes the unbounded candidate lane at this quantile of the
+        per-entity predicate-degree distribution (per axis, then the
+        larger: ``predindex.quantile_u_width``) instead of ``max_degree``.
+        Pattern plans route the entities whose list exceeds the lane to
+        the all-preds sweep, so answers stay exact; raw ``ServeQ`` plans
+        refuse a quantile below 1.  ``1.0`` = ``max_degree``.
     ``pred_index_layout``
         On-device layout of the SP/OP index: "dac" (default) or "fixed"
         (byte-packed); results are identical across layouts.
     ``device``
         The device plans run on; must be the engine's.
+    ``mesh``
+        With a ``launch.mesh.Mesh``, serve-lane plans run the sharded
+        serve step: the forest split by predicate over its ``model`` axis,
+        the batch over every other axis.  The mesh's lead device must be
+        ``device``.
     """
 
     cap: int = 4096
@@ -113,12 +123,12 @@ class ExecConfig:
     u_width_quantile: float = 1.0
     pred_index_layout: str = "dac"
     device: str = "cuda"
+    mesh: Any = None  # launch.mesh.Mesh | None (hashable)
 
     def __post_init__(self):
-        if self.u_width_quantile != 1.0:
-            raise NotImplementedError(
-                "u_width_quantile < 1 needs the sweep fallback of the pattern "
-                "plans, which this package does not have yet"
+        if not (0.0 < self.u_width_quantile <= 1.0):
+            raise ValueError(
+                f"u_width_quantile must be in (0, 1], got {self.u_width_quantile}"
             )
         if self.cap < 1 or self.cap_y < 1:
             raise ValueError("cap and cap_y must be >= 1")

@@ -70,3 +70,26 @@ def union_rows(ids2d, valid2d, cap: int, overflow) -> IdSet:
     ovf = torch.as_tensor(overflow, device=dev).to(torch.bool) | (n_unique > cap)
     return IdSet(out, out != SENTINEL, n_unique.clamp(max=cap), ovf)
 
+
+
+def from_result(ids, valid, count, overflow) -> IdSet:
+    """An ``IdSet`` from a result-like tuple: invalid lanes to ``SENTINEL``."""
+    dev = ids.device
+    return IdSet(
+        torch.where(valid, ids, SENTINEL).to(torch.int32), valid,
+        torch.as_tensor(count, device=dev).to(torch.int32),
+        torch.as_tensor(overflow, device=dev).to(torch.bool),
+    )
+
+
+def to_dense_mask(s: IdSet, extent: int) -> torch.Tensor:
+    """bool[extent + 1] membership table (ids are 1-based; index 0 unused).
+    Ids past ``extent`` are dropped; a negative id counts from the end of
+    the ``extent + 2`` table before the cut, as the reference's scatter."""
+    n = extent + 2
+    idx = torch.where(s.valid, s.ids, extent + 1).to(torch.int64).reshape(-1)
+    idx = torch.where(idx < 0, idx + n, idx)
+    idx = idx[(idx >= 0) & (idx < n)]
+    out = torch.zeros(n, dtype=torch.bool, device=s.ids.device)
+    out[idx] = True
+    return out[: extent + 1]

@@ -104,6 +104,26 @@ def generate_like(name: str, n_triples: int, seed: int = 0) -> RdfDataset:
     )
 
 
+def with_hubs(ds: RdfDataset, n_hubs: int, seed: int = 0) -> RdfDataset:
+    """``ds`` plus hub entities: ``n_hubs`` random subjects each gain one
+    triple under every predicate (to a random object), and ``n_hubs``
+    random objects one triple under every predicate (from a random
+    subject).  A hub's list in the SP/OP index then holds every predicate,
+    as a country or a class does in DBpedia, while the other entities keep
+    the generator's short lists."""
+    rng = np.random.default_rng(seed)
+    preds = np.arange(1, ds.n_preds + 1, dtype=np.int64)
+    k = n_hubs * ds.n_preds
+    s_hub = np.repeat(rng.integers(1, ds.n_subjects + 1, n_hubs), ds.n_preds)
+    o_hub = np.repeat(rng.integers(1, ds.n_objects + 1, n_hubs), ds.n_preds)
+    extra = np.concatenate([
+        np.stack([s_hub, np.tile(preds, n_hubs), rng.integers(1, ds.n_objects + 1, k)], 1),
+        np.stack([rng.integers(1, ds.n_subjects + 1, k), np.tile(preds, n_hubs), o_hub], 1),
+    ])
+    ids = np.unique(np.concatenate([ds.ids, extra]), axis=0)
+    return dataclasses.replace(ds, ids=ids)
+
+
 def to_strings(ds: RdfDataset) -> list[tuple[str, str, str]]:
     """URI-ish string triples honoring the SO overlap (for dictionary tests)."""
     out = []

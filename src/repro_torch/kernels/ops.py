@@ -96,7 +96,10 @@ def _c_fn(name: str, symbol: str, argtypes, restype=ctypes.c_int):
 def _launch(name: str, device: torch.device, *args) -> None:
     fn = _c_fn(name, *_SIGNATURES[name])
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*args, stream, device.index)
+    # the library selects ``device`` itself; the guard gives the caller
+    # back its current device (a mesh launches on several cards)
+    with torch.cuda.device(device):
+        err = fn(*args, stream, device.index)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     with _count_lock:
@@ -174,7 +177,8 @@ def _outputs(dev: torch.device, shape: tuple):
 def _scan_grid(name: str, device: torch.device, lanes: int, cap: int) -> tuple[int, int]:
     """(blocks, spill ints) of one launch of the warp-per-lane scan kernel
     (``csrc/k2_scan_lane.cuh``) in library ``name`` over ``lanes`` lanes."""
-    blocks = _c_fn(name, f"{name}_blocks", [_LL, _I])(lanes, device.index)
+    with torch.cuda.device(device):  # the query selects ``device``
+        blocks = _c_fn(name, f"{name}_blocks", [_LL, _I])(lanes, device.index)
     if blocks < 1:
         raise RuntimeError(f"{name}: no grid for {lanes} lanes: CUDA error {-blocks}")
     return blocks, _c_fn(name, f"{name}_spill_ints", [_I, _I], _LL)(blocks, cap)

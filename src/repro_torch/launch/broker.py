@@ -237,7 +237,8 @@ class ServeBroker:
         self.unbounded = unbounded
         self._query = ServeQ(unbounded=unbounded)
         self.base_plan = engine.compile(self._query, self.config)
-        self._pad_to = engine._pad_b(coalesce.max_batch)
+        # a pow2 bucket, and under a mesh a multiple of the data slices
+        self._pad_to = engine._pad_b(coalesce.max_batch, self.config)
 
         self._queue: collections.deque[_Req] = collections.deque()
         self._inflight: collections.deque = collections.deque()
@@ -498,7 +499,10 @@ class ServeBroker:
         engine puts every tensor on its own device, whatever the worker
         thread's current device."""
         st = self._tenants[r.tenant]
+        # mesh=None: SELECT plans run single-device (the engine refuses a
+        # sharded one); the base serve plan stays sharded
         cfg = self.config.replace(
+            mesh=None,
             cap_policy=CapPolicy(grow=True, max_doublings=self.tenant_policy.max_cap_doublings),
         )
         with obs.span("broker.select", cat="broker", tenant=r.tenant, seq=r.seq):
@@ -596,7 +600,7 @@ class ServeBroker:
                 h.observe((td0 - r.t_submit) * 1e3)
 
     def _encode(self, reqs: list[_Req], pad_to: int) -> eng.ServeBatch:
-        n = max(pad_to, self.engine._pad_b(len(reqs)))
+        n = max(pad_to, self.engine._pad_b(len(reqs), self.config))
         lanes = np.zeros((4, n), np.int32)
         lanes[0] = -1  # dead lanes: masked to zero output
         if reqs:  # an id outside int32 raises OverflowError, as in the JAX broker

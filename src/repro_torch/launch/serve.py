@@ -11,6 +11,8 @@ Zipf-skewed multi-tenant trace of mixed serve-IR ops (and, with
 ``--select-frac``, SPARQL-shaped ``SelectQ`` queries) through per-tenant
 async streams, and reports the broker's stats.  Latency is per query
 (submit -> decoded result); a p99 is only reported with 100+ samples.
+``--sharded`` serves over a (data, model) mesh of every visible card
+(``launch.mesh.serve_mesh_shape``) and refuses to run on fewer than two.
 ``--trace-path`` / ``--metrics-path`` turn observability on for the
 measured window and write the Chrome trace (check it with ``python -m
 repro_torch.obs.validate PATH --require-queries``) and the metrics
@@ -123,7 +125,7 @@ async def _replay(broker: ServeBroker, trace) -> list:
 def serve_trace(
     engine, trace, *, n_tenants: int, cap: int = 1024, max_batch: int = 256,
     deadline_ms: float = 2.0, unbounded: bool = True, warmup: int = 64,
-    window=None,
+    window=None, mesh=None,
 ):
     """Serve ``trace`` through a broker after a warmup prefix.
 
@@ -133,9 +135,11 @@ def serve_trace(
     metrics are cleared at the warmup boundary, with the broker's stats,
     so they describe exactly the measured run.  ``window``, a context
     manager factory (a device profiler, say), is entered just before the
-    measured run and left just after its wall time is taken.
+    measured run and left just after its wall time is taken.  ``mesh``
+    (a ``launch.mesh.Mesh`` led by the engine's device) shards the serve
+    plan.
     """
-    cfg = engine.default_config.replace(cap=cap)
+    cfg = engine.default_config.replace(cap=cap, mesh=mesh)
     # bound per-tenant windows so ~two coalesced batches stay outstanding
     depth = max(16, (2 * max_batch) // max(n_tenants, 1))
 
@@ -173,6 +177,7 @@ def run_bench(
     cap: int = 1024,
     max_batch: int = 256,
     deadline_ms: float = 2.0,
+    sharded: bool = False,
     unbounded: bool = True,
     select_frac: float = 0.0,
     warmup: int = 64,
@@ -187,6 +192,9 @@ def run_bench(
 
     ``like`` scales a paper dataset (``data/rdf.py``'s ``PAPER_DATASETS``)
     to ``n_triples``; otherwise a generic corpus of ``n_preds`` predicates.
+    ``sharded`` serves over a (data, model) mesh of every visible card and
+    raises ``ValueError`` when fewer than two are visible: it never serves
+    unsharded in silence.
     ``obs_on`` / ``trace_path`` / ``metrics_path`` switch observability on
     for the measured window: ``trace_path`` gets the Chrome ``trace_event``
     JSON, ``metrics_path`` the metrics snapshot, plan-cache stats, per-plan
@@ -195,8 +203,21 @@ def run_bench(
     from repro_torch.core import engine as eng, k2triples
     from repro_torch.core.query import resolve_device
     from repro_torch.data import rdf
+    from repro_torch.launch import mesh as meshlib
 
     dev = resolve_device(device)
+    mesh = None
+    if sharded:
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 0
+        if n_dev < 2:
+            raise ValueError(
+                f"sharded serving requested but {n_dev} CUDA card(s) visible; "
+                "refusing to serve unsharded in silence (build a Mesh that "
+                "repeats a device and pass it to serve_trace to shard on one)"
+            )
+        mesh = meshlib.make_mesh(meshlib.serve_mesh_shape(n_dev), ("data", "model"))
+        if not quiet:
+            print(f"sharded over mesh {mesh.shape}")
     if like is not None:
         ds = rdf.generate_like(like, n_triples, seed=seed)
     else:
@@ -228,7 +249,7 @@ def run_bench(
     try:
         stats, answers, wall, broker = serve_trace(
             engine, trace, n_tenants=n_tenants, cap=cap, max_batch=max_batch,
-            deadline_ms=deadline_ms, unbounded=unbounded, warmup=warmup,
+            deadline_ms=deadline_ms, unbounded=unbounded, warmup=warmup, mesh=mesh,
         )
         if obs_enabled:
             _export_obs(broker, engine, tracer, metrics, trace_path=trace_path,
@@ -239,6 +260,8 @@ def run_bench(
     if sum(a is not None for a in answers) != n_queries:
         raise RuntimeError("the broker left queries unanswered")
     row = {
+        "mode": "sharded" if sharded else "single",
+        "mesh": list(mesh.sizes) if mesh is not None else None,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
         "dataset": like or "generic",
         "triples": store.n_triples,
@@ -335,6 +358,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--deadline-ms", type=float, default=2.0,
                     help="coalesce deadline for the oldest pending query")
     ap.add_argument("--cap", type=int, default=1024)
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard over a (data, model) mesh of every visible card")
     ap.add_argument("--bounded-only", action="store_true",
                     help="trace without unbounded-?P ops")
     ap.add_argument("--select-frac", type=float, default=0.0,
@@ -362,7 +387,8 @@ def main(argv=None) -> None:
         device=args.device, n_triples=args.triples, n_preds=args.preds,
         like=args.like, n_tenants=args.tenants, n_queries=args.queries,
         zipf_a=args.zipf, cap=args.cap, max_batch=args.batch,
-        deadline_ms=args.deadline_ms, unbounded=not args.bounded_only,
+        deadline_ms=args.deadline_ms, sharded=args.sharded,
+        unbounded=not args.bounded_only,
         select_frac=args.select_frac, seed=args.seed,
     )
     if args.fast:

@@ -1147,3 +1147,146 @@ def test_pred_gather_every_row(fixed_index, cap, cuda):
     if pmeta.bytes_per_pred == 4:
         assert (count == 0).any()
         assert (got[0][got[1]] < 0).any() and (got[0][got[1]] > 65535).any()
+
+
+# ---------------------------------------------------------------------------
+# predicate-sharded serving on meshes that repeat the card
+# ---------------------------------------------------------------------------
+
+
+def _serve_mix(ds, b, seed):
+    rng = np.random.default_rng(seed)
+    ops_ = rng.integers(0, 6, b).astype(np.int32)
+    rows = ds.ids[rng.integers(0, ds.n_triples, b)]
+    p = np.where(ops_ >= 3, 0, rows[:, 1]).astype(np.int32)
+    return eng.ServeBatch(ops_, rows[:, 0].astype(np.int32), p, rows[:, 2].astype(np.int32))
+
+
+def _host_equal(got, want):
+    for name in eng.RESULT_FIELDS:
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w), name
+
+
+@pytest.mark.parametrize("shape, layout", [((2, 4), "dac"), ((2, 4), "fixed"), ((1, 3), "dac")])
+def test_sharded_serve_on_the_card_matches_the_cpu(shape, layout, cuda):
+    """A mesh of the card (16 trees; over 3 shards they pad to 18) against
+    the sharded plan of the same store on the CPU and the unsharded plan
+    on the card, every field; the fixed layout runs the pred_gather
+    kernel under the mesh."""
+    from repro_torch.launch import mesh as meshlib
+
+    st, ds = _small_store(16, cuda)
+    cpu_st = k2triples.from_id_triples(ds.ids, n_so=ds.n_so, n_subjects=ds.n_subjects,
+                                       n_objects=ds.n_objects, n_preds=ds.n_preds, device="cpu")
+    n = shape[0] * shape[1]
+    cfg = ExecConfig(cap=128, pred_index_layout=layout)
+    qb = _serve_mix(ds, 64 * shape[0], seed=n)
+    gather = "pred_gather" if layout == "fixed" else "pred_gather_dac"
+    before = dict(ops.LAUNCHES)
+    e = eng.Engine(st, device=cuda)
+    got = eng.host_result(e.compile(ServeQ(), cfg.replace(
+        device=str(cuda), mesh=meshlib.make_mesh(shape, ("data", "model"), [cuda] * n)))(qb))
+    # each data slice gathers once; each shard checks and scans twice
+    assert ops.LAUNCHES[gather] - before[gather] >= shape[0]
+    assert ops.LAUNCHES["k2_scan"] - before["k2_scan"] >= 2 * n
+    cpu_e = eng.Engine(cpu_st, device="cpu")
+    want = cpu_e.compile(ServeQ(), cfg.replace(
+        device="cpu", mesh=meshlib.make_mesh(shape, ("data", "model"), ["cpu"] * n)))(qb)
+    _host_equal(got, eng.host_result(want))
+    _host_equal(got, eng.host_result(e.compile(ServeQ(), cfg.replace(device=str(cuda)))(qb)))
+
+
+def test_sharded_pattern_and_sweep_on_the_card(cuda):
+    from repro_torch.launch import mesh as meshlib
+
+    st, ds = _small_store(16, cuda)
+    mesh = meshlib.make_mesh((1, 3), ("data", "model"), [cuda] * 3)
+    e = eng.Engine(st, device=cuda)
+    cfg = ExecConfig(cap=128, device=str(cuda))
+    rows = ds.ids[:9]
+    for q, batch in ((TriplePatternQ(1, "?p", "?o"), {"s": rows[:, 0]}),
+                     (TriplePatternQ("?s", "?p", 1), {"o": rows[:, 2]}),
+                     (TriplePatternQ(1, 1, "?o"), {"s": rows[:, 0], "p": rows[:, 1]})):
+        got, want = e.compile(q, cfg.replace(mesh=mesh))(batch), e.compile(q, cfg)(batch)
+        for g, w in zip(got, want):
+            if isinstance(w, dict):
+                assert {k: v.tolist() for k, v in g.items()} == {k: v.tolist() for k, v in w.items()}
+            else:
+                assert np.array_equal(g, w)
+    shards = eng.shard_forest(eng.pad_preds(st.forest, 3), mesh)
+    keys = torch.as_tensor(rows[:, 0], dtype=torch.int32)
+    axes = torch.zeros(9, dtype=torch.int32)
+    ids, valid, count = eng.make_sharded_unbounded_scan(st.meta, mesh, 64)(shards, keys, axes)
+    r = eng.k2forest.row_scan_all_preds(st.meta, st.forest, int(rows[0, 0]) - 1, 64)
+    assert ids.shape == (9, 18, 64) and not valid[:, 16:].any()
+    assert torch.equal(ids[0, :16], torch.where(r.valid, r.ids + 1, 0))
+    assert torch.equal(count[0, :16], r.count)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2), (1, 4)])
+def test_sharded_serve_over_distinct_cards(shape, cuda):
+    """A mesh over distinct cards (copies of the shards and the index on
+    each, the partials summed on the lead by peer copies) against the same
+    plan on a mesh of the lead card alone and the unsharded plan; skips
+    where fewer cards are visible than the mesh needs."""
+    from repro_torch.launch import mesh as meshlib
+
+    n = shape[0] * shape[1]
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards, {torch.cuda.device_count()} visible")
+    lead = torch.device("cuda", 0)
+    st, ds = _small_store(16, lead)
+    e = eng.Engine(st, device=lead)
+    cfg = ExecConfig(cap=128, device=str(lead))
+    qb = _serve_mix(ds, 64 * shape[0], seed=7 * n)
+    spread = meshlib.make_mesh(shape, ("data", "model"))
+    assert len(set(spread.devices)) == n
+    got = e.compile(ServeQ(), cfg.replace(mesh=spread))(qb)
+    assert got.ids.device == lead
+    got = eng.host_result(got)
+    one = meshlib.make_mesh(shape, ("data", "model"), [lead] * n)
+    _host_equal(got, eng.host_result(e.compile(ServeQ(), cfg.replace(mesh=one))(qb)))
+    _host_equal(got, eng.host_result(e.compile(ServeQ(), cfg)(qb)))
+    shards = e._shards(e._static(), cfg.replace(mesh=spread))
+    assert {str(f.t_words.device) for f in shards} == {str(d) for d in spread.devices}
+    # the functional sweep over the spread mesh
+    f_sh = eng.shard_forest(eng.pad_preds(st.forest, shape[1]), spread)
+    keys = torch.as_tensor(ds.ids[:4 * shape[0], 0], dtype=torch.int32)
+    ids, valid, count = eng.make_sharded_unbounded_scan(st.meta, spread, 64)(
+        f_sh, keys, torch.zeros_like(keys))
+    ids1, valid1, count1 = eng.make_sharded_unbounded_scan(st.meta, one, 64)(
+        eng.shard_forest(eng.pad_preds(st.forest, shape[1]), one), keys,
+        torch.zeros_like(keys))
+    assert torch.equal(ids, ids1) and torch.equal(valid, valid1) and torch.equal(count, count1)
+
+
+def test_sharded_broker_over_distinct_cards(cuda):
+    """The broker over a (2, 2) mesh of four cards against direct plans."""
+    import asyncio
+
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.broker import CoalescePolicy, ServeBroker
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 CUDA cards, {torch.cuda.device_count()} visible")
+    lead = torch.device("cuda", 0)
+    st, ds = _small_store(16, lead)
+    e = eng.Engine(st, device=lead)
+    cfg = ExecConfig(cap=128, device=str(lead))
+    qb = _serve_mix(ds, 40, seed=3)
+    queries = [tuple(int(a[i]) for a in qb) for i in range(40)]
+
+    async def main():
+        async with ServeBroker(e, cfg.replace(mesh=meshlib.make_mesh((2, 2), ("data", "model"))),
+                               coalesce=CoalescePolicy(max_batch=16, max_delay_s=0.002)) as b:
+            return await asyncio.gather(*(b.submit_nowait("t0", *q) for q in queries))
+
+    got = asyncio.run(main())
+    want = eng.host_result(e.compile(ServeQ(), cfg)(qb))
+    for i, (g, q) in enumerate(zip(got, queries)):
+        w = eng.decode_lane(q[0], want, i)
+        if isinstance(w, dict):
+            assert {k: v.tolist() for k, v in g.items()} == {k: v.tolist() for k, v in w.items()}
+        else:
+            assert np.array_equal(np.asarray(g), np.asarray(w))

@@ -270,7 +270,8 @@ def test_cost_profile_geometry_and_launches_on_cpu(store_and_truth):
     plan = E.compile(ServeQ(unbounded=False), CFG.replace(cap=64))
     prof = plan.cost_profile()
     assert prof["geometry"] == {"lanes": 8, "padded_lanes": 8, "cap": 64, "u_width": 0,
-                                "unbounded": False, "layout": None, "device": "cpu"}
+                                "unbounded": False, "layout": None, "device": "cpu",
+                                "sharded": False, "mesh": None}
     # the plain versions run on the CPU: no kernel launches, no device time
     assert prof["launches"] and not any(prof["launches"].values())
     assert "device_ms" not in prof and "cpu" in prof["device_ms_error"]

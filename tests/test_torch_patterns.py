@@ -148,8 +148,11 @@ def test_repeated_variable_and_quantile_rejected():
     e, _, _ = stores("preds16")
     with pytest.raises(ValueError, match="repeated"):
         e.compile(TriplePatternQ("?x", 3, "?x"), CFG)
-    with pytest.raises(NotImplementedError, match="u_width_quantile"):
-        CFG.replace(u_width_quantile=0.5)
+    # the reference's contract: (0, 1], a ValueError outside it
+    for bad in (0.0, 1.5):
+        with pytest.raises(ValueError, match="u_width_quantile"):
+            CFG.replace(u_width_quantile=bad)
+    assert CFG.replace(u_width_quantile=0.5).u_width_quantile == 0.5
     plan = e.compile(TriplePatternQ(3, 4, "?o"), CFG)
     for bad in ({"o": [1, 2]}, {"s": [1, 2], "p": [1]}, {}):
         with pytest.raises(ValueError):

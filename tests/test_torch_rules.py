@@ -19,6 +19,7 @@ from repro_torch.core import engine as eng, k2triples
 from repro_torch.core import query
 from repro_torch.core.query import ExecConfig, resolve_device
 from repro_torch.launch import broker, serve
+from repro_torch.launch import mesh as meshlib
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -49,6 +50,8 @@ def test_entry_points_default_to_cuda():
                k2triples.from_string_triples, serve.run_bench):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert serve.parse_args([]).device == "cuda"
+    # a mesh defaults to the visible CUDA cards
+    assert inspect.signature(meshlib.make_mesh).parameters["devices"].default is None
 
 
 def test_cuda_without_card_raises(monkeypatch):
@@ -66,6 +69,10 @@ def test_cuda_without_card_raises(monkeypatch):
         eng.Engine(st)
     with pytest.raises(RuntimeError):
         serve.run_bench(n_triples=100, quiet=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        meshlib.make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError):
+        meshlib.make_mesh((1, 1), ("data", "model"), ["cuda"])
     e = eng.Engine(st, device="cpu")
     # a broker follows its engine's device; a cuda config is refused
     assert broker.ServeBroker(e).config.device == "cpu"
@@ -79,8 +86,10 @@ def test_exec_config_reads_no_environment(monkeypatch):
     cfg = ExecConfig()
     assert cfg == ExecConfig(cap=4096, cap_y=256, device="cuda")
     assert cfg.pred_index_layout == "dac"
-    with pytest.raises(NotImplementedError):
-        ExecConfig(u_width_quantile=0.9)
+    for bad in (0.0, 1.5):
+        with pytest.raises(ValueError):
+            ExecConfig(u_width_quantile=bad)
+    assert ExecConfig(u_width_quantile=0.5).u_width_quantile == 0.5
     with pytest.raises(ValueError):
         ExecConfig(pred_index_layout="csr")
 
