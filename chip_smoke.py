@@ -149,11 +149,31 @@ Phases (any failure exits non-zero before the result line):
    ``row_scan_all_preds`` and ``range_scan`` on 8 real constants, the
    dump, and ``join_a`` / ``join_b`` / ``join_c`` on 8 queries each,
    against the oracle and the matching plan.
+10. the single-tree API and the arch registry's engine programs:
+   10a. ``k2tree.build`` on the card of ``benchmarks/bench_kernels.py``'s
+   tree (100,000 random cells of a 100,000-side matrix): 65,536 point
+   checks (half of them real cells), 64 row and 64 column scans at cap
+   1024 and ``range_scan`` at cap 2^17 against a numpy evaluation of the
+   cells, then an H = 1 tree and an empty tree, every kernel call held
+   against its plain version; ``size_bits`` and the device, wrapper and
+   plain ms of the check, one scan and the range;
+   10b. ``programs.build("k2triples", "serve_64k")`` at the full config
+   (``rdf.generate(1_000_000, 80,000 subjects, 512 predicates, 280,000
+   objects)``) on a (1, 1) mesh of the card: one 65,536-lane batch of the
+   serve benchmark's bounded op mix equal to the unsharded serve step
+   field by field and, on 4,096 sampled lanes, to the oracle; the same
+   program on a (1, 4) mesh equal to it; step ms, launches and peak
+   device memory;
+   10c. ``unbounded_4k`` at full size (4,096 keys over all 512 predicates,
+   cap 1024; the largest power of two that fits if not, printed as a
+   cut): peak device memory, 64 sampled keys against the oracle and the
+   all-preds scans.  The kernel calls of 10b-10c are held against their
+   plain versions on 4,096 random lanes a call.
    Then the ``{"kernels": [...]}`` line (``launches_by_path`` gains
    ``dynamic``, phase 8's launches, ``sharded``, those of 9a's and 9b's
-   mesh runs, and
-   ``functional``, those of 9c), the card's name and power limit, and the
-   final ``{"ok": true, ...}`` line.
+   mesh runs, ``functional``, those of 9c, ``tree``, those of 10a, and
+   ``registry``, those of the programs' runs in 10b-10c), the card's name
+   and power limit, and the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -323,7 +343,9 @@ class Recorder:
     Also records every (A ids, B row ids, kept ids) that
     ``sortedset.intersect`` computes, one entry per row of B's batch."""
 
-    def __init__(self, every: int = 1):
+    def __init__(self, every: int = 1, lanes: int | None = None, seed: int = 0):
+        import torch
+
         from repro_torch.core import sortedset
         from repro_torch.kernels import ops
 
@@ -331,6 +353,14 @@ class Recorder:
         # with every > 1 only a sample is kept and checked: each kernel's
         # first 4 calls and every ``every``-th after
         self.every = every
+        # with lanes, a k2_scan or k2_check call of more lanes is held on
+        # that many random lanes (drawn from ``seed``) and its last
+        # TAIL_LANES lanes, where the grid's last, partial run of lanes
+        # falls, and is not kept: only for calls whose plain version at full
+        # width does not fit beside them on the card (10c's 2^21-lane sweep)
+        self.lanes = lanes
+        self.gen = torch.Generator().manual_seed(seed)
+        self.sampled = dict.fromkeys(QUERY_KERNELS, 0)
         self.seen = dict.fromkeys(QUERY_KERNELS, 0)
         self.calls: dict[str, list] = {k: [] for k in QUERY_KERNELS}
         self.err: dict[str, int] = dict.fromkeys(QUERY_KERNELS, 0)
@@ -341,6 +371,21 @@ class Recorder:
     def check(self, name, args, kw, out):
         want = plain_of(name, args, kw)
         self.err[name] = max(self.err[name], max_abs_err(out, want))
+        return out
+
+    def check_lanes(self, name, args, kw, out):
+        """Hold ``self.lanes`` random lanes and the last TAIL_LANES lanes of
+        a lane-parallel call."""
+        import torch
+
+        q = args[2].shape[0]
+        head = q - min(q, TAIL_LANES)
+        idx = torch.cat([torch.randperm(head, generator=self.gen)[:self.lanes].sort().values,
+                         torch.arange(head, q)]).to(args[2].device)
+        sub = (*args[:2], *(t[idx].contiguous() for t in args[2:]))
+        got = tuple(o[idx] for o in out) if isinstance(out, tuple) else out[idx]
+        self.err[name] = max(self.err[name], max_abs_err(got, plain_of(name, sub, kw)))
+        self.sampled[name] += 1
         return out
 
     def intersect(self, a, b):
@@ -362,6 +407,9 @@ class Recorder:
                 out = orig(*args, **kw)
                 n = self.seen[name]
                 self.seen[name] += 1
+                if (self.lanes and name in ("k2_scan", "k2_check")
+                        and args[2].shape[0] > self.lanes):
+                    return self.check_lanes(name, args, kw, out)
                 if n >= 4 and n % self.every:
                     return out
                 self.calls[name].append((args, kw, out))
@@ -2715,6 +2763,334 @@ def sharded_phase(engine, ds, oracle, trace, work, device, n_tenants, cap, max_b
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the single-tree API and the registry's engine programs
+# ---------------------------------------------------------------------------
+
+TREE_SIDE = 100_000  # benchmarks/bench_kernels.py's k2_check tree: 100,000 cells of this side
+TREE_CHECKS = 65_536
+TREE_SCANS = 64
+TREE_CAP = 1024
+TREE_RANGE_CAP = 1 << 17
+SERVE_SAMPLE = 4096  # 10b's lanes held against the oracle
+SWEEP_SAMPLE = 64  # 10c's keys held against the oracle and the all-preds scans
+SWEEP_LANES = 4096  # 10c's random scan lanes held against the plain version
+# and its last lanes: a scan grid of at least one 4-warp block an SM gives
+# each warp a run of at most 2^21 / (132 * 4) < 4,096 lanes, so the last,
+# partial run lies inside them
+TAIL_LANES = 4096
+
+
+class TreeOracle:
+    """The cells of one tree as sorted numpy codes: checks, row and column
+    lists and the full pair set, independent of the port."""
+
+    def __init__(self, rows, cols, side: int):
+        import numpy as np
+
+        self.np, self.side = np, side
+        rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+        self.by_row = np.unique(rows * side + cols)
+        self.by_col = np.unique(cols * side + rows)
+
+    def check(self, rows, cols):
+        return self.np.isin(rows.astype(self.np.int64) * self.side + cols, self.by_row)
+
+    def line(self, key: int, axis: int):
+        codes = self.by_col if axis else self.by_row
+        lo, hi = self.np.searchsorted(codes, [key * self.side, (key + 1) * self.side])
+        return codes[lo:hi] - key * self.side
+
+
+def _tree_answers(meta, tree, oracle, rng, n_checks, keys, where: str) -> dict:
+    """Checks of real and random cells, a row and a column scan of every
+    key, and the full range of one tree, against the oracle; -> the calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import k2tree
+
+    dev = tree.t.words.device
+    side = oracle.side
+    real = np.stack([oracle.by_row // side, oracle.by_row % side], 1)
+    pick = real[rng.integers(0, len(real), n_checks // 2)] if len(real) else np.zeros((0, 2))
+    qr = np.concatenate([pick[:, 0], rng.integers(0, side, n_checks - len(pick))]).astype(np.int32)
+    qc = np.concatenate([pick[:, 1], rng.integers(0, side, n_checks - len(pick))]).astype(np.int32)
+    hit = k2tree.check(meta, tree, torch.from_numpy(qr).to(dev), torch.from_numpy(qc).to(dev))
+    if not np.array_equal(hit.cpu().numpy(), oracle.check(qr, qc)):
+        fail(f"{where}: k2tree.check disagrees with the cells")
+    for axis, fn in ((0, k2tree.row_scan), (1, k2tree.col_scan)):
+        for key in keys:
+            r = fn(meta, tree, int(key), TREE_CAP)
+            want = oracle.line(int(key), axis)
+            got = r.ids[r.valid].cpu().numpy()
+            if (not np.array_equal(got, want[:TREE_CAP]) or int(r.count) != min(len(want), TREE_CAP)
+                    or bool(r.overflow) != (len(want) > TREE_CAP)):
+                fail(f"{where}: {fn.__name__} of {key} disagrees with the cells")
+    r = k2tree.range_scan(meta, tree, TREE_RANGE_CAP)
+    v = r.valid.cpu().numpy()
+    codes = np.sort(r.rows.cpu().numpy()[v].astype(np.int64) * side + r.cols.cpu().numpy()[v])
+    if not np.array_equal(codes, oracle.by_row) or bool(r.overflow):
+        fail(f"{where}: range_scan disagrees with the cells")
+    return dict(checks=n_checks, scans=2 * len(keys), pairs=int(r.count))
+
+
+def tree_10a(device, seed: int, tally: Tally) -> tuple[dict, "Recorder"]:
+    """Phase 10a: ``k2tree.build`` of ``bench_kernels.py``'s tree on the
+    card, its checks, scans and range against numpy and, call by call, the
+    plain versions; then an H = 1 and an empty tree.  -> numbers, recorder."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import k2tree
+
+    rng = np.random.default_rng(seed)
+    meta = k2tree.K2Meta(k2tree.hybrid_ks(TREE_SIDE))
+    rows = rng.integers(0, TREE_SIDE, TREE_SIDE)
+    cols = rng.integers(0, TREE_SIDE, TREE_SIDE)
+    t0 = time.perf_counter()
+    tree = k2tree.build(rows, cols, meta, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    oracle = TreeOracle(rows, cols, TREE_SIDE)
+    keys = np.concatenate([rows[rng.integers(0, TREE_SIDE, TREE_SCANS - 3)],
+                           [0, TREE_SIDE - 1, meta.side - 1]])
+    rec = Recorder()
+    with rec, tally:
+        out = dict(big=_tree_answers(meta, tree, oracle, rng, TREE_CHECKS, keys, "10a tree"))
+        # keys outside the matrix: held against the plain versions only
+        for key in (-1, meta.side, 2**31 - 1):
+            k2tree.row_scan(meta, tree, key, TREE_CAP)
+            k2tree.col_scan(meta, tree, key, TREE_CAP)
+        # an H = 1 tree (T empty, level 0 in L) and an empty tree
+        small = k2tree.K2Meta(k2tree.hybrid_ks(4))
+        r1, c1 = rng.integers(0, 4, 6), rng.integers(0, 4, 6)
+        h1 = k2tree.build(r1, c1, small, device=device)
+        out["h1"] = _tree_answers(small, h1, TreeOracle(r1, c1, 4), rng, 64, range(4), "10a H=1")
+        for cap in (1, 3):  # caps below the root arity
+            k2tree.row_scan(small, h1, 1, cap)
+            k2tree.range_scan(small, h1, cap)
+        none = np.zeros(0, np.int64)
+        empty = k2tree.build(none, none, meta, device=device)
+        out["empty"] = _tree_answers(meta, empty, TreeOracle(none, none, TREE_SIDE), rng, 4096,
+                                     keys[:8], "10a empty")
+    torch.cuda.synchronize()
+    # the 65,536-lane check, the first row scan and the full range, timed
+    cases = {
+        f"tree Q={TREE_CHECKS}": ("k2_check", next(
+            c for c in rec.calls["k2_check"] if c[2].shape[0] == TREE_CHECKS)),
+        f"tree Q=1 cap={TREE_CAP}": ("k2_scan", next(
+            c for c in rec.calls["k2_scan"] if c[1]["cap"] == TREE_CAP)),
+        f"tree Q=1 cap={TREE_RANGE_CAP}": ("k2_range", next(
+            c for c in rec.calls["k2_range"] if c[1]["cap"] == TREE_RANGE_CAP)),
+    }
+    times = {label: (name, time_case(name, rec.orig[name], *call))
+             for label, (name, call) in cases.items()}
+    out.update(size_bits=k2tree.size_bits(tree), nnz=tree.nnz, levels=meta.n_levels,
+               build_s=build_s, times=times)
+    return out, rec
+
+
+def _arch_store(cfg, device, seed: int):
+    """The arch's store as ``tests/test_configs_smoke.py`` builds it."""
+    from repro_torch.core import k2triples
+    from repro_torch.data import rdf
+
+    ds = rdf.generate(cfg.n_triples, n_subjects=cfg.n_subjects, n_preds=cfg.n_preds,
+                      n_objects=cfg.n_objects, seed=seed)
+    return ds, k2triples.from_id_triples(ds.ids, n_so=ds.n_so, n_subjects=ds.n_subjects,
+                                         n_objects=ds.n_objects, n_preds=ds.n_preds,
+                                         device=device)
+
+
+def serve_10b(store, ds, oracle, device, seed: int, tally: Tally, rec) -> dict:
+    """Phase 10b: ``k2triples:serve_64k`` on (1, 1) and (1, 4) meshes of the
+    card against the unsharded serve step and the oracle."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import engine as eng
+    from repro_torch.launch import mesh as meshlib, programs, serve
+
+    arch = ARCHS["k2triples"]
+    b = arch.shape("serve_64k").dims["batch"]
+    trace = serve.make_trace(ds, b, 8, unbounded=False, seed=seed)
+    lanes = np.array([row[1:] for row in trace], np.int32).T
+    batch = eng.ServeBatch(*lanes)
+    mesh = meshlib.make_mesh((1, 1), ("data", "model"), [device])
+    prog = programs.build("k2triples", "serve_64k", mesh)
+    args = programs.inputs(prog, store, mesh, batch)
+    with rec, tally:
+        got = prog.fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    secs = []
+    with tally:
+        for _ in range(6):
+            t0 = time.perf_counter()
+            prog.fn(*args)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device)
+    before = dict(tally.counts)
+    with tally:
+        prog.fn(*args)
+    launches = {k: tally.counts[k] - before[k] for k in KERNELS if tally.counts[k] != before[k]}
+    want = eng.make_serve_step(store.meta, arch.cfg.cap)(store.forest, args[1])
+    same_result(got, want, "10b serve_64k on (1, 1) against the unsharded step")
+    host = eng.host_result(got, unbounded=False)
+    idx = np.random.default_rng(seed + 1).choice(b, SERVE_SAMPLE, replace=False)
+    check_decoded(lanes[0], lanes, host, oracle, idx, "10b serve_64k")
+    wide = meshlib.make_mesh((1, 4), ("data", "model"), [device] * 4)
+    prog4 = programs.build("k2triples", "serve_64k", wide)
+    with rec, tally:
+        got4 = prog4.fn(*programs.inputs(prog4, store, wide, batch))
+    same_result(got4, got, "10b serve_64k on (1, 4) against (1, 1)")
+    return dict(batch=b, ops=np.bincount(lanes[0], minlength=3).tolist(),
+                step_ms=[1e3 * x for x in secs[1:]], launches_a_step=launches,
+                peak_bytes=peak, base_bytes=base, model_flops=prog.model_flops)
+
+
+def sweep_10c(store, ds, oracle, device, seed: int, tally: Tally, rec) -> dict:
+    """Phase 10c: ``k2triples:unbounded_4k`` at full size (B keys over every
+    predicate, cap 1024) on a (1, 1) mesh of the card, its peak memory, and
+    64 sampled keys against the oracle and the all-preds scans; at the
+    largest power of two of keys that fits when B does not."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import k2forest
+    from repro_torch.launch import mesh as meshlib, programs
+
+    arch = ARCHS["k2triples"]
+    shape = arch.shape("unbounded_4k")
+    cap = arch.cfg.cap
+    mesh = meshlib.make_mesh((1, 1), ("data", "model"), [device])
+    rng = np.random.default_rng(seed)
+    b = shape.dims["batch"]
+    while True:
+        rows = ds.ids[rng.integers(0, ds.n_triples, b)]
+        axes = (np.arange(b) % 2).astype(np.int32)
+        keys = np.where(axes == 1, rows[:, 2], rows[:, 0]).astype(np.int32)
+        prog = programs.build_engine(
+            arch, dataclasses.replace(shape, dims=dict(shape.dims, batch=b)), mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        try:
+            t0 = time.perf_counter()
+            with rec, tally:
+                ids, valid, count = prog.fn(*programs.inputs(prog, store, mesh, (keys, axes)))
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            print(f"10c: B = {b} keys do not fit on the card; trying {b // 2}", flush=True)
+            b //= 2
+            if b < 1:
+                fail("10c: not even one key fits")
+    peak = torch.cuda.max_memory_allocated(device)
+    if b != shape.dims["batch"]:
+        print(f"10c CUT: unbounded_4k runs at B = {b}, not {shape.dims['batch']}", flush=True)
+    p = store.n_preds
+    if tuple(ids.shape) != (b, p, cap):
+        fail(f"10c: ids of shape {tuple(ids.shape)}, not {(b, p, cap)}")
+    for i in np.random.default_rng(seed + 1).choice(b, SWEEP_SAMPLE, replace=False):
+        key, axis = int(keys[i]), int(axes[i])
+        scan = k2forest.col_scan_all_preds if axis else k2forest.row_scan_all_preds
+        r = scan(store.meta, store.forest, key - 1, cap)
+        if not (torch.equal(ids[i], torch.where(r.valid, r.ids + 1, 0))
+                and torch.equal(valid[i], r.valid) and torch.equal(count[i], r.count)):
+            fail(f"10c: key {key} axis {axis} differs from the all-preds scan")
+        ans = oracle.answer(4 if axis else 3, key, 0, key)
+        got_ids, got_valid = ids[i].cpu().numpy(), valid[i].cpu().numpy()
+        for q in range(1, p + 1):
+            want = ans.get(q, np.zeros(0, np.int64))
+            if not np.array_equal(got_ids[q - 1][got_valid[q - 1]], want[:cap]):
+                fail(f"10c: key {key} axis {axis} pred {q} disagrees with the oracle")
+    return dict(batch=b, lanes=b * p, cap=cap, seconds=secs, peak_bytes=peak, base_bytes=base,
+                result_bytes=ids.numel() * 4 + valid.numel() + count.numel() * 4,
+                model_flops=prog.model_flops)
+
+
+def registry_phase(device, seed: int) -> dict:
+    """Phase 10; -> the launches of the tree path (10a) and of the
+    registry's programs (10b-10c), the kernel checks and the numbers."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+
+    phase("10a. the single-tree API at bench_kernels.py's shape")
+    t0 = time.perf_counter()
+    tree, registry = Tally(), Tally()
+    out, rec_t = tree_10a(device, seed, tree)
+    print(f"10a tree: {TREE_SIDE} cells of side {TREE_SIDE} ({out['nnz']} distinct, "
+          f"{out['levels']} levels), size_bits {out['size_bits']} "
+          f"({out['size_bits'] / out['nnz']:.2f} bits a cell), built in {out['build_s']:.2f}s; "
+          f"answers {out['big']}, H=1 {out['h1']}, empty {out['empty']} equal the cells; "
+          f"kernel calls {rec_t.seen}, max_abs_err against the plain versions {rec_t.err}",
+          flush=True)
+    for label, (name, t) in out["times"].items():
+        print(f"10a {name} {label}: device {t['ms']:.5f} ms, wrapper {t['wrapper_ms']:.5f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.7f} ms ({t['bound_by']}) "
+              f"on {gpu_line()}", flush=True)
+    print(f"10a done in {time.perf_counter() - t0:.1f}s; launches {tree.counts}", flush=True)
+
+    phase("10b. k2triples:serve_64k at the full config")
+    cfg = ARCHS["k2triples"].cfg
+    t0 = time.perf_counter()
+    ds, store = _arch_store(cfg, device, seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    f = store.forest
+    print(f"10b store: {store.n_triples} triples, {store.n_preds} preds, {store.n_subjects} "
+          f"subjects, {store.n_objects} objects, ks={store.meta.ks}, t_words "
+          f"{tuple(f.t_words.shape)}, l_words {tuple(f.l_words.shape)}; built in {build_s:.1f}s",
+          flush=True)
+    oracle = Oracle(ds.ids)
+    rec = Recorder()  # every call of 10b held at full width
+    sv = serve_10b(store, ds, oracle, device, seed + 1, registry, rec)
+    rec.calls = {k: [] for k in rec.calls}  # free the kept calls before 10c's peak
+    print(f"10b serve_64k: B = {sv['batch']} (ops check/row/col {sv['ops']}), step ms "
+          f"{[round(x, 3) for x in sv['step_ms']]} (host clock, synchronised), launches a step "
+          f"{sv['launches_a_step']}, peak device memory {sv['peak_bytes']} bytes "
+          f"({sv['base_bytes']} resident before); equal to the unsharded step and, on "
+          f"{SERVE_SAMPLE} sampled lanes, to the oracle; (1, 4) equal to (1, 1); "
+          f"model_flops {sv['model_flops']:.4g}; kernel calls {rec.seen}, each equal to its "
+          f"plain version at full width, max_abs_err {rec.err}; {gpu_line()}", flush=True)
+
+    phase("10c. k2triples:unbounded_4k at full size")
+    rec_c = Recorder(lanes=SWEEP_LANES, seed=seed)
+    sw = sweep_10c(store, ds, oracle, device, seed + 2, registry, rec_c)
+    torch.cuda.synchronize()
+    print(f"10c unbounded_4k: B = {sw['batch']} keys x {store.n_preds} preds = {sw['lanes']} "
+          f"lanes at cap {sw['cap']} in {sw['seconds']:.3f}s (with the sampled plain checks); "
+          f"result {sw['result_bytes']} bytes; peak device memory {sw['peak_bytes']} bytes "
+          f"({sw['base_bytes']} resident before); {SWEEP_SAMPLE} sampled keys equal the oracle "
+          f"and the all-preds scans; {gpu_line()}", flush=True)
+    print(f"10b-10c done in {time.perf_counter() - t0:.1f}s; launches {registry.counts}; 10c "
+          f"kernel calls {rec_c.seen}, {rec_c.sampled} held on {SWEEP_LANES} random lanes (seed "
+          f"{seed}) and the last {TAIL_LANES}, others whole; max_abs_err {rec_c.err}", flush=True)
+    if not rec_c.sampled["k2_scan"]:
+        fail(f"10c: no sweep scan was held against its plain version: {rec_c.seen}")
+    err = {k: max(r.err[k] for r in (rec_t, rec, rec_c)) for k in rec.err}
+    if any(err.values()):
+        fail(f"kernels disagree with their plain versions in phase 10: {err}")
+    for k in ("k2_check", "k2_scan", "k2_range"):
+        if not tree.counts[k]:
+            fail(f"{k} never launched on the single-tree path: {tree.counts}")
+    for k in ("k2_check", "k2_scan"):
+        if not registry.counts[k]:
+            fail(f"{k} never launched on the registry's programs: {registry.counts}")
+    return dict(tree=tree.counts, registry=registry.counts, err=err, times=out["times"])
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2964,6 +3340,15 @@ def main(argv=None) -> int:
                                        functional=shard["functional"][name])
         row["launches"] += shard["sharded"][name] + shard["functional"][name]
         row["max_abs_err"] = max(row["max_abs_err"], shard["err"].get(name, 0))
+
+    reg = registry_phase(device, args.seed + 10)
+    for row in rows:
+        name = row["name"]
+        row["launches_by_path"].update(tree=reg["tree"][name], registry=reg["registry"][name])
+        row["launches"] += reg["tree"][name] + reg["registry"][name]
+        row["max_abs_err"] = max(row["max_abs_err"], reg["err"].get(name, 0))
+    for label, (name, times) in reg["times"].items():
+        next(row for row in rows if row["name"] == name)["shapes"][label] = times
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,17 +11,34 @@ Host construction is numpy.  On the device the word arenas are
 versions below widen gathered words to int64 and mask with ``0xFFFFFFFF``.
 
 Out-of-range indices follow the JAX package's gathers exactly: a word index
-is clipped to ``[0, W-1]``; a row (tree) index ``r`` is wrapped once if
-negative (``r + P``) and then clipped to ``[0, P-1]``.
+is clipped to ``[0, W-1]`` (the 1-D forms' ``jnp.take(mode="clip")``); a
+row (tree) index ``r`` is wrapped once if negative (``r + P``) and then
+clipped to ``[0, P-1]``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 WORD_BITS = 32
 U32 = 0xFFFFFFFF
+
+
+class BitVec(NamedTuple):
+    """A packed bit vector plus its rank acceleration structure.
+
+    Attributes:
+      words:       int32[n_words]  uint32 bits, LSB-first within each word.
+      rank_blocks: int32[n_words]  exclusive cumulative popcount per word.
+      n_bits:      int             logical length.
+    """
+
+    words: torch.Tensor
+    rank_blocks: torch.Tensor
+    n_bits: int
 
 
 # ---------------------------------------------------------------------------
@@ -57,6 +74,19 @@ def popcount_np(words: np.ndarray) -> np.ndarray:
     return ((w * np.uint32(0x01010101)) >> np.uint32(24)).astype(np.int32)
 
 
+def bitvec_from_bits(bits: np.ndarray, device="cuda") -> BitVec:
+    """A {0,1} array as a :class:`BitVec` on ``device``."""
+    from repro_torch.core.query import resolve_device
+
+    device = resolve_device(device)
+    words = pack_bits_np(bits)
+    return BitVec(
+        words=to_device(words, device),
+        rank_blocks=to_device(rank_blocks_np(words), device),
+        n_bits=int(np.shape(bits)[0]),
+    )
+
+
 # ---------------------------------------------------------------------------
 # device-side (torch) queries — vectorized over arbitrary index shapes
 # ---------------------------------------------------------------------------
@@ -83,14 +113,30 @@ def popcount32(w: torch.Tensor) -> torch.Tensor:
     return (((w * 0x01010101) & U32) >> 24).to(torch.int32)
 
 
+def get_bit(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Bit value at position(s) ``pos`` -> int32 {0,1}; the word index is
+    clipped to the vector, so callers mask invalid lanes themselves."""
+    word = u32(words[_word_index(words, pos)])
+    return ((word >> (pos & 31).to(torch.int64)) & 1).to(torch.int32)
+
+
+def rank1(words: torch.Tensor, rank_blocks: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Number of set bits strictly before ``pos`` (word index clipped)."""
+    widx = _word_index(words, pos)
+    word = u32(words[widx])
+    mask = (torch.ones_like(word) << (pos & 31).to(torch.int64)) - 1
+    return rank_blocks[widx] + popcount32(word & mask)
+
+
 def row_index(row: torch.Tensor, n_rows: int) -> torch.Tensor:
     """JAX's gather rule for a row index: wrap negatives once, then clip."""
     row = torch.where(row < 0, row + n_rows, row)
     return row.clamp(0, n_rows - 1).to(torch.int64)
 
 
-def _word_index(words2d: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    return (pos >> 5).clamp(0, words2d.shape[-1] - 1).to(torch.int64)
+def _word_index(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``pos >> 5`` clipped to the last axis of ``words`` (1-D or 2-D)."""
+    return (pos >> 5).clamp(0, words.shape[-1] - 1).to(torch.int64)
 
 
 def get_bit_2d(words2d: torch.Tensor, row: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,22 @@
-"""Carry a store built elsewhere (the JAX package) across as numpy arrays.
+"""Carry a store or a tree built elsewhere (the JAX package) across as
+numpy arrays.
 
 The forest arenas, the DAC SP/OP index arrays and the static geometry are
 all the state a ``K2TriplesStore`` serves from; the index's host CSR is
 what the planner reads, so a converted store plans exactly as the store it
-came from when the CSR comes along.  This module wraps them in this
-package's types on a device, without rebuilding anything and without
-importing the package that built them.
+came from when the CSR comes along.  A single ``K2Tree`` is its two bit
+vectors and its level tables.  This module wraps them in this package's
+types on a device, without rebuilding anything and without importing the
+package that built them.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core import k2forest, predindex
-from repro_torch.core.k2tree import K2Meta
+from repro_torch.core import bitvec, k2forest, predindex
+from repro_torch.core.bitvec import BitVec
+from repro_torch.core.k2tree import K2Meta, K2Tree
 from repro_torch.core.k2triples import K2TriplesStore
 from repro_torch.core.query import resolve_device
 
@@ -87,4 +90,38 @@ def store_from_arrays(
         meta=meta, forest=f, stats=None, n_so=n_so, n_subjects=n_subjects,
         n_objects=n_objects, n_preds=n_preds, n_triples=n_triples,
         pred_index=pidx,
+    )
+
+
+def _bitvec_from_arrays(name: str, words, rank_blocks, n_bits, device) -> BitVec:
+    words, rank_blocks = np.asarray(words), np.asarray(rank_blocks)
+    n_words = max(1, -(-int(n_bits) // bitvec.WORD_BITS))
+    if words.shape != (n_words,) or rank_blocks.shape != (n_words,):
+        raise ValueError(
+            f"{name}: words {words.shape} and rank_blocks {rank_blocks.shape} do not "
+            f"hold {n_bits} bits ({n_words} words)"
+        )
+    return BitVec(bitvec.to_device(words, device), bitvec.to_device(rank_blocks, device),
+                  int(n_bits))
+
+
+def tree_from_arrays(*, t, l, ones_before, level_start, nnz: int, device="cuda") -> K2Tree:
+    """A ``K2Tree`` from host arrays.
+
+    ``t`` and ``l`` are each ``(words, rank_blocks, n_bits)`` of a bit
+    vector (uint32 words or their int32 views); ``ones_before`` is
+    int32[max(H-1, 1)] and ``level_start`` int32[H].
+    """
+    device = resolve_device(device)
+    ones_before, level_start = np.asarray(ones_before), np.asarray(level_start)
+    h = level_start.shape[0] if level_start.ndim == 1 else 0
+    if h < 1 or ones_before.shape != (max(h - 1, 1),):
+        raise ValueError(
+            f"level tables {ones_before.shape} / {level_start.shape} do not describe "
+            "a tree of H >= 1 levels"
+        )
+    return K2Tree(
+        t=_bitvec_from_arrays("t", *t, device), l=_bitvec_from_arrays("l", *l, device),
+        ones_before=bitvec.to_device(ones_before, device),
+        level_start=bitvec.to_device(level_start, device), nnz=int(nnz),
     )

@@ -71,6 +71,18 @@ def forest_from_numpy(arrays: dict[str, np.ndarray], device) -> K2Forest:
     ))
 
 
+def of_tree(tree: k2tree.K2Tree) -> K2Forest:
+    """The one-tree forest (P = 1) that is ``tree``: row views of its
+    arrays, neither padded nor rank-extended, so every clipped gather lands
+    where the tree's own 1-D gathers land."""
+    return K2Forest(
+        t_words=tree.t.words[None], t_rank=tree.t.rank_blocks[None],
+        l_words=tree.l.words[None], ones_before=tree.ones_before[None],
+        level_start=tree.level_start[None],
+        nnz=torch.full((1,), tree.nnz, dtype=torch.int32, device=tree.t.words.device),
+    )
+
+
 def build_forest(
     coords: Sequence[tuple[np.ndarray, np.ndarray]], meta: K2Meta, device
 ) -> tuple[K2Forest, ForestStats]:

@@ -23,6 +23,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import bitvec
+from repro_torch.core.bitvec import BitVec
+
 # Paper §k²-trees: "hybrid policy which uses values k=4, up to the level 5 of
 # the tree, and then k=2, for the rest ones".
 HYBRID_K4_LEVELS = 5
@@ -64,6 +67,17 @@ class K2Meta:
             s //= k
             out.append(s)
         return tuple(out)  # subsides[-1] == 1 (cells)
+
+
+class K2Tree(NamedTuple):
+    """One compressed matrix on a device (meta travels separately)."""
+
+    t: BitVec
+    l: BitVec
+    ones_before: torch.Tensor  # int32[max(H-1, 1)]: #1s in T before each level
+    level_start: torch.Tensor  # int32[H]: bit offset of each level
+    #   (levels 0..H-2 offsets are into T; level_start[H-1] == 0, into L)
+    nnz: int
 
 
 class K2HostArrays(NamedTuple):
@@ -135,6 +149,28 @@ def build_host(rows: np.ndarray, cols: np.ndarray, meta: K2Meta) -> K2HostArrays
     return K2HostArrays(t_bits, l_bits, ones_before, level_start, nnz)
 
 
+def build(rows: np.ndarray, cols: np.ndarray, meta: K2Meta, device="cuda") -> K2Tree:
+    """One tree of the cells ``(rows[i], cols[i])`` on ``device``."""
+    from repro_torch.core.query import resolve_device
+
+    device = resolve_device(device)
+    h = build_host(rows, cols, meta)
+    return K2Tree(
+        t=bitvec.bitvec_from_bits(h.t_bits, device),
+        l=bitvec.bitvec_from_bits(h.l_bits, device),
+        ones_before=bitvec.to_device(h.ones_before, device),
+        level_start=bitvec.to_device(h.level_start, device),
+        nnz=h.nnz,
+    )
+
+
+def size_bits(tree: K2HostArrays | K2Tree) -> int:
+    """Structure size in bits (T + L), the paper's compression metric."""
+    if isinstance(tree, K2HostArrays):
+        return int(tree.t_bits.shape[0] + tree.l_bits.shape[0])
+    return tree.t.n_bits + tree.l.n_bits
+
+
 # ---------------------------------------------------------------------------
 # batched traversal helpers (torch)
 # ---------------------------------------------------------------------------
@@ -193,3 +229,48 @@ def compact(valid: torch.Tensor, cap: int, *arrays: torch.Tensor):
         for a in arrays
     ]
     return new_valid, n, total > cap, outs
+
+
+# ---------------------------------------------------------------------------
+# single-tree queries: the tree runs as the one-tree forest (P = 1) through
+# the forest kernels (``kernels/ops.py``), every lane's predicate 0
+# ---------------------------------------------------------------------------
+
+
+def check(meta: K2Meta, tree: K2Tree, rows, cols) -> torch.Tensor:
+    """Batched cell query: does (row, col) contain a 1?  -> bool of the
+    broadcast shape of ``rows`` and ``cols``.  Paper pattern (S, P, O)."""
+    from repro_torch.kernels import ops
+
+    dev = tree.t.words.device
+    rows, cols = torch.broadcast_tensors(torch.as_tensor(rows, device=dev),
+                                         torch.as_tensor(cols, device=dev))
+    hit = ops.k2_check_tree(meta, tree, rows.reshape(-1).to(torch.int32).contiguous(),
+                            cols.reshape(-1).to(torch.int32).contiguous())
+    return hit.reshape(rows.shape)
+
+
+def row_scan(meta: K2Meta, tree: K2Tree, row, cap: int) -> QueryResult:
+    """(S, P, ?O): columns of ``row`` (a scalar), ascending; ``(cap,)``
+    ids and valid, 0-d count and overflow."""
+    from repro_torch.core import k2forest
+
+    return k2forest.row_scan(meta, k2forest.of_tree(tree), 0, row, cap)
+
+
+def col_scan(meta: K2Meta, tree: K2Tree, col, cap: int) -> QueryResult:
+    """(?S, P, O): rows of ``col`` (a scalar), ascending."""
+    from repro_torch.core import k2forest
+
+    return k2forest.col_scan(meta, k2forest.of_tree(tree), 0, col, cap)
+
+
+def range_scan(meta: K2Meta, tree: K2Tree, cap: int) -> PairResult:
+    """(?S, P, ?O): every 1-cell of the matrix (Morton order), capped.
+
+    Level 0 bit-tests every root child and only then compacts into the
+    ``cap`` frontier: overflow latches only when more than ``cap`` root
+    children are occupied."""
+    from repro_torch.core import k2forest
+
+    return k2forest.range_scan(meta, k2forest.of_tree(tree), 0, cap)

@@ -7,9 +7,10 @@ Tensors on the CPU take the kernel's plain version in ``kernels/ref.py``
 instead; that is the only case in which a plain version runs.  Nothing
 here synchronises with the device.
 
-The last three entry points (``popcount``, ``sorted_intersect_mask``,
+``k2_check_tree`` (the single-tree check, ``k2_check`` at P = 1) and the
+last three entry points (``popcount``, ``sorted_intersect_mask``,
 ``block_spmm``) keep the JAX package's ``repro.kernels.ops`` functions of
-the same names and shape contracts; no query path calls them.
+the same names and shape contracts; no query path calls the last three.
 """
 
 from __future__ import annotations
@@ -112,6 +113,8 @@ def _ints(values) -> ctypes.Array:
 
 
 def _check_tensors(device: torch.device, *, dtypes=(torch.int32,), **tensors) -> None:
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"kernels run on a CUDA card or the CPU, not on {device}")
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
@@ -235,6 +238,14 @@ def k2_check(meta: K2Meta, f, preds, rows, cols) -> torch.Tensor:
                 cols.data_ptr(), q, *_forest_args(meta, f),
                 *_check_grid(q, _sm_count(dev)), out.data_ptr())
     return out
+
+
+def k2_check_tree(meta: K2Meta, tree, rows, cols) -> torch.Tensor:
+    """Batched (S, P, O) probe of one ``K2Tree`` -> bool[Q]: ``k2_check``
+    over the tree as the one-tree forest, every lane's predicate 0."""
+    from repro_torch.core import k2forest
+
+    return k2_check(meta, k2forest.of_tree(tree), torch.zeros_like(rows), rows, cols)
 
 
 def k2_scan(meta: K2Meta, f, preds, keys, axes, *, cap: int):

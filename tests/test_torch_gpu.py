@@ -1290,3 +1290,81 @@ def test_sharded_broker_over_distinct_cards(cuda):
             assert {k: v.tolist() for k, v in g.items()} == {k: v.tolist() for k, v in w.items()}
         else:
             assert np.array_equal(np.asarray(g), np.asarray(w))
+
+
+# ---------------------------------------------------------------------------
+# the single-tree API and the registry's programs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ks, n", [((4,), 1), ((4,), 16), ((4, 4, 4), 0),
+                                   ((3, 3, 3), 80), ((4, 4, 4, 4, 4, 2, 2), 3000)])
+def test_k2tree_api_on_the_card(ks, n, cuda):
+    """``k2tree.check`` (through ``ops.k2_check_tree``), ``row_scan`` /
+    ``col_scan`` at caps below, at and past the root arity, and
+    ``range_scan`` past the level-0 cap, on the card against the same
+    tree on the CPU (the plain versions): H = 1 trees, an empty tree, a
+    3-ary one and a hybrid one; keys negative, in range and past the
+    side."""
+    from repro_torch.core import k2tree
+
+    meta = k2tree.K2Meta(ks)
+    side = meta.side
+    rng = np.random.default_rng(n)
+    rows, cols = rng.integers(0, side, n), rng.integers(0, side, n)
+    cpu_t = k2tree.build(rows, cols, meta, device="cpu")
+    card_t = k2tree.build(rows, cols, meta, device=cuda)
+    before = dict(ops.LAUNCHES)
+    for q in (1, 33, 5000):
+        qr = rng.integers(-3, side + 3, q).astype(np.int32)
+        qc = rng.integers(-3, side + 3, q).astype(np.int32)
+        got = k2tree.check(meta, card_t, torch.from_numpy(qr).to(cuda),
+                           torch.from_numpy(qc).to(cuda))
+        want = k2tree.check(meta, cpu_t, torch.from_numpy(qr), torch.from_numpy(qc))
+        assert torch.equal(got.cpu(), want)
+    keys = sorted({-(2**31), -1, 0, int(rows[0]) if n else 1, side - 1, side, 2**20})
+    for cap in (1, 3, 64, 1024):
+        for key in keys:
+            for fn in (k2tree.row_scan, k2tree.col_scan):
+                _equal([a.cpu() for a in fn(meta, card_t, key, cap)], fn(meta, cpu_t, key, cap))
+    for cap in (1, 17, 4096):
+        _equal([a.cpu() for a in k2tree.range_scan(meta, card_t, cap)],
+               k2tree.range_scan(meta, cpu_t, cap))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["k2_check"] - before["k2_check"] == 3
+    assert ops.LAUNCHES["k2_scan"] - before["k2_scan"] == 8 * len(keys)
+    assert ops.LAUNCHES["k2_range"] - before["k2_range"] == 3
+
+
+@pytest.mark.parametrize("shape", ["serve_64k", "unbounded_4k"])
+def test_registry_smoke_programs_on_the_card(shape, cuda):
+    """The ``k2triples`` smoke cells on (1, 1) and (2, 4) meshes of the
+    card against the same program on a (1, 1) mesh of the CPU."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import mesh as meshlib, programs
+
+    cfg = ARCHS["k2triples"].smoke_cfg
+    ds = rdf.generate(cfg.n_triples, n_subjects=cfg.n_subjects, n_preds=cfg.n_preds,
+                      n_objects=cfg.n_objects, seed=0)
+    stores = {d: k2triples.from_id_triples(ds.ids, n_so=ds.n_so, n_subjects=ds.n_subjects,
+                                           n_objects=ds.n_objects, n_preds=ds.n_preds,
+                                           device=d) for d in ("cpu", cuda)}
+    if shape == "serve_64k":
+        batch = _serve_mix(ds, 256, seed=7)
+    else:
+        rows = ds.ids[np.random.default_rng(7).integers(0, ds.n_triples, 256)]
+        axes = (np.arange(256) % 2).astype(np.int32)
+        batch = (np.where(axes == 1, rows[:, 2], rows[:, 0]).astype(np.int32), axes)
+    cpu_mesh = meshlib.make_mesh((1, 1), ("data", "model"), ["cpu"])
+    prog = programs.build("k2triples", shape, cpu_mesh, smoke=True)
+    want = prog.fn(*programs.inputs(prog, stores["cpu"], cpu_mesh, batch))
+    for mshape in ((1, 1), (2, 4)):
+        mesh = meshlib.make_mesh(mshape, ("data", "model"), [cuda] * (mshape[0] * mshape[1]))
+        prog = programs.build("k2triples", shape, mesh, smoke=True)
+        before = ops.LAUNCHES["k2_scan"]
+        got = prog.fn(*programs.inputs(prog, stores[cuda], mesh, batch))
+        assert ops.LAUNCHES["k2_scan"] - before >= mshape[0] * mshape[1]
+        if shape == "serve_64k":
+            _host_equal(eng.host_result(got), eng.host_result(want))
+        else:
+            _equal([a.cpu() for a in got], want)

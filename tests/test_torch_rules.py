@@ -15,11 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import engine as eng, k2triples
+from repro_torch.core import bitvec, convert, engine as eng, k2tree, k2triples
 from repro_torch.core import query
 from repro_torch.core.query import ExecConfig, resolve_device
 from repro_torch.launch import broker, serve
-from repro_torch.launch import mesh as meshlib
+from repro_torch.launch import mesh as meshlib, programs
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -47,11 +47,13 @@ def test_no_jax_imports(path):
 def test_entry_points_default_to_cuda():
     assert ExecConfig().device == "cuda"
     for fn in (eng.Engine.__init__, k2triples.from_id_triples,
-               k2triples.from_string_triples, serve.run_bench):
+               k2triples.from_string_triples, serve.run_bench, k2tree.build,
+               bitvec.bitvec_from_bits, convert.tree_from_arrays):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert serve.parse_args([]).device == "cuda"
     # a mesh defaults to the visible CUDA cards
     assert inspect.signature(meshlib.make_mesh).parameters["devices"].default is None
+    assert inspect.signature(programs.build).parameters["mesh"].default is None
 
 
 def test_cuda_without_card_raises(monkeypatch):
@@ -64,6 +66,8 @@ def test_cuda_without_card_raises(monkeypatch):
         k2triples.from_id_triples(ids, **kw)
     with pytest.raises(RuntimeError):
         k2triples.from_string_triples([("a", "p", "b")])
+    with pytest.raises(RuntimeError):
+        k2tree.build(ids[:, 0], ids[:, 2], k2tree.K2Meta((4,)))
     st = k2triples.from_id_triples(ids, device="cpu", **kw)
     with pytest.raises(RuntimeError):
         eng.Engine(st)
