@@ -169,6 +169,28 @@ Phases (any failure exits non-zero before the result line):
    cut): peak device memory, 64 sampled keys against the oracle and the
    all-preds scans.  The kernel calls of 10b-10c are held against their
    plain versions on 4,096 random lanes a call.
+11. the transformer LM's serving path (no kernel of its own; products
+   are torch's, and none of the nine kernels may launch):
+   11a. the five LM archs' smoke configs, the same seeded weights and
+   ``TokenStream`` prompts on the card and the CPU: prefill of 2 x 24
+   tokens, then 4 decode steps fed the CPU's greedy tokens, every step's
+   logits within 5e-2 (rtol and atol), the greedy tokens printed;
+   11b. ``tinyllama-1.1b`` at full width through ``programs.build`` and
+   ``programs.lm_inputs``: ``prefill_32k`` cut to B = 8 x S = 4,096 (tokens
+   a second, peak memory), 32 greedy decode steps on its cache, the first
+   against a prefill of the S + 1 tokens (logits within 5e-2);
+   ``decode_32k`` cut to B = 8 and ``long_500k`` uncut (B = 1, 524,288
+   slots), each against a seeded bf16 cache filled to its last slot, the
+   median ms of 8 steps; in each decode layer 0's ``decode_attention``
+   against a float64 softmax on the card (within 1e-2);
+   11c. ``olmoe-1b-7b`` at full width: ``prefill_32k`` cut to B = 4 x S =
+   2,048 (capacity 1,280; the share of (token, expert) pairs dropped), 8
+   greedy decode steps (capacity 4), and one MoE layer on 256 tokens on
+   the card and the CPU with the same inputs and gates:
+   the routing (``_moe_route``: ``_moe_dispatch_indices``' idx / wslot /
+   valid and each token's slots) equal, the output within 1e-2 relative
+   L2.  Each run
+   prints its time, peak memory and bound (``lm_bound``) beside the card.
    Then the ``{"kernels": [...]}`` line (``launches_by_path`` gains
    ``dynamic``, phase 8's launches, ``sharded``, those of 9a's and 9b's
    mesh runs, ``functional``, those of 9c, ``tree``, those of 10a, and
@@ -3091,6 +3113,639 @@ def registry_phase(device, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the transformer LM's serving path (prefill, KV-cache decode)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("tinyllama-1.1b", "gemma2-27b", "command-r-plus-104b", "olmoe-1b-7b",
+            "kimi-k2-1t-a32b")
+# a bf16 attention output against float64 on the same inputs, value by value: two bf16 steps
+BF16_TOL = 1e-2
+# a bf16 tensor (hidden states, k / v, an MoE layer's output) against another device's or
+# path's computation of the same inputs: relative L2, ~2.5 steps of bf16's 2^-8 (a value by
+# value bound fails where a residual sum cancels: its rounding is that of its larger terms)
+REL_TOL = 1e-2
+# f32 logits of the same bf16 hidden states: one f32 product, summed in another order
+F32_TOL = 1e-4
+SMOKE_PROMPT = (2, 24)  # 11a: B x S, then SMOKE_STEPS decode steps
+SMOKE_STEPS = 4
+DENSE_PREFILL = (8, 4096)  # 11b: prefill_32k cut from 32 x 32,768
+DENSE_STEPS = 32
+DENSE_DECODE_B = 8  # decode_32k cut from 128 sequences
+MOE_PREFILL = (4, 2048)  # 11c: prefill_32k cut from 32 x 32,768
+MOE_STEPS = 8
+MOE_LAYER_TOKENS = 256
+TIMED_STEPS = 8  # decode steps timed a decode cell (median)
+
+
+class MoeTally:
+    """While active, wraps ``transformer._moe_route`` and keeps
+    per call, on the device (no sync), the (token, expert) pairs, those
+    kept under capacity and the experts that received a token."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tfm
+
+        self.tfm, self.orig, self.calls = tfm, tfm._moe_route, []
+
+        def counted(gates, E, K, C, e0=0, e_count=None):
+            out = self.orig(gates, E, K, C, e0, e_count)
+            valid = out[2]
+            self.calls.append((gates.shape[0] * K, valid.sum(), valid.view(-1, C).any(1).sum()))
+            return out
+
+        tfm._moe_route = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.tfm._moe_route = self.orig
+
+    def totals(self) -> tuple[int, int, int]:
+        """(pairs, kept pairs, experts reached) summed over every call."""
+        return (sum(c[0] for c in self.calls), sum(int(c[1]) for c in self.calls),
+                sum(int(c[2]) for c in self.calls))
+
+
+def _lm_products(cfg) -> tuple[int, int]:
+    """Per token and layer: the parameters of the attention projections,
+    and those of the dense FFN or, for MoE, of the router."""
+    D, H, Kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    attn = D * H * dh + 2 * D * Kv * dh + H * dh * D
+    return attn, (D * cfg.moe.n_experts if cfg.moe else 3 * D * cfg.d_ff)
+
+
+def lm_bound(cfg, elt: int, *, B: int, S: int, ctx: int, kept: int = 0,
+             reached: int | None = None) -> tuple[float, str, int, int]:
+    """Least time of a prefill (``ctx == 0``: B x S prompt tokens) or of
+    one decode step (B new tokens against ``ctx`` cache positions):
+    (bound_ms, bound_by, bytes, flops).  Bytes: every parameter read once
+    at ``elt`` bytes (the embedding table only for the rows gathered, all
+    of it when tied; MoE: the expert weights of the ``reached`` experts,
+    all when None), tokens, the cache written (prefill) or read and the new
+    k/v written (decode), the f32 logits.  Flops: every product at the bf16
+    tensor-core rate, its operands being bf16 with f32 accumulation (the
+    attention scores and values, the unembedding): projections, the FFN or
+    the router plus 6·D·F_e a kept (token, expert) pair, causal attention
+    (4·dh flops a (query, key) pair and head), the unembedding of the last
+    position."""
+    L, D, H, Kv, dh, V = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                          cfg.vocab)
+    attn, ffn = _lm_products(cfg)
+    expert = 3 * D * cfg.moe.d_ff_expert if cfg.moe else 0
+    rows = B * (S if ctx == 0 else 1)
+    layer_params = L * (attn + ffn + 2 * D)
+    if cfg.moe:
+        layer_params += expert * (L * cfg.moe.n_experts if reached is None else reached)
+    embed_rows = V if cfg.tie_embeddings else min(V, rows)
+    nbytes = elt * (layer_params + D + embed_rows * D + (0 if cfg.tie_embeddings else D * V))
+    kv = 2 * L * Kv * dh * 2  # k and v, bf16, a position
+    if ctx == 0:
+        pairs = B * S * (S + 1) // 2
+        nbytes += 4 * B * S + kv * B * S + 4 * B * V
+    else:
+        pairs = B * ctx
+        nbytes += 8 * B + kv * B * ctx + kv * B + 4 * B * V
+    flops = 2 * rows * L * (attn + ffn) + 2 * expert * kept + 4 * H * dh * L * pairs + 2 * B * D * V
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            int(nbytes), int(flops))
+
+
+def _allclose(got, want, tol: float, what: str) -> float:
+    """Fail unless |got - want| <= tol + tol·|want| everywhere; -> max |got - want|."""
+    import torch
+
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    if got.shape != want.shape:
+        fail(f"{what}: shape {tuple(got.shape)} against {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite values")
+    err = (got - want).abs()
+    bad = err > tol + tol * want.abs()
+    if bad.any():
+        worst = int((err - tol * want.abs()).argmax())
+        rel = float((got - want).norm() / max(float(want.norm()), 1e-30))
+        fail(f"{what}: {int(bad.sum())} of {err.numel()} values past {tol} (rtol and atol), "
+             f"max |diff| {float(err.max()):.4g}, worst {float(got.flatten()[worst]):.6g} "
+             f"against {float(want.flatten()[worst]):.6g}; relative L2 {rel:.3g}")
+    return float(err.max())
+
+
+def _rel_l2(got, want, tol: float, what: str) -> float:
+    """Fail unless ||got - want|| <= tol·||want|| (L2 over the tensor);
+    -> the relative L2 difference."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    if got.shape != want.shape:
+        fail(f"{what}: shape {tuple(got.shape)} against {tuple(want.shape)}")
+    rel = float((got - want).norm() / max(float(want.norm()), 1e-30))
+    if not rel <= tol:
+        fail(f"{what}: relative L2 difference {rel:.4g} past {tol}, max |diff| "
+             f"{float((got - want).abs().max()):.4g}")
+    return rel
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _pad_cache(cache, extra: int):
+    import torch
+
+    return {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, extra)) for k, v in cache.items()}
+
+
+def _greedy(logits):
+    """The next token of each row: its logits' argmax, as int32."""
+    return logits.argmax(dim=-1).int()
+
+
+def _prefill_layers(cfg, params, toks, device=None):
+    """A prefill layer by layer (``transformer._layer``), each layer fed
+    the previous layer's output of ``params``' own run; with ``device``
+    each layer is run again there on that same input (its own copy of the
+    parameters).  -> (hidden states entering each layer and the last
+    one's output, k / v of each layer, the device's layer outputs and k / v
+    or None)."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    x = tfm._embed(params, toks)
+    B, S = toks.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    states, kvs, other = [x], [], []
+    for i, is_local in enumerate(tfm.local_flags(cfg)):
+        x, kv = tfm._layer(cfg, tfm._layer_params(params, i), x, positions, is_local)
+        if device is not None:
+            there = _tree_to(tfm._layer_params(params, i), device)
+            other.append(tfm._layer(cfg, there, states[-1].to(device), positions.to(device),
+                                    is_local))
+        states.append(x)
+        kvs.append(kv)
+    return states, kvs, other or None
+
+
+def _logits_of(cfg, params, x):
+    """The last position's logits of final hidden states x [B, S, D]."""
+    from repro_torch.models import layers as L, transformer as tfm
+
+    return tfm.unembed_logits(cfg, params, L.rms_norm(x[:, -1:], params["final_norm"]))[:, 0]
+
+
+def smoke_11a(device, seed: int) -> dict:
+    """Each LM arch's smoke config on the card and the CPU, the same
+    seeded weights and tokens.  Free-running, prefill then decode steps fed
+    the CPU's greedy tokens, logits compared and printed (not held: with
+    random weights a bf16 rounding that lands the other way grows through
+    the layers).  Held, on identical inputs: every layer of the prefill and
+    of each decode step (fed the CPU's layer input and, in decode, the
+    CPU's cache) within ``REL_TOL``, its k / v and cache writes too, and
+    the logits of the CPU's final hidden states within ``F32_TOL``."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tfm
+
+    out = {}
+    for i, arch in enumerate(LM_ARCHS):
+        spec = ARCHS[arch]
+        cfg = spec.smoke_cfg
+        dt = torch.bfloat16 if spec.param_dtype == "bfloat16" else torch.float32
+        params = tfm.init(cfg, torch.Generator().manual_seed(seed + i), device="cpu", dtype=dt)
+        card = _tree_to(params, device)
+        B, S = SMOKE_PROMPT
+        toks = torch.from_numpy(TokenStream(cfg.vocab, S, seed=seed + i).batch(B)["tokens"])
+        # free-running
+        runs = []  # the CPU's, then the card's: (params, cache, logits of each step)
+        for dev, p in (("cpu", params), (device, card)):
+            logits, cache = tfm.prefill(cfg, p, toks.to(dev))
+            runs.append((p, _pad_cache(cache, SMOKE_STEPS), [logits.cpu()]))
+        greedy = [_greedy(runs[0][2][0])]
+        lengths = torch.full((B,), S, dtype=torch.int32)
+        for step in range(SMOKE_STEPS):
+            for dev, (p, cache, logits) in zip(("cpu", device), runs):
+                new, _ = tfm.decode_step(cfg, p, cache, greedy[-1].to(dev),
+                                         (lengths + step).to(dev))
+                logits.append(new.cpu())
+            greedy.append(_greedy(runs[0][2][-1]))
+        free = max(float((a - b).abs().max()) for a, b in zip(runs[1][2], runs[0][2]))
+        same = all(torch.equal(_greedy(a), b) for a, b in zip(runs[1][2], greedy))
+        # held, layer by layer on identical inputs
+        err = dict(layer=0.0, kv=0.0, logits=0.0)
+        states, kvs, there = _prefill_layers(cfg, params, toks, device)
+        for k, ((x, kv), want_x, want_kv) in enumerate(zip(there, states[1:], kvs)):
+            err["layer"] = max(err["layer"], _rel_l2(
+                x, want_x, REL_TOL, f"11a {arch} prefill layer {k}"))
+            for a, b in zip(kv, want_kv):
+                err["kv"] = max(err["kv"], _rel_l2(
+                    a, b, REL_TOL, f"11a {arch} prefill k/v {k}"))
+        cache = _pad_cache({"k": torch.stack([kv[0] for kv in kvs]),
+                            "v": torch.stack([kv[1] for kv in kvs])}, SMOKE_STEPS)
+        x = states[-1]
+        for step in range(SMOKE_STEPS + 1):
+            err["logits"] = max(err["logits"], _allclose(
+                _logits_of(cfg, card, x.to(device)), _logits_of(cfg, params, x), F32_TOL,
+                f"11a {arch} step {step}: logits of the same hidden states"))
+            if step == SMOKE_STEPS:
+                break
+            pos = lengths + step
+            x = tfm._embed(params, greedy[step])
+            for k, is_local in enumerate(tfm.local_flags(cfg)):
+                kc, vc = cache["k"][k], cache["v"][k]
+                kc_d, vc_d = kc.to(device), vc.to(device)  # before the CPU's write
+                lp = tfm._layer_params(params, k)
+                y = tfm._decode_layer(cfg, _tree_to(lp, device), x.to(device), kc_d, vc_d,
+                                      pos.to(device), is_local)
+                x = tfm._decode_layer(cfg, lp, x, kc, vc, pos, is_local)
+                err["layer"] = max(err["layer"], _rel_l2(
+                    y, x, REL_TOL, f"11a {arch} step {step} layer {k}"))
+                for a, b in ((kc_d, kc), (vc_d, vc)):
+                    err["kv"] = max(err["kv"], _rel_l2(
+                        a, b, REL_TOL, f"11a {arch} step {step} cache {k}"))
+            x = x[:, None, :]
+        out[arch] = dict(err=err, free=free, same_greedy=same,
+                         greedy=torch.stack(greedy, 1).tolist())
+    return out
+
+
+def _held_layer(cfg, params, cache, tokens_new, lengths, where: str) -> float:
+    """Layer 0 of the decode step just run: its ``decode_attention`` on the
+    card against a float64 softmax on the card over the same q and cache;
+    -> max |diff|."""
+    import torch
+
+    from repro_torch.models import layers as L, transformer as tfm
+
+    lp = tfm._layer_params(params, 0)
+    h = L.rms_norm(tfm._embed(params, tokens_new), lp["attn_norm"])
+    pos = lengths.to(torch.int32)
+    q = L.rope(tfm._proj(h, lp["wq"])[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    kc, vc = cache["k"][0], cache["v"][0]
+    window = cfg.window if tfm.local_flags(cfg)[0] else None
+    got = L.decode_attention(q, kc, vc, length=pos + 1, window=window,
+                             attn_softcap=cfg.attn_softcap)
+    B, H, dh = q.shape
+    S, Kv = kc.shape[1], kc.shape[2]
+    q64 = q.double().reshape(B, Kv, H // Kv, dh)
+    s = torch.einsum("bkgd,bskd->bkgs", q64, kc.double()) / dh ** 0.5
+    if cfg.attn_softcap is not None:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    p_ = torch.arange(S, device=q.device)
+    ln = (pos + 1)[:, None, None, None]
+    mask = p_ < ln
+    if window is not None:
+        mask = mask & (p_ > ln - 1 - window)
+    s = torch.where(mask, s, -torch.inf)
+    want = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1), vc.double()).reshape(B, H, dh)
+    del s, q64
+    return _allclose(got, want, BF16_TOL, f"{where}: layer 0's decode_attention against float64")
+
+
+def _against_prefill(cfg, params, toks, first, padded, logits, written) -> dict:
+    """The first decode step (token ``first`` at position S into the
+    prefill's cache ``padded``) against a prefill of the S + 1 tokens.
+    Held, each layer on identical inputs: the decode layer, fed the S + 1
+    prefill's hidden state at S and the S-token prefill's cache, gives that
+    prefill's next hidden state at S and its k / v there, within
+    ``REL_TOL``.  Reported: the free-running step's logits (``logits``)
+    against the S + 1 prefill's, and per layer the relative L2 difference
+    between the k the free-running step wrote at S (``written`` [L, B, Kv,
+    dh]) and the S + 1 prefill's (how a rounding difference grows)."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    B, S = toks.shape
+    states, kvs, _ = _prefill_layers(cfg, params, torch.cat([toks, first[:, None]], dim=1))
+    ext = _logits_of(cfg, params, states[-1][:, S:])
+    pos = torch.full((B,), S, dtype=torch.int32, device=toks.device)
+    layer = kv = 0.0
+    growth = []
+    for k, is_local in enumerate(tfm.local_flags(cfg)):
+        kc, vc = padded["k"][k].clone(), padded["v"][k].clone()
+        y = tfm._decode_layer(cfg, tfm._layer_params(params, k), states[k][:, S], kc, vc, pos,
+                              is_local)
+        layer = max(layer, _rel_l2(y, states[k + 1][:, S], REL_TOL,
+                                   f"11b: decode layer {k} against the S + 1 prefill"))
+        for a, b in ((kc[:, S], kvs[k][0][:, S]), (vc[:, S], kvs[k][1][:, S])):
+            kv = max(kv, _rel_l2(a, b, REL_TOL, f"11b: layer {k}'s k/v at S"))
+        growth.append(float((written[k] - kvs[k][0][:, S]).float().norm()
+                            / kvs[k][0][:, S].float().norm()))
+    return dict(layer_err=layer, kv_err=kv, free=float((logits - ext).abs().max()),
+                same_argmax=float((_greedy(logits) == _greedy(ext)).float().mean()),
+                growth=growth)
+
+
+def _decode_steps(cfg, prog, params, cache, tokens_new, lengths, n: int, *, greedy: bool):
+    """``n`` decode steps through the program, each timed on the host clock
+    around a synchronised call; -> (per-step ms, logits of each step,
+    tokens fed); greedy feeds each step's argmax to the next, otherwise the
+    same token and lengths repeat."""
+    import torch
+
+    ms, logits, fed = [], [], [tokens_new]
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = prog.fn(params, cache, fed[-1], lengths + i if greedy else lengths)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(out)
+        if greedy:
+            fed.append(_greedy(out))
+    return ms, logits, fed
+
+
+def _profiled(fn) -> dict:
+    """One run of ``fn`` under the CUDA profiler: wall ms (host clock, ended
+    by a synchronise), device busy ms (``device_busy``), the idle share,
+    the launches and the five kernels of most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = device_busy(prof)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    top = sorted(((e.key, dev_us(e) / 1e3, e.count) for e in prof.key_averages()),
+                 key=lambda t: -t[1])[:5]
+    return dict(wall_ms=wall, busy_ms=busy["busy_ms"], idle=1 - busy["busy_ms"] / wall,
+                kernels=busy["kernels"], top=[(k[:60], round(ms, 3), n) for k, ms, n in top])
+
+
+def _prof_line(label: str, p: dict) -> str:
+    return (f"{label} profiled: wall {p['wall_ms']:.3f} ms, device busy {p['busy_ms']:.3f} ms "
+            f"(idle {p['idle']:.3f}), {p['kernels']} kernels; most device time (name, ms, "
+            f"calls): {p['top']}")
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _peak_reset(device) -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def dense_11b(device, seed: int) -> dict:
+    """``tinyllama-1.1b`` at full width through ``programs.build``:
+    prefill_32k cut to ``DENSE_PREFILL`` then ``DENSE_STEPS`` greedy
+    decode steps (the first against a prefill of S + 1 tokens);
+    decode_32k cut to ``DENSE_DECODE_B`` sequences and long_500k uncut,
+    each against a seeded cache filled to its last slot."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import programs
+
+    arch = "tinyllama-1.1b"
+    out = {}
+    prog = programs.build(arch, "prefill_32k")
+    cfg = prog.cfg
+    B, S = DENSE_PREFILL
+    base = _peak_reset(device)
+    params, toks = programs.lm_inputs(prog, device, seed=seed, batch=B, seq_len=S)
+    elt = params["embed"].element_size()
+    prog.fn(params, toks[:, :512])  # warm-up: cuBLAS picks its kernels
+    (logits, cache), secs = _timed(lambda: prog.fn(params, toks))
+    peak = torch.cuda.max_memory_allocated(device)
+    out["prefill"] = dict(B=B, S=S, seconds=secs, tokens_per_s=B * S / secs, peak=peak,
+                          base=base, bound=lm_bound(cfg, elt, B=B, S=S, ctx=0),
+                          prof=_profiled(lambda: prog.fn(params, toks)))
+    # decode: the prefill cache padded by the steps to come
+    dec = programs.build(arch, "decode_32k")
+    cache = _pad_cache(cache, DENSE_STEPS)
+    padded = {k: v.clone() for k, v in cache.items()}  # before the steps' writes
+    first = _greedy(logits)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=device)
+    _peak_reset(device)
+    ms, steps, fed = _decode_steps(cfg, dec, params, cache, first, lengths, DENSE_STEPS,
+                                   greedy=True)
+    peak = torch.cuda.max_memory_allocated(device)
+    held = _held_layer(cfg, params, cache, fed[-2], lengths + DENSE_STEPS - 1,
+                       "11b prefill's decode")
+    written = cache["k"][:, :, S].clone()
+    prof = _profiled(lambda: dec.fn(params, cache, fed[-2], lengths + DENSE_STEPS - 1))
+    del cache
+    out["decode_after_prefill"] = dict(
+        B=B, ctx=S + DENSE_STEPS, ms=ms, median_ms=float(np.median(ms)), peak=peak,
+        bound=lm_bound(cfg, elt, B=B, S=1, ctx=S + DENSE_STEPS // 2), held=held, prof=prof,
+        greedy=torch.stack(fed, 1)[:2, :8].tolist(),
+        **_against_prefill(cfg, params, toks, first, padded, steps[0], written))
+    del steps, logits, toks, padded
+    for shape, b in (("decode_32k", DENSE_DECODE_B), ("long_500k", None)):
+        prog = programs.build(arch, shape)
+        del params
+        base = _peak_reset(device)
+        params, cache, new, lengths = programs.lm_inputs(prog, device, seed=seed, batch=b)
+        b, ctx = cache["k"].shape[1], cache["k"].shape[2]
+        dec_ms, steps, _ = _decode_steps(cfg, prog, params, cache, new, lengths, TIMED_STEPS + 1,
+                                         greedy=False)
+        peak = torch.cuda.max_memory_allocated(device)
+        for x in steps:
+            if not torch.isfinite(x).all() or tuple(x.shape) != (b, cfg.vocab):
+                fail(f"11b {shape}: logits of shape {tuple(x.shape)}, finite {bool(torch.isfinite(x).all())}")
+        held = _held_layer(cfg, params, cache, new, lengths, f"11b {shape}")
+        out[shape] = dict(B=b, ctx=ctx, ms=dec_ms[1:], median_ms=float(np.median(dec_ms[1:])),
+                          peak=peak, base=base, held=held,
+                          prof=_profiled(lambda: prog.fn(params, cache, new, lengths)),
+                          cache_bytes=sum(v.numel() * v.element_size() for v in cache.values()),
+                          bound=lm_bound(cfg, elt, B=b, S=1, ctx=ctx))
+        del cache, steps
+    del params
+    return out
+
+
+def moe_11c(device, seed: int) -> dict:
+    """``olmoe-1b-7b`` at full width: prefill_32k cut to ``MOE_PREFILL``
+    (its capacity drops counted), ``MOE_STEPS`` greedy decode steps, and
+    one MoE layer on ``MOE_LAYER_TOKENS`` tokens on the card and the CPU
+    with the same inputs and gates."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import programs
+    from repro_torch.models import transformer as tfm
+
+    arch = "olmoe-1b-7b"
+    out = {}
+    prog = programs.build(arch, "prefill_32k")
+    cfg = prog.cfg
+    B, S = MOE_PREFILL
+    base = _peak_reset(device)
+    params, toks = programs.lm_inputs(prog, device, seed=seed, batch=B, seq_len=S)
+    elt = params["embed"].element_size()
+    with MoeTally() as tally:  # also the warm-up
+        prog.fn(params, toks)
+    pairs, kept, _ = tally.totals()
+    _peak_reset(device)
+    (logits, cache), secs = _timed(lambda: prog.fn(params, toks))
+    peak = torch.cuda.max_memory_allocated(device)
+    out["prefill"] = dict(B=B, S=S, seconds=secs, tokens_per_s=B * S / secs, peak=peak,
+                          base=base, capacity=tfm.moe_capacity(cfg, B * S), pairs=pairs,
+                          kept=kept, dropped_share=1 - kept / pairs,
+                          bound=lm_bound(cfg, elt, B=B, S=S, ctx=0, kept=kept),
+                          prof=_profiled(lambda: prog.fn(params, toks)))
+    dec = programs.build(arch, "decode_32k")
+    cache = _pad_cache(cache, MOE_STEPS)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=device)
+    _peak_reset(device)
+    with MoeTally() as tally:
+        ms, steps, fed = _decode_steps(cfg, dec, params, cache, _greedy(logits), lengths,
+                                       MOE_STEPS, greedy=True)
+    peak = torch.cuda.max_memory_allocated(device)
+    d_pairs, d_kept, reached = tally.totals()
+    held = _held_layer(cfg, params, cache, fed[-2], lengths + MOE_STEPS - 1, "11c decode")
+    prof = _profiled(lambda: dec.fn(params, cache, fed[-2], lengths + MOE_STEPS - 1))
+    for x in steps:
+        if not torch.isfinite(x).all():
+            fail("11c: non-finite decode logits")
+    out["decode"] = dict(B=B, ctx=S + MOE_STEPS, layers=cfg.n_layers, ms=ms, median_ms=float(np.median(ms)), peak=peak,
+                         capacity=tfm.moe_capacity(cfg, B), pairs=d_pairs, kept=d_kept,
+                         reached_per_step=reached / MOE_STEPS, held=held, prof=prof,
+                         bound=lm_bound(cfg, elt, B=B, S=1, ctx=S + MOE_STEPS // 2,
+                                        kept=d_kept // MOE_STEPS, reached=reached // MOE_STEPS),
+                         greedy=torch.stack(fed, 1)[:2].tolist())
+    del cache, steps, logits
+    # one MoE layer at full width: the card against the CPU, the same gates
+    g = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn((MOE_LAYER_TOKENS, cfg.d_model), generator=g).bfloat16()
+    lp_card = {k: params["layers"][k][0] for k in ("router", "we1", "we3", "we2")}
+    lp_cpu = {k: v.cpu() for k, v in lp_card.items()}
+    m = cfg.moe
+    C = tfm.moe_capacity(cfg, MOE_LAYER_TOKENS)
+    gates = tfm.moe_gates(lp_cpu, x)
+    t0 = time.perf_counter()
+    want_idx = tfm._moe_route(gates, m.n_experts, m.top_k, C)
+    want = tfm._moe_expert_compute(lp_cpu, x, *want_idx[:3], m.n_experts, C, want_idx[3])
+    cpu_s = time.perf_counter() - t0
+    got_idx = tfm._moe_route(gates.to(device), m.n_experts, m.top_k, C)
+    for name, a, b in zip(("idx", "wslot", "valid", "tab"), got_idx, want_idx):
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            fail(f"11c: the routing's {name} differs between the card and the CPU")
+    got = tfm._moe_expert_compute(lp_card, x.to(device), *got_idx[:3], m.n_experts, C,
+                                  got_idx[3])
+    out["layer"] = dict(T=MOE_LAYER_TOKENS, C=C, kept=int(want_idx[2].sum()), cpu_s=cpu_s,
+                        err=_rel_l2(got, want, REL_TOL,
+                                    "11c: the MoE layer's output, card against the CPU"))
+    del params
+    return out
+
+
+def lm_phase(device, seed: int) -> dict:
+    """Phase 11; fails unless every check holds and none of the nine kernels
+    launched (the LM path has none)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    t_all = time.perf_counter()
+    before = dict(ops.LAUNCHES)
+    print(f"11: torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32} (f32 products in full f32)", flush=True)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 f32 products are on: the LM's f32 attention products would lose bits")
+
+    phase("11a. the five LM smoke configs, card against the CPU")
+    t0 = time.perf_counter()
+    smoke = smoke_11a(device, seed)
+    for arch, r in smoke.items():
+        e = r["err"]
+        print(f"11a {arch}: prefill {SMOKE_PROMPT[0]} x {SMOKE_PROMPT[1]} + {SMOKE_STEPS} decode "
+              f"steps; on identical inputs, card against the CPU, relative L2: every layer "
+              f"{e['layer']:.3g}, k/v and cache {e['kv']:.3g} (tol {REL_TOL}); logits "
+              f"{e['logits']:.3g} (tol {F32_TOL}); free-running logits max |diff| "
+              f"{r['free']:.3g} (not held), the card's argmax the CPU's at every step: "
+              f"{r['same_greedy']}; greedy tokens (CPU) {r['greedy']}", flush=True)
+    print(f"11a done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    card = gpu_line()
+    phase("11b. tinyllama-1.1b at full width")
+    t0 = time.perf_counter()
+    d = dense_11b(device, seed)
+    pf, da = d["prefill"], d["decode_after_prefill"]
+    print(f"11b prefill_32k cut to B = {pf['B']} x S = {pf['S']} (from 32 x 32,768): "
+          f"{pf['seconds']:.4f}s, {pf['tokens_per_s']:.1f} tokens/s, peak device memory "
+          f"{pf['peak']} bytes ({pf['base']} resident before); bound {pf['bound'][0]:.3f} ms "
+          f"({pf['bound'][1]}; {pf['bound'][2]} bytes, {pf['bound'][3]} flops); {card}",
+          flush=True)
+    print(_prof_line("11b prefill", pf["prof"]), flush=True)
+    print(f"11b {DENSE_STEPS} greedy decode steps on the prefill's cache (B = {da['B']}, "
+          f"{da['ctx']} slots): median {da['median_ms']:.3f} ms a step (min "
+          f"{min(da['ms']):.3f}, max {max(da['ms']):.3f}), peak {da['peak']} bytes; bound "
+          f"{da['bound'][0]:.4f} ms ({da['bound'][1]}; {da['bound'][2]} bytes); layer 0 "
+          f"against float64 {da['held']:.3g}; tokens (2 rows, 8 steps) {da['greedy']}; {card}",
+          flush=True)
+    print(_prof_line("11b a decode step on the prefill's cache", da["prof"]), flush=True)
+    print(f"11b the first decode step against a prefill of the S + 1 tokens: each decode layer "
+          f"on the prefill's inputs, relative L2 {da['layer_err']:.3g}, its k/v at S "
+          f"{da['kv_err']:.3g} (tol {REL_TOL}); free-running logits max |diff| "
+          f"{da['free']:.4g} (not held), argmax equal on {da['same_argmax']:.3f} of rows; "
+          f"relative L2 of the k written at S, layer by layer "
+          f"{[round(g, 5) for g in da['growth']]}", flush=True)
+    for shape in ("decode_32k", "long_500k"):
+        r = d[shape]
+        cut = (f"cut to B = {r['B']} (from 128)" if shape == "decode_32k" else "uncut")
+        print(f"11b {shape} {cut}, {r['ctx']} cache slots ({r['cache_bytes']} bytes of bf16 "
+              f"cache): median {r['median_ms']:.3f} ms a step over {len(r['ms'])} (min "
+              f"{min(r['ms']):.3f}, max {max(r['ms']):.3f}), peak {r['peak']} bytes "
+              f"({r['base']} before); bound {r['bound'][0]:.4f} ms ({r['bound'][1]}; "
+              f"{r['bound'][2]} bytes); layer 0 against float64 {r['held']:.3g}; {card}",
+              flush=True)
+        print(_prof_line(f"11b a {shape} step", r["prof"]), flush=True)
+    print(f"11b done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    phase("11c. olmoe-1b-7b at full width")
+    t0 = time.perf_counter()
+    m = moe_11c(device, seed + 1)
+    pf, dc, ly = m["prefill"], m["decode"], m["layer"]
+    print(f"11c prefill_32k cut to B = {pf['B']} x S = {pf['S']} (from 32 x 32,768), capacity "
+          f"C = {pf['capacity']}: {pf['seconds']:.4f}s, {pf['tokens_per_s']:.1f} tokens/s, "
+          f"peak {pf['peak']} bytes ({pf['base']} before); (token, expert) pairs dropped by "
+          f"capacity {pf['pairs'] - pf['kept']} of {pf['pairs']} ({pf['dropped_share']:.5f}); "
+          f"bound {pf['bound'][0]:.3f} ms ({pf['bound'][1]}; {pf['bound'][2]} bytes, "
+          f"{pf['bound'][3]} flops); {card}", flush=True)
+    print(_prof_line("11c prefill", pf["prof"]), flush=True)
+    print(f"11c {MOE_STEPS} greedy decode steps (B = {dc['B']}, C = {dc['capacity']}): median "
+          f"{dc['median_ms']:.3f} ms a step (min {min(dc['ms']):.3f}, max {max(dc['ms']):.3f}), "
+          f"peak {dc['peak']} bytes; pairs kept {dc['kept']} of {dc['pairs']}, experts reached "
+          f"{dc['reached_per_step']:.1f} a step over {dc['layers']} layers; bound "
+          f"{dc['bound'][0]:.4f} ms ({dc['bound'][1]}); layer 0 against float64 "
+          f"{dc['held']:.3g}; tokens (2 rows) {dc['greedy']}; {card}", flush=True)
+    print(_prof_line("11c a decode step", dc["prof"]), flush=True)
+    print(f"11c one MoE layer on {ly['T']} tokens (C = {ly['C']}, {ly['kept']} pairs kept): "
+          f"idx / wslot / valid / slots equal on the card and the CPU, output relative L2 "
+          f"{ly['err']:.3g} (tol {REL_TOL}); the CPU layer took {ly['cpu_s']:.2f}s", flush=True)
+    print(f"11c done in {time.perf_counter() - t0:.1f}s", flush=True)
+    launched = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+    if launched:
+        fail(f"phase 11 launched kernels of the k²-triples path: {launched}")
+    print(f"11 done in {time.perf_counter() - t_all:.1f}s; none of the nine kernels launched",
+          flush=True)
+    return dict(smoke=smoke, dense=d, moe=m)
+
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3349,6 +4004,7 @@ def main(argv=None) -> int:
         row["max_abs_err"] = max(row["max_abs_err"], reg["err"].get(name, 0))
     for label, (name, times) in reg["times"].items():
         next(row for row in rows if row["name"] == name)["shapes"][label] = times
+    lm_phase(device, args.seed + 11)
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

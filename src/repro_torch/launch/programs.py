@@ -1,22 +1,30 @@
 """Program builders: one (arch × shape × mesh) cell -> a runnable program.
 
 ``build(arch_id, shape_id, mesh)`` returns a :class:`Program` whose
-``in_specs`` are tensors on the ``meta`` device, the JAX builder's specs
-(uint32 words as int32): nothing is allocated.  The batch specs and the
-arena's tree count and level tables are the cell's; the arena's word
-widths are an estimate made without a store (``_engine_forest_specs``)
-and differ from a real store's.  ``inputs(program, store, mesh, batch)``
-makes the concrete arguments on the mesh's devices, with the store's own
-widths, and ``program.fn(*inputs(...))`` runs the cell: size bytes or
-memory from what ``inputs`` returns, not from ``in_specs``.
+``in_specs`` are tensors on the ``meta`` device in the JAX builder's
+shapes and dtypes (uint32 words as int32): nothing is allocated.
 
-Cell kinds: engine — sharded SPARQL serve batches (the paper's program).
-The LM, GNN and recsys builders are not ported (ROADMAP Queue 1 item 3).
+* engine (k²-triples, the paper's program): the sharded serve step or the
+  all-preds sweep.  The batch specs and the arena's tree count and level
+  tables are the cell's; the arena's word widths are an estimate made
+  without a store (``_engine_forest_specs``) and differ from a real
+  store's.  ``inputs(program, store, mesh, batch)`` makes the concrete
+  arguments on the mesh's devices, with the store's own widths.
+* lm (the five transformer archs): ``prefill_32k`` a prefill program
+  ``fn(params, tokens)``, ``decode_32k`` / ``long_500k`` a decode step
+  ``fn(params, cache, tokens_new, lengths)``, on one device.
+  ``lm_inputs(program, device)`` makes seeded parameters and a prompt or
+  a cache, at the cell's batch and length or smaller ones.
+
+``program.fn(*inputs(...))`` runs the cell: size bytes or memory from
+what the inputs hold, not from ``in_specs``.  ``train_4k``, a mesh of more
+than one device for an LM program and the GNN and recsys archs are
+refused (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -24,22 +32,36 @@ from repro_torch.configs import base as cb
 from repro_torch.core import engine as eng, k2forest
 from repro_torch.core.k2forest import K2Forest
 from repro_torch.core.k2tree import K2Meta, hybrid_ks
+from repro_torch.core.query import resolve_device
+from repro_torch.data.tokens import TokenStream
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.mesh import MODEL_AXIS, Mesh
+from repro_torch.models import transformer as tfm
 
 
 class Program(NamedTuple):
     name: str
     fn: Callable
-    # meta-device tensors: the padded arena (word widths estimated), then the batch
+    # meta-device tensors: engine, the padded arena (word widths estimated)
+    # then the batch; lm, the parameter tree then tokens / cache, tokens, lengths
     in_specs: tuple
-    meta: K2Meta  # the tree geometry ``fn`` traverses
+    meta: K2Meta | None = None  # engine: the tree geometry ``fn`` traverses
     # analytic model flops, the JAX package's figure for the same cell
     model_flops: float = 0.0
+    cfg: Any = None  # lm: the TransformerCfg ``fn`` runs
 
 
 def _spec(*shape: int) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.int32, device="meta")
+
+
+def _lead_device(mesh: Mesh) -> torch.device:
+    """The one device an LM program runs on; a larger mesh is refused."""
+    if len(mesh.devices) != 1:
+        raise ValueError(f"an LM program runs on one device, the mesh holds {mesh.sizes}: the "
+                         "sharded LM and the expert-parallel MoE (dist/, moe_ffn_shmap) are "
+                         "not ported (ROADMAP Queue 1 item 3)")
+    return mesh.lead
 
 
 def _pad_to(x: int, mult: int) -> int:
@@ -114,6 +136,8 @@ def inputs(program: Program, store, mesh: Mesh, batch) -> tuple:
     program was built for): the forest padded to the model axis and
     sharded, and ``batch`` on the mesh's lead device — a ``ServeBatch``
     for the serve step, ``(keys, axes)`` for the sweep."""
+    if program.meta is None:
+        raise ValueError(f"{program.name} is not an engine program (see lm_inputs)")
     fspec, *bspecs = program.in_specs
     if store.meta != program.meta:
         raise ValueError(f"the store's trees {store.meta.ks} are not the program's "
@@ -136,20 +160,111 @@ def inputs(program: Program, store, mesh: Mesh, batch) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# LM (transformer) programs: prefill and decode on one device
+# ---------------------------------------------------------------------------
+
+
+def lm_train_flops(cfg: tfm.TransformerCfg, tokens: int) -> float:
+    """6·N_active·tokens: a training step's model flops."""
+    return 6.0 * cfg.n_active_params * tokens
+
+
+def _param_dtype(arch: cb.ArchSpec) -> torch.dtype:
+    return torch.bfloat16 if arch.param_dtype == "bfloat16" else torch.float32
+
+
+def _lm_dims(shape: cb.ShapeSpec, smoke: bool) -> tuple[int, int]:
+    return (2, 64) if smoke else (shape.dims["global_batch"], shape.dims["seq_len"])
+
+
+def build_lm(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *,
+             smoke: bool = False) -> Program:
+    """``prefill_32k``: ``fn(params, tokens int32[B, S])`` -> (logits [B,
+    V] f32, cache); a decode shape: ``fn(params, cache [L, B, S, Kv, dh]
+    bf16, tokens_new int32[B], lengths int32[B])`` -> (logits, cache), the
+    cache written in place.  Smoke programs are B = 2, S = 64, as in the
+    JAX builder.  ``mesh`` (default: the current card) must hold one
+    device; the program runs wherever its inputs are."""
+    if shape.kind == "train":
+        raise NotImplementedError(
+            f"{arch.arch_id}:{shape.shape_id}: training (the flash backward, the optimizers, "
+            "the loss gradient) is not ported yet (ROADMAP Queue 1 item 3)")
+    _lead_device(meshlib.make_mesh((1, 1), ("data", MODEL_AXIS)) if mesh is None else mesh)
+    cfg: tfm.TransformerCfg = arch.smoke_cfg if smoke else arch.cfg
+    B, S = _lm_dims(shape, smoke)
+    pspecs = tfm.param_specs(cfg, _param_dtype(arch))
+    name = f"{arch.arch_id}:{shape.shape_id}"
+    if shape.kind == "prefill":
+        return Program(
+            name=name, fn=lambda p, t: tfm.prefill(cfg, p, t), in_specs=(pspecs, _spec(B, S)),
+            model_flops=2.0 * cfg.n_active_params * B * S, cfg=cfg,
+        )
+    return Program(
+        name=name, fn=lambda p, c, t, ln: tfm.decode_step(cfg, p, c, t, ln),
+        in_specs=(pspecs, tfm.KVCache.specs(cfg, B, S), _spec(B), _spec(B)),
+        model_flops=2.0 * cfg.n_active_params * B
+        + 4.0 * B * S * cfg.n_layers * cfg.n_kv_heads * cfg.d_head,
+        cfg=cfg,
+    )
+
+
+def lm_inputs(program: Program, device="cuda", *, seed: int = 0, batch: int | None = None,
+              seq_len: int | None = None) -> tuple:
+    """The concrete arguments of an LM program on ``device``: parameters
+    from ``tfm.init`` with a generator on ``device`` seeded ``seed``, in
+    the program's parameter dtype; then for prefill ``TokenStream(vocab,
+    seq_len, seed=seed)`` prompts, for decode a cache of bf16 normals
+    (seed ``seed + 1``) of ``seq_len`` positions, one ``TokenStream`` token
+    a sequence and ``lengths`` ``seq_len - 1`` (the new token takes the
+    last slot).
+    ``batch`` and ``seq_len`` default to the program's and may not exceed
+    them."""
+    dev = resolve_device(device)
+    if program.cfg is None:
+        raise ValueError(f"{program.name} is not an LM program")
+    cfg = program.cfg
+    pspecs, *rest = program.in_specs
+    B, S = rest[0].shape if len(rest) == 1 else rest[0]["k"].shape[1:3]
+    b, s = B if batch is None else batch, S if seq_len is None else seq_len
+    if not (1 <= b <= B and 1 <= s <= S):
+        raise ValueError(f"{program.name} takes batch <= {B} and length <= {S}, "
+                         f"asked for {b} x {s}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = tfm.init(cfg, gen, device=dev, dtype=pspecs["embed"].dtype)
+    if len(rest) == 1:
+        toks = TokenStream(cfg.vocab, s, seed=seed).batch(b)["tokens"]
+        return params, torch.from_numpy(toks).to(dev)
+    gen.manual_seed(seed + 1)
+    cache = {k: torch.randn((cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head), generator=gen,
+                            dtype=torch.bfloat16, device=dev) for k in ("k", "v")}
+    toks = TokenStream(cfg.vocab, 1, seed=seed).batch(b)["tokens"][:, 0]
+    return (params, cache, torch.from_numpy(toks).to(dev),
+            torch.full((b,), s - 1, dtype=torch.int32, device=dev))
+
+
+# ---------------------------------------------------------------------------
 
 
 def build(arch_id: str, shape_id: str, mesh: Mesh | None = None, *,
           smoke: bool = False) -> Program:
-    """The program of one cell; ``mesh`` defaults to :func:`default_mesh`."""
+    """The program of one cell.  ``mesh`` defaults to :func:`default_mesh`
+    for the engine and to the current card for an LM program."""
     if arch_id not in cb.ARCHS:
-        raise KeyError(f"{arch_id!r} is not registered: only the engine family is "
-                       "ported (LM, GNN and recsys wait for ROADMAP Queue 1 item 3)")
+        raise KeyError(f"{arch_id!r} is not registered: the GNN and recsys archs are not "
+                       "ported (ROADMAP Queue 1 item 3)")
     arch = cb.get(arch_id)
-    return build_engine(arch, arch.shape(shape_id),
-                        default_mesh() if mesh is None else mesh, smoke=smoke)
+    shape = arch.shape(shape_id)
+    if shape.skip:
+        raise ValueError(f"{arch_id}:{shape_id} skipped: {shape.skip}")
+    if arch.family == "lm":
+        return build_lm(arch, shape, mesh, smoke=smoke)
+    return build_engine(arch, shape, default_mesh() if mesh is None else mesh, smoke=smoke)
 
 
-def all_cells():
+def all_cells(include_engine: bool = True):
     for arch_id, arch in cb.ARCHS.items():
+        if arch.family == "engine" and not include_engine:
+            continue
         for s in arch.shapes:
-            yield arch_id, s.shape_id
+            if not s.skip:
+                yield arch_id, s.shape_id

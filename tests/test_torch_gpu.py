@@ -1368,3 +1368,113 @@ def test_registry_smoke_programs_on_the_card(shape, cuda):
             _host_equal(eng.host_result(got), eng.host_result(want))
         else:
             _equal([a.cpu() for a in got], want)
+
+
+# ---------------------------------------------------------------------------
+# the transformer LM's serving path (no kernel of its own: torch products)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("tinyllama-1.1b", "gemma2-27b", "command-r-plus-104b", "olmoe-1b-7b",
+            "kimi-k2-1t-a32b")
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def _rel_l2(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_smoke_serve_on_the_card_matches_the_cpu(arch, cuda):
+    """A smoke config's prefill of 2 x 24 tokens and 4 decode steps, the
+    same seeded weights on the card and the CPU, held layer by layer on
+    identical inputs (the CPU's layer input and cache): each layer's output
+    and k / v within 1e-2 relative L2 (~2.5 bf16 steps; value by value a
+    residual sum that cancels keeps the rounding of its larger terms), the
+    logits of the same final hidden states within 1e-4.  Free-running
+    logits are not held: with random weights one bf16 rounding that lands
+    the other way grows through the layers."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import layers as L, transformer as tfm
+
+    spec = ARCHS[arch]
+    cfg = spec.smoke_cfg
+    dt = torch.bfloat16 if spec.param_dtype == "bfloat16" else torch.float32
+    params = tfm.init(cfg, torch.Generator().manual_seed(1), device="cpu", dtype=dt)
+    card = _to(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 24)).astype(np.int32))
+
+    def logits(p, x):
+        return tfm.unembed_logits(cfg, p, L.rms_norm(x[:, -1:], p["final_norm"]))[:, 0]
+
+    def held(x):
+        np.testing.assert_allclose(logits(card, x.to(cuda)).cpu().numpy(),
+                                   logits(params, x).numpy(), rtol=1e-4, atol=1e-4)
+
+    x = tfm._embed(params, toks)
+    positions = torch.arange(24, dtype=torch.int32).expand(2, 24)
+    ks, vs = [], []
+    for i, is_local in enumerate(tfm.local_flags(cfg)):
+        y, kv = tfm._layer(cfg, _to(tfm._layer_params(params, i), cuda), x.to(cuda),
+                           positions.to(cuda), is_local)
+        x, (k, v) = tfm._layer(cfg, tfm._layer_params(params, i), x, positions, is_local)
+        for a, b in ((y, x), (kv[0], k), (kv[1], v)):
+            assert _rel_l2(a, b) <= 1e-2
+        ks.append(k)
+        vs.append(v)
+    held(x)
+    cache = {"k": torch.nn.functional.pad(torch.stack(ks), (0, 0, 0, 0, 0, 4)),
+             "v": torch.nn.functional.pad(torch.stack(vs), (0, 0, 0, 0, 0, 4))}
+    for step in range(4):
+        pos = torch.full((2,), 24 + step, dtype=torch.int32)
+        x = tfm._embed(params, logits(params, x).argmax(-1))
+        for i, is_local in enumerate(tfm.local_flags(cfg)):
+            kc, vc = cache["k"][i], cache["v"][i]
+            kc_d, vc_d = kc.to(cuda), vc.to(cuda)
+            y = tfm._decode_layer(cfg, _to(tfm._layer_params(params, i), cuda), x.to(cuda),
+                                  kc_d, vc_d, pos.to(cuda), is_local)
+            x = tfm._decode_layer(cfg, tfm._layer_params(params, i), x, kc, vc, pos, is_local)
+            for a, b in ((y, x), (kc_d, kc), (vc_d, vc)):
+                assert _rel_l2(a, b) <= 1e-2
+        x = x[:, None, :]
+        held(x)
+    # the functional entry points run on the card
+    got, cache_d = tfm.prefill(cfg, card, toks.to(cuda))
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    assert cache_d["k"].shape == (cfg.n_layers, 2, 24, cfg.n_kv_heads, cfg.d_head)
+
+
+def test_moe_dispatch_on_the_card_equals_the_cpu(cuda):
+    """``_moe_route`` at olmoe's E = 64, K = 8 on gates with exact ties
+    and with capacity overflow: idx / wslot / valid and each token's slots
+    equal."""
+    from repro_torch.models import transformer as tfm
+
+    rng = np.random.default_rng(4)
+    for T, C, levels in ((256, 40, 0), (256, 40, 4), (1000, 20, 3), (4, 4, 0)):
+        g = rng.random((T, 64)).astype(np.float32)
+        if levels:
+            g = np.floor(g * levels).astype(np.float32) / levels + 0.01
+        g = torch.from_numpy(g / g.sum(-1, keepdims=True))
+        want = tfm._moe_route(g, 64, 8, C)
+        got = tfm._moe_route(g.to(cuda), 64, 8, C)
+        _equal([x.cpu() for x in got], want)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_lm_registry_smoke_programs_on_the_card(shape, cuda):
+    """``programs.build`` + ``lm_inputs`` on the card: the smoke program of
+    olmoe, its parameters moved to the CPU, against the CPU run."""
+    from repro_torch.launch import mesh as meshlib, programs
+
+    mesh = meshlib.make_mesh((1, 1), ("data", "model"), [cuda])
+    prog = programs.build("olmoe-1b-7b", shape, mesh, smoke=True)
+    args = programs.lm_inputs(prog, cuda, seed=5, seq_len=32)
+    cpu_args = [_to(a, "cpu") if isinstance(a, dict) else a.cpu() for a in args]
+    want, _ = prog.fn(*cpu_args)
+    got, _ = prog.fn(*args)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=5e-2, atol=5e-2)

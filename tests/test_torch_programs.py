@@ -1,18 +1,25 @@
-"""The arch registry and the engine program builder of ``repro_torch``
-against the JAX package's ``repro.configs`` / ``repro.launch.programs``:
+"""The arch registry and the program builder of ``repro_torch`` against
+the JAX package's ``repro.configs`` / ``repro.launch.programs``:
 
-* ``ARCHS["k2triples"]`` field by field (cfg, smoke cfg, shapes, dims,
-  source), ``all_cells()``, and ``build``'s refusal of a family the port
-  lacks;
+* every registered arch (``k2triples`` and the five LM archs) field by
+  field (cfg, smoke cfg, shapes with their dims, rules and skips,
+  optimizer, parameter dtype, source), ``all_cells()`` against the JAX
+  one restricted to the ported families, and ``build``'s refusals (the
+  GNN/recsys archs, ``train_4k``, an LM program on a mesh of several
+  devices);
 * ``build_engine``'s meta-device ``in_specs`` against the JAX
   ``ShapeDtypeStruct``s (uint32 as int32) for both shapes, smoke and
-  full, on (1, 1) and (2, 4) meshes, and ``model_flops``;
+  full, on (1, 1) and (2, 4) meshes, and ``model_flops``; the same for
+  ``build_lm``'s prefill and decode programs of every LM arch;
 * the smoke cells run for real: the smoke store on a (1, 1) and a (2, 4)
   mesh of the ``cpu`` device against the JAX program's ``fn`` on a (1, 1)
   JAX mesh, every field exact (``serve_64k`` at B = 256 with all six ops;
   ``unbounded_4k`` at B = 256).  The JAX side traces with
   ``REPRO_SCAN_BACKEND=jnp`` (its traversal reference; the Pallas kernels
-  give the same bits, ``tests/test_k2_scan.py``).
+  give the same bits, ``tests/test_k2_scan.py``).  LM smoke programs
+  (B = 2, S = 64) run on the JAX parameters against the JAX programs'
+  ``fn``, logits within 5e-2 (``tests/test_torch_transformer.py``'s
+  whole-model bound), and ``lm_inputs`` makes seeded arguments.
 """
 
 import dataclasses
@@ -30,10 +37,15 @@ from repro.data import rdf as jrdf
 from repro.launch import programs as jprograms
 from repro_torch.configs import ARCHS
 from repro_torch.core import engine as eng, k2triples
-from repro_torch.data import rdf
+from repro_torch.data import rdf, tokens
 from repro_torch.launch import mesh as meshlib, programs
+from repro_torch.models import transformer as tfm
 
 SHAPES = ("serve_64k", "unbounded_4k")
+LM_ARCHS = ("command-r-plus-104b", "tinyllama-1.1b", "gemma2-27b", "kimi-k2-1t-a32b",
+            "olmoe-1b-7b")
+LM_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+PORTED = ("engine", "lm")
 MESHES = ((1, 1), (2, 4))
 
 
@@ -55,38 +67,65 @@ def _same_fields(got, want):
 
 
 def test_registry_like_jax():
-    spec, jspec = ARCHS["k2triples"], JARCHS["k2triples"]
-    for f in dataclasses.fields(spec):
-        got, want = getattr(spec, f.name), getattr(jspec, f.name)
-        if f.name in ("cfg", "smoke_cfg"):
-            assert dataclasses.asdict(got) == dataclasses.asdict(want)
-        elif f.name == "shapes":
-            assert len(got) == len(want)
-            for g, w in zip(got, want):
-                _same_fields(g, w)
-                assert not w.skip and not w.rules_override
-        else:
-            assert got == want, f.name
+    assert set(ARCHS) == {"k2triples", *LM_ARCHS}
+    assert list(ARCHS) == [a for a in JARCHS if JARCHS[a].family in PORTED]  # JAX's order
+    for arch_id, spec in ARCHS.items():
+        jspec = JARCHS[arch_id]
+        assert [f.name for f in dataclasses.fields(spec)] == [
+            f.name for f in dataclasses.fields(jspec)]
+        for f in dataclasses.fields(spec):
+            got, want = getattr(spec, f.name), getattr(jspec, f.name)
+            if f.name in ("cfg", "smoke_cfg"):
+                assert type(got).__name__ == type(want).__name__
+                assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            elif f.name == "shapes":
+                assert len(got) == len(want)
+                for g, w in zip(got, want):
+                    _same_fields(g, w)
+                    assert [x.name for x in dataclasses.fields(g)] == [
+                        x.name for x in dataclasses.fields(w)]
+            else:
+                assert got == want, (arch_id, f.name)
+    spec = ARCHS["k2triples"]
     assert spec.source == "this paper" and spec.shape("unbounded_4k").dims["unbounded"] == 1
     with pytest.raises(KeyError):
         spec.shape("decode_32k")
-    assert set(ARCHS) == {"k2triples"}
-    assert list(programs.all_cells()) == [
-        c for c in jprograms.all_cells() if JARCHS[c[0]].family == "engine"]
+    assert ARCHS["kimi-k2-1t-a32b"].param_dtype == "bfloat16"
+    assert ARCHS["kimi-k2-1t-a32b"].source == "arXiv:2501.kimi2; unverified"
+    assert ARCHS["gemma2-27b"].shape("long_500k").rules_override == {
+        "batch": None, "kv_seq": ("pod", "data", "model")}
+    for include in (True, False):
+        assert list(programs.all_cells(include)) == [
+            c for c in jprograms.all_cells(include) if JARCHS[c[0]].family in PORTED]
+    assert ("tinyllama-1.1b", "train_4k") in set(programs.all_cells())
 
 
 def test_build_refuses_an_unported_family(monkeypatch):
     mesh = _mesh((1, 1))
     for arch_id, jspec in JARCHS.items():
-        if jspec.family != "engine":
+        if jspec.family not in PORTED:
             with pytest.raises(KeyError, match="Queue 1 item 3"):
                 programs.build(arch_id, jspec.shapes[0].shape_id, mesh)
+    for arch_id in LM_ARCHS:
+        with pytest.raises(NotImplementedError, match="training"):
+            programs.build(arch_id, "train_4k", mesh, smoke=True)
+        with pytest.raises(ValueError, match="one device"):
+            programs.build(arch_id, "decode_32k", _mesh((1, 2)), smoke=True)
+    with pytest.raises(ValueError, match="one device"):
+        programs.build("olmoe-1b-7b", "prefill_32k", _mesh((2, 4)))
     with pytest.raises(KeyError, match="unknown shape"):
         programs.build("k2triples", "train_4k", mesh)
-    # the default mesh is every visible card: none here
+    with pytest.raises(KeyError, match="unknown shape"):
+        programs.build("tinyllama-1.1b", "serve_64k", mesh)
+    # the default mesh is every visible card, or one for an LM program: none here
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         programs.build("k2triples", "serve_64k")
+    with pytest.raises(ValueError, match="CUDA"):
+        programs.build("tinyllama-1.1b", "prefill_32k")
+    prog = programs.build("tinyllama-1.1b", "prefill_32k", mesh, smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        programs.lm_inputs(prog)
 
 
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
@@ -210,3 +249,94 @@ def test_inputs_refusals_and_meta_specs(smoke):
     fspec, q = prog.in_specs
     with pytest.raises(ValueError, match="CUDA card or the CPU"):
         prog.fn(eng.shard_forest(fspec, on_meta), q)
+
+
+# ---------------------------------------------------------------------------
+# LM programs
+# ---------------------------------------------------------------------------
+
+
+def _port_leaves(specs):
+    """The leaves of an ``in_specs`` tuple in ``jax.tree.leaves`` order."""
+    out = []
+    for x in specs:
+        out += [leaf for _, leaf in tfm._leaves(x)] if isinstance(x, dict) else [x]
+    return out
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("shape", LM_SHAPES)
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_in_specs_and_flops_like_jax(arch, shape, smoke):
+    prog = programs.build(arch, shape, _mesh((1, 1)), smoke=smoke)
+    jprog = jprograms.build(arch, shape, _jax_mesh((1, 1)), smoke=smoke)
+    assert prog.name == jprog.name and prog.model_flops == jprog.model_flops
+    assert prog.meta is None and prog.cfg is (ARCHS[arch].smoke_cfg if smoke else ARCHS[arch].cfg)
+    got, want = _port_leaves(prog.in_specs), jax.tree.leaves(jprog.in_specs)
+    assert len(got) == len(want) and len(prog.in_specs) == len(jprog.in_specs)
+    for g, w in zip(got, want):
+        assert g.device.type == "meta"  # nothing allocated
+        assert tuple(g.shape) == tuple(w.shape)
+        assert str(g.dtype).removeprefix("torch.") == str(w.dtype)
+    cfg = prog.cfg
+    assert programs.lm_train_flops(cfg, 4096) == jprograms.lm_train_flops(cfg, 4096)
+
+
+LM_RUNS = (("tinyllama-1.1b", "prefill_32k"), ("gemma2-27b", "decode_32k"),
+           ("olmoe-1b-7b", "long_500k"))
+
+
+@pytest.mark.parametrize("arch,shape", LM_RUNS)
+def test_lm_smoke_cells_like_jax(arch, shape):
+    """The smoke program on the JAX parameters and inputs against the JAX
+    program's ``fn`` (a (1, 1) JAX mesh)."""
+    auto = (jax.sharding.AxisType.Auto,) * 2  # the builder's sharding constraints need Auto axes
+    jprog = jprograms.build(arch, shape, jax.make_mesh((1, 1), ("data", "model"), axis_types=auto),
+                            smoke=True)
+    prog = programs.build(arch, shape, _mesh((1, 1)), smoke=True)
+    rng = np.random.default_rng(len(arch))
+    jargs = jax.tree.map(lambda s: jnp.asarray(
+        rng.integers(0, prog.cfg.vocab, s.shape) if s.dtype == jnp.int32
+        else rng.standard_normal(s.shape) * (0.3 if s.ndim < 5 else 1.0)).astype(s.dtype),
+        jprog.in_specs)
+    if shape != "prefill_32k":
+        jargs = (*jargs[:3], jnp.asarray([63, 40], jnp.int32))  # lengths
+    args = [tfm.params_from_arrays(prog.cfg, jax.tree.map(np.asarray, jargs[0]), device="cpu")]
+    for a in jargs[1:]:
+        args.append({k: torch.from_numpy(np.asarray(v.astype(jnp.float32))).bfloat16()
+                     for k, v in a.items()} if isinstance(a, dict)
+                    else torch.from_numpy(np.array(a)))
+    logits, cache = prog.fn(*args)
+    jlogits, jcache = jax.jit(jprog.fn)(*jargs)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=5e-2, atol=5e-2)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(cache[k].float().numpy(),
+                                   np.asarray(jcache[k].astype(jnp.float32)), rtol=5e-2, atol=5e-2)
+
+
+def test_lm_inputs():
+    mesh = _mesh((1, 1))
+    pre = programs.build("tinyllama-1.1b", "prefill_32k", mesh, smoke=True)
+    params, toks = programs.lm_inputs(pre, "cpu", seed=3, batch=1, seq_len=16)
+    want = tokens.TokenStream(pre.cfg.vocab, 16, seed=3).batch(1)["tokens"]
+    assert toks.dtype == torch.int32 and np.array_equal(toks.numpy(), want)
+    again, _ = programs.lm_inputs(pre, "cpu", seed=3)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(tfm._leaves(params), tfm._leaves(again)))
+    logits, cache = pre.fn(params, toks)
+    assert logits.shape == (1, pre.cfg.vocab) and cache["k"].shape[2] == 16
+    dec = programs.build("kimi-k2-1t-a32b", "long_500k", mesh, smoke=True)
+    params, cache, new, lengths = programs.lm_inputs(dec, "cpu", seq_len=10)
+    assert params["embed"].dtype == torch.bfloat16  # the arch's parameter dtype
+    assert cache["k"].shape == (2, 2, 10, 2, 8) and cache["v"].dtype == torch.bfloat16
+    assert new.dtype == lengths.dtype == torch.int32 and lengths.tolist() == [9, 9]
+    logits, _ = dec.fn(params, cache, new, lengths)
+    assert torch.isfinite(logits).all()
+    for bad in (dict(batch=3), dict(seq_len=65), dict(batch=0)):
+        with pytest.raises(ValueError, match="takes batch"):
+            programs.lm_inputs(dec, "cpu", **bad)
+    engine = programs.build("k2triples", "serve_64k", mesh, smoke=True)
+    with pytest.raises(ValueError, match="not an LM program"):
+        programs.lm_inputs(engine, "cpu")
+    with pytest.raises(ValueError, match="not an engine program"):
+        programs.inputs(pre, None, mesh, None)

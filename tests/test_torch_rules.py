@@ -3,7 +3,9 @@
 * No file of the package, nor ``chip_smoke.py`` or ``kernel_variants.py``,
   imports ``jax`` or the JAX package ``repro`` (an AST scan of every import).
 * Every entry point defaults to ``device="cuda"``, and asking for CUDA
-  without a card raises instead of running on the CPU.
+  without a card raises instead of running on the CPU (the LM's ``init``,
+  ``params_from_arrays``, ``KVCache.zeros`` and ``programs.lm_inputs``
+  included).
 * ``ExecConfig`` resolves without reading the environment.
 """
 
@@ -20,6 +22,7 @@ from repro_torch.core import query
 from repro_torch.core.query import ExecConfig, resolve_device
 from repro_torch.launch import broker, serve
 from repro_torch.launch import mesh as meshlib, programs
+from repro_torch.models import transformer as tfm
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -48,7 +51,8 @@ def test_entry_points_default_to_cuda():
     assert ExecConfig().device == "cuda"
     for fn in (eng.Engine.__init__, k2triples.from_id_triples,
                k2triples.from_string_triples, serve.run_bench, k2tree.build,
-               bitvec.bitvec_from_bits, convert.tree_from_arrays):
+               bitvec.bitvec_from_bits, convert.tree_from_arrays, tfm.init,
+               tfm.params_from_arrays, tfm.KVCache.zeros, programs.lm_inputs):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert serve.parse_args([]).device == "cuda"
     # a mesh defaults to the visible CUDA cards
@@ -77,6 +81,19 @@ def test_cuda_without_card_raises(monkeypatch):
         meshlib.make_mesh((1, 1), ("data", "model"))
     with pytest.raises(RuntimeError):
         meshlib.make_mesh((1, 1), ("data", "model"), ["cuda"])
+    cfg = tfm.TransformerCfg(name="t", n_layers=1, d_model=8, n_heads=2, n_kv_heads=1,
+                             d_head=4, d_ff=8, vocab=16)
+    with pytest.raises(RuntimeError):
+        tfm.init(cfg, torch.Generator())
+    params = tfm.init(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError):
+        tfm.params_from_arrays(cfg, {k: v.numpy() if k != "layers" else
+                                     {n: w.numpy() for n, w in v.items()}
+                                     for k, v in params.items()})
+    with pytest.raises(RuntimeError):
+        tfm.KVCache.zeros(cfg, 1, 4)
+    with pytest.raises(ValueError):  # an LM program's default mesh is a card
+        programs.build("tinyllama-1.1b", "decode_32k")
     e = eng.Engine(st, device="cpu")
     # a broker follows its engine's device; a cuda config is refused
     assert broker.ServeBroker(e).config.device == "cpu"
