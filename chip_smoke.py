@@ -191,11 +191,31 @@ Phases (any failure exits non-zero before the result line):
    valid and each token's slots) equal, the output within 1e-2 relative
    L2.  Each run
    prints its time, peak memory and bound (``lm_bound``) beside the card.
+12. the transformer LM's training path (no kernel of its own: the flash
+   backward is an autograd function over torch products, the optimizers
+   elementwise torch; none of the nine kernels may launch):
+   12a. each LM arch's smoke ``train_4k`` program (B 2 x S 64, the arch's
+   AdamW or Adafactor) 3 steps on the card and the CPU from the same
+   ``lm_inputs`` and batch: every step's loss and grad_norm, the optimizer
+   state and parameters after step 1 held (``_step_held``); then
+   ``chunked_attention``'s output and gradients at tinyllama's attention
+   shapes (B 1, S 4,096, H 32 / Kv 4, dh 64, causal) against a float64
+   dense softmax's autograd on the card (relative L2 1e-2);
+   12b. ``tinyllama-1.1b:train_4k`` at full width (22 layers, f32 AdamW),
+   the batch cut to B 8 x S 4,096: 6 steps on one ``TokenStream`` batch,
+   the last loss below the first;
+   12c. ``olmoe-1b-7b:train_4k`` at full width, depth cut to 4 of 16
+   layers, the batch to B 4 x S 2,048: 4 steps on one batch, the
+   router's gradient nonzero, the dropped (token, expert) share.  Each prints its losses,
+   step ms (median of steps 2 on), tokens a second, peak memory, a
+   training-step bound (``train_bound``) and one profiled step's device
+   idle share and top kernels beside the card.
    Then the ``{"kernels": [...]}`` line (``launches_by_path`` gains
    ``dynamic``, phase 8's launches, ``sharded``, those of 9a's and 9b's
-   mesh runs, ``functional``, those of 9c, ``tree``, those of 10a, and
-   ``registry``, those of the programs' runs in 10b-10c), the card's name
-   and power limit, and the final ``{"ok": true, ...}`` line.
+   mesh runs, ``functional``, those of 9c, ``tree``, those of 10a,
+   ``registry``, those of the programs' runs in 10b-10c, and ``train``,
+   phase 12's, all 0), the card's name and power limit, and the final
+   ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -3744,6 +3764,340 @@ def lm_phase(device, seed: int) -> dict:
     return dict(smoke=smoke, dense=d, moe=m)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the transformer LM's training path (flash backward, optimizers)
+# ---------------------------------------------------------------------------
+
+TRAIN_SMOKE_STEPS = 3  # 12a: train_4k smoke programs (B 2 x S 64), card against the CPU
+FLASH_SHAPE = (1, 4096, 32, 4, 64)  # 12a: B, S, H, Kv, dh of tinyllama's attention
+DENSE_TRAIN = (8, 4096)  # 12b: train_4k cut from 256 x 4,096
+DENSE_TRAIN_STEPS = 6
+MOE_TRAIN = (4, 2048)  # 12c: train_4k cut from 256 x 4,096
+MOE_TRAIN_LAYERS = 4  # 12c: olmoe's depth cut from 16 (AdamW state of 16 layers: ~110 GB)
+MOE_TRAIN_STEPS = 4
+# One step from the same inputs, card against the CPU: the loss and grad_norm relative, the
+# optimizer state relative L2 a leaf, the new parameters by the optimizer's rule (AdamW: the
+# share of elements an update of the other sign moved, each by at most 2.02·lr; f32 Adafactor:
+# the update's relative L2; bf16 parameters: the share of elements a bf16 step apart).
+# Measured on an H100 80GB HBM3 at 700 W, 6 seeds an arch: loss <= 1.8e-4, grad_norm <= 5.2e-3,
+# state <= 3.6e-2, AdamW share <= 7.8e-3, Adafactor update <= 4.0e-2, bf16 share <= 3.6e-2;
+# gemma2 grad_norm <= 3.8e-2, state <= 0.21, share <= 4.7e-2.  With random weights the smoke
+# configs amplify a rounding that lands the other way (gemma2 most: a 1e-6 relative nudge of
+# its parameters moves its grad_norm by up to 21% on the CPU alone), so gemma2 has its own row.
+STEP_TOL = dict(loss=1e-3, grad_norm=2e-2, state=1e-1, share=2e-2, update=1e-1, bf16=1e-1)
+STEP_TOL_OF = {"gemma2-27b": dict(STEP_TOL, grad_norm=1e-1, state=5e-1, share=1e-1)}
+# later steps start from parameters that differ where a first update differed (measured: loss
+# <= 2.8e-3, grad_norm <= 0.25 relative)
+LATER_TOL = dict(loss=1e-2, grad_norm=0.5)
+
+
+def train_bound(cfg, elt: int, state_bytes: int, *, B: int, S: int,
+                kept: int = 0) -> tuple[float, str, int, int]:
+    """Least time of one training step on B x S tokens: (bound_ms,
+    bound_by, bytes, flops).  Flops at the bf16 tensor-core rate: 6 per
+    parameter of a product and token (forward 2, backward 4: the
+    attention projections, the FFN or the router, the unembedding), 18·D·F_e
+    a kept (token, expert) pair, causal attention 12·dh a (query, key) pair
+    and head (forward 4, backward 8).  Bytes: every parameter read and
+    written (``elt`` bytes each), its gradient written and read, the
+    optimizer state (``state_bytes``) read and written, the tokens and
+    labels."""
+    L, D, H, dh, V = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_head, cfg.vocab
+    attn, ffn = _lm_products(cfg)
+    tokens = B * S
+    pairs = B * S * (S + 1) // 2
+    flops = (6 * tokens * (L * (attn + ffn) + D * V) + 18 * D * cfg.moe.d_ff_expert * kept
+             if cfg.moe else 6 * tokens * (L * (attn + ffn) + D * V))
+    flops += 12 * H * dh * L * pairs
+    nbytes = 4 * cfg.n_params * elt + 2 * state_bytes + 8 * tokens
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            int(nbytes), int(flops))
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(t.numel() * t.element_size() for _, t in leaves(tree))
+
+
+def _step_held(arch, spec, got, want, where: str) -> dict:
+    """One train step's metrics, state and new parameters, card (``got``)
+    against CPU (``want``), each a (params, state, metrics, params before)
+    tuple, within ``STEP_TOL`` (``STEP_TOL_OF[arch]``); -> the measured
+    figures."""
+    import torch
+
+    from repro_torch.tree import leaves
+
+    tol = STEP_TOL_OF.get(arch, STEP_TOL)
+    (gp, gs, gm, _), (wp, ws, wm, p0) = got, want
+    err = dict(loss=abs(float(gm["loss"]) / float(wm["loss"]) - 1),
+               grad_norm=abs(float(gm["grad_norm"]) / float(wm["grad_norm"]) - 1), state=0.0,
+               params=0.0)
+    for key in ("loss", "grad_norm"):
+        if not err[key] <= tol[key]:
+            fail(f"{where}: {key} {float(gm[key])} on the card, {float(wm[key])} on the CPU "
+                 f"(tol {tol[key]})")
+    for (path, a), (_, b) in zip(leaves(gs), leaves(ws)):
+        if path == ("step",):
+            if int(a) != int(b):
+                fail(f"{where}: step {int(a)} against {int(b)}")
+        elif float(b.norm()):
+            err["state"] = max(err["state"], _rel_l2(a, b, tol["state"],
+                                                     f"{where}: optimizer state {path}"))
+    lr = 1e-3 if spec.optimizer == "adafactor" else 3e-4
+    for (path, a), (_, b), (_, a0) in zip(leaves(gp), leaves(wp), leaves(p0)):
+        a, b, a0 = a.detach().double().cpu(), b.double(), a0.double()
+        off = (a - b).abs()
+        if spec.optimizer == "adamw":
+            share = float((off > 1e-6 + 1e-6 * b.abs()).double().mean())
+            if float(off.max()) > 2.02 * lr or share > tol["share"]:
+                fail(f"{where}: {path} max |diff| {float(off.max()):.3g} (at most 2.02·lr), "
+                     f"{share:.4f} of its elements off (at most {tol['share']})")
+            err["params"] = max(err["params"], share)
+        elif spec.param_dtype == "float32":
+            if not torch.equal(a, b):
+                err["params"] = max(err["params"], _rel_l2(a - a0, b - a0, tol["update"],
+                                                           f"{where}: {path}'s update"))
+        else:
+            share = float((off > 0).double().mean())
+            if float(off.max()) > 2.0 ** -7 * float(b.abs().max()) or share > tol["bf16"]:
+                fail(f"{where}: {path} max |diff| {float(off.max()):.3g} (one bf16 step of "
+                     f"its largest value), {share:.4f} of its elements differ (at most "
+                     f"{tol['bf16']})")
+            err["params"] = max(err["params"], share)
+    return err
+
+
+def _flash_check(device, seed: int) -> dict:
+    """``chunked_attention``'s output and ``_Flash``'s gradients at
+    ``FLASH_SHAPE`` (causal) against a float64 dense softmax's autograd on
+    the card; the fwd + bwd ms of each."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    B, S, H, Kv, dh = FLASH_SHAPE
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, w = (torch.randn(s, generator=g, device=device)
+                  for s in ((B, S, H, dh), (B, S, Kv, dh), (B, S, Kv, dh), (B, S, H, dh)))
+    ins = [t.bfloat16().requires_grad_() for t in (q, k, v)]
+
+    def flash():
+        out = L.chunked_attention(*ins, causal=True)
+        (out.float() * w).sum().backward()
+        return out
+
+    flash()  # warm-up
+    for t in ins:
+        t.grad = None
+    out, flash_s = _timed(flash)
+    dense = [t.detach().double().requires_grad_() for t in ins]
+
+    def exact():
+        qd, kd, vd = dense
+        kx, vx = (t.repeat_interleave(H // Kv, dim=2) for t in (kd, vd))
+        s = torch.einsum("bqhd,bkhd->bhqk", qd, kx) / dh ** 0.5
+        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool, device=device).tril(), float("-inf"))
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vx)
+        (o * w.double()).sum().backward()
+        return o
+
+    want, exact_s = _timed(exact)
+    err = {"out": _rel_l2(out, want, REL_TOL, "12a flash output against float64")}
+    for name, a, b in zip("qkv", ins, dense):
+        err[f"d{name}"] = _rel_l2(a.grad, b.grad, REL_TOL, f"12a flash d{name} against float64")
+    return dict(err=err, flash_ms=flash_s * 1e3, exact_ms=exact_s * 1e3)
+
+
+def smoke_12a(device, seed: int) -> dict:
+    """Each LM arch's smoke ``train_4k`` program (B 2 x S 64, its
+    optimizer) ``TRAIN_SMOKE_STEPS`` steps on the card and the CPU from
+    the same ``lm_inputs`` on the same batch: every step's loss and
+    grad_norm, the state and parameters after step 1 held."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import programs
+    from repro_torch.tree import tree_map
+
+    out = {}
+    for i, arch in enumerate(LM_ARCHS):
+        spec = ARCHS[arch]
+        prog = programs.build(arch, "train_4k", smoke=True)
+        params, state, batch = programs.lm_inputs(prog, "cpu", seed=seed + i)
+        card = [tree_map(lambda t: t.to(device, copy=True), x) for x in (params, state, batch)]
+        losses, errs = [], None
+        p0 = tree_map(torch.clone, params)  # the steps update in place
+        for step in range(TRAIN_SMOKE_STEPS):
+            got = (*prog.fn(*card), None)
+            want = (*prog.fn(params, state, batch), p0)
+            losses.append((float(got[2]["loss"]), float(want[2]["loss"])))
+            if step == 0:
+                errs = _step_held(arch, spec, got, want, f"12a {arch} step 1")
+            else:
+                for key, tol in LATER_TOL.items():
+                    a, b = float(got[2][key]), float(want[2][key])
+                    if not abs(a / b - 1) <= tol:
+                        fail(f"12a {arch} step {step + 1}: {key} {a} on the card, {b} on the "
+                             f"CPU (tol {tol})")
+        out[arch] = dict(err=errs, losses=losses, optimizer=spec.optimizer)
+    return out
+
+
+def _train_run(prog, device, seed: int, B: int, S: int, steps: int, on_first=None) -> dict:
+    """``steps`` steps of a train program on one ``lm_inputs`` batch of B x
+    S (the same batch each step, so a falling loss is the optimizer's
+    descent and not the spread between batches), then one profiled step:
+    the losses, step ms, peak memory; ``on_first(state)`` after the first
+    step goes to ``first``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import programs
+
+    base = _peak_reset(device)
+    params, state, batch = programs.lm_inputs(prog, device, seed=seed, batch=B, seq_len=S)
+    resident = torch.cuda.memory_allocated(device)
+    hist, first = [], None
+    for step in range(steps):
+        (_, state, m), secs = _timed(lambda: prog.fn(params, state, batch))
+        hist.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), ms=secs * 1e3))
+        if not all(np.isfinite([hist[-1]["loss"], hist[-1]["grad_norm"]])):
+            fail(f"{prog.name}: step {step + 1} gave loss {hist[-1]['loss']}, grad_norm "
+                 f"{hist[-1]['grad_norm']}")
+        if step == 0 and on_first is not None:
+            first = on_first(state)
+    peak = torch.cuda.max_memory_allocated(device)
+    prof = _profiled(lambda: prog.fn(params, state, batch))
+    median = float(np.median([h["ms"] for h in hist[1:]]))
+    return dict(B=B, S=S, hist=hist, median_ms=median, tokens_per_s=B * S / (median / 1e3),
+                peak=peak, base=base, resident=resident, prof=prof, first=first,
+                elt=params["embed"].element_size(), state_bytes=_tree_bytes(state))
+
+
+def dense_12b(device, seed: int) -> dict:
+    """``tinyllama-1.1b:train_4k`` at full width, f32 AdamW, the batch cut
+    to ``DENSE_TRAIN``: ``DENSE_TRAIN_STEPS`` steps, the last loss below
+    the first."""
+    from repro_torch.launch import programs
+
+    prog = programs.build("tinyllama-1.1b", "train_4k")
+    B, S = DENSE_TRAIN
+    r = _train_run(prog, device, seed, B, S, DENSE_TRAIN_STEPS)
+    if not r["hist"][-1]["loss"] < r["hist"][0]["loss"]:
+        fail(f"12b: the loss did not fall over {DENSE_TRAIN_STEPS} steps: "
+             f"{[h['loss'] for h in r['hist']]}")
+    r.update(bound=train_bound(prog.cfg, r["elt"], r["state_bytes"], B=B, S=S),
+             layers=prog.cfg.n_layers, n_params=prog.cfg.n_params)
+    return r
+
+
+def moe_12c(device, seed: int) -> dict:
+    """``olmoe-1b-7b:train_4k`` at full width through ``programs.build_lm``,
+    depth cut to ``MOE_TRAIN_LAYERS``, the batch to ``MOE_TRAIN``:
+    ``MOE_TRAIN_STEPS`` steps; the router's gradient (AdamW's first moment
+    after step 1 is 0.1·g) nonzero; the dropped (token, expert) share of
+    the first batch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import programs
+    from repro_torch.models import transformer as tfm
+
+    spec = ARCHS["olmoe-1b-7b"]
+    cut = dataclasses.replace(spec, cfg=dataclasses.replace(spec.cfg, n_layers=MOE_TRAIN_LAYERS))
+    prog = programs.build_lm(cut, cut.shape("train_4k"))
+    cfg = prog.cfg
+    B, S = MOE_TRAIN
+    params, _, batch = programs.lm_inputs(prog, device, seed=seed, batch=B, seq_len=S)
+    with torch.no_grad(), MoeTally() as tally:
+        tfm.loss_fn(cfg, params, batch)
+    pairs, kept, _ = tally.totals()
+    del params, batch
+    r = _train_run(prog, device, seed, B, S, MOE_TRAIN_STEPS,
+                   on_first=lambda st: float(st["mu"]["layers"]["router"].norm()) / 0.1)
+    if not r["first"] > 0:
+        fail("12c: the router's gradient is zero")
+    r.update(pairs=pairs, kept=kept, dropped_share=1 - kept / pairs,
+             capacity=tfm.moe_capacity(cfg, B * S), layers=cfg.n_layers, n_params=cfg.n_params,
+             bound=train_bound(cfg, r["elt"], r["state_bytes"], B=B, S=S, kept=kept))
+    return r
+
+
+def _train_line(label: str, r: dict, card: str) -> str:
+    ls = [round(h["loss"], 4) for h in r["hist"]]
+    ms = [round(h["ms"], 1) for h in r["hist"]]
+    return (f"{label}: losses {ls}, grad_norm {[round(h['grad_norm'], 3) for h in r['hist']]}; "
+            f"step ms {ms}, median of steps 2-{len(ms)} {r['median_ms']:.1f} ms, "
+            f"{r['tokens_per_s']:.1f} tokens/s; peak device memory {r['peak']} bytes "
+            f"({r['resident']} resident after inputs, {r['base']} before; optimizer state "
+            f"{r['state_bytes']} bytes); bound {r['bound'][0]:.3f} ms ({r['bound'][1]}; "
+            f"{r['bound'][2]} bytes, {r['bound'][3]} flops); {card}")
+
+
+def train_phase(device, seed: int) -> dict:
+    """Phase 12; fails unless every check holds and none of the nine
+    kernels launched (the training path has none).  -> the nine kernels'
+    launches in the phase (all 0)."""
+    from repro_torch.kernels import ops
+
+    t_all = time.perf_counter()
+    before = dict(ops.LAUNCHES)
+    phase("12a. the five LM smoke train_4k programs, card against the CPU; flash gradients")
+    t0 = time.perf_counter()
+    smoke = smoke_12a(device, seed)
+    for arch, r in smoke.items():
+        e = r["err"]
+        tol = STEP_TOL_OF.get(arch, STEP_TOL)
+        print(f"12a {arch} ({r['optimizer']}): {TRAIN_SMOKE_STEPS} steps of B 2 x S 64, losses "
+              f"(card, CPU) {[(round(a, 5), round(b, 5)) for a, b in r['losses']]} (later steps "
+              f"tol {LATER_TOL}); step 1 relative: loss {e['loss']:.3g} (tol {tol['loss']}), "
+              f"grad_norm {e['grad_norm']:.3g} (tol {tol['grad_norm']}), optimizer state "
+              f"relative L2 {e['state']:.3g} (tol {tol['state']}), parameters {e['params']:.3g} "
+              f"(AdamW / bf16: share of elements off; f32 Adafactor: the update's relative L2)",
+              flush=True)
+    fl = _flash_check(device, seed)
+    print(f"12a flash at B {FLASH_SHAPE[0]} x S {FLASH_SHAPE[1]}, H {FLASH_SHAPE[2]} / Kv "
+          f"{FLASH_SHAPE[3]}, dh {FLASH_SHAPE[4]} (causal, chunks 512 / 1024) against a float64 "
+          f"dense softmax's autograd, relative L2 (tol {REL_TOL}): "
+          f"{ {k: float(f'{v:.4g}') for k, v in fl['err'].items()} }; forward + backward "
+          f"{fl['flash_ms']:.2f} ms (float64 dense {fl['exact_ms']:.2f} ms)", flush=True)
+    print(f"12a done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    card = gpu_line()
+    phase("12b. tinyllama-1.1b:train_4k at full width")
+    t0 = time.perf_counter()
+    d = dense_12b(device, seed)
+    print(f"12b batch cut to B = {d['B']} x S = {d['S']} (from 256 x 4,096), {d['layers']} "
+          f"layers ({d['n_params']} parameters), f32 AdamW, {DENSE_TRAIN_STEPS} steps on one "
+          f"TokenStream batch", flush=True)
+    print(_train_line("12b", d, card), flush=True)
+    print(_prof_line("12b a step", d["prof"]), flush=True)
+    print(f"12b done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    phase("12c. olmoe-1b-7b:train_4k at full width, depth cut")
+    t0 = time.perf_counter()
+    m = moe_12c(device, seed + 1)
+    print(f"12c depth cut to {m['layers']} of 16 layers ({m['n_params']} parameters), batch cut "
+          f"to B = {m['B']} x S = {m['S']} (from 256 x 4,096), f32 AdamW, {MOE_TRAIN_STEPS} "
+          f"steps on one batch; capacity C = {m['capacity']}, (token, expert) pairs dropped "
+          f"{m['pairs'] - m['kept']} of {m['pairs']} ({m['dropped_share']:.5f}); the router's "
+          f"gradient norm at step 1 {m['first']:.4g}", flush=True)
+    print(_train_line("12c", m, card), flush=True)
+    print(_prof_line("12c a step", m["prof"]), flush=True)
+    print(f"12c done in {time.perf_counter() - t0:.1f}s", flush=True)
+    launched = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+    if launched:
+        fail(f"phase 12 launched kernels of the k²-triples path: {launched}")
+    print(f"12 done in {time.perf_counter() - t_all:.1f}s; none of the nine kernels launched",
+          flush=True)
+    return {k: ops.LAUNCHES[k] - before[k] for k in before}
+
+
 
 # ---------------------------------------------------------------------------
 # main
@@ -4005,6 +4359,10 @@ def main(argv=None) -> int:
     for label, (name, times) in reg["times"].items():
         next(row for row in rows if row["name"] == name)["shapes"][label] = times
     lm_phase(device, args.seed + 11)
+    train = train_phase(device, args.seed + 12)
+    for row in rows:
+        row["launches_by_path"]["train"] = train[row["name"]]
+        row["launches"] += train[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,16 +10,18 @@ shapes and dtypes (uint32 words as int32): nothing is allocated.
   without a store (``_engine_forest_specs``) and differ from a real
   store's.  ``inputs(program, store, mesh, batch)`` makes the concrete
   arguments on the mesh's devices, with the store's own widths.
-* lm (the five transformer archs): ``prefill_32k`` a prefill program
-  ``fn(params, tokens)``, ``decode_32k`` / ``long_500k`` a decode step
-  ``fn(params, cache, tokens_new, lengths)``, on one device.
-  ``lm_inputs(program, device)`` makes seeded parameters and a prompt or
-  a cache, at the cell's batch and length or smaller ones.
+* lm (the five transformer archs): ``train_4k`` a training step
+  ``fn(params, opt_state, batch)`` of the arch's optimizer,
+  ``prefill_32k`` a prefill program ``fn(params, tokens)``,
+  ``decode_32k`` / ``long_500k`` a decode step ``fn(params, cache,
+  tokens_new, lengths)``, on one device.  ``lm_inputs(program, device)``
+  makes seeded parameters and optimizer state, a batch, a prompt or a
+  cache, at the cell's batch and length or smaller ones.
 
 ``program.fn(*inputs(...))`` runs the cell: size bytes or memory from
-what the inputs hold, not from ``in_specs``.  ``train_4k``, a mesh of more
-than one device for an LM program and the GNN and recsys archs are
-refused (ROADMAP Queue 1 item 3).
+what the inputs hold, not from ``in_specs``.  A mesh of more than one
+device for an LM program and the GNN and recsys archs are refused
+(ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -37,18 +39,22 @@ from repro_torch.data.tokens import TokenStream
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.mesh import MODEL_AXIS, Mesh
 from repro_torch.models import transformer as tfm
+from repro_torch.train import optim
+from repro_torch.train.trainer import make_train_step
 
 
 class Program(NamedTuple):
     name: str
     fn: Callable
     # meta-device tensors: engine, the padded arena (word widths estimated)
-    # then the batch; lm, the parameter tree then tokens / cache, tokens, lengths
+    # then the batch; lm, the parameter tree then the optimizer state and
+    # batch / tokens / cache, tokens, lengths
     in_specs: tuple
     meta: K2Meta | None = None  # engine: the tree geometry ``fn`` traverses
     # analytic model flops, the JAX package's figure for the same cell
     model_flops: float = 0.0
     cfg: Any = None  # lm: the TransformerCfg ``fn`` runs
+    opt: Any = None  # lm train: the Optimizer ``fn`` steps with
 
 
 def _spec(*shape: int) -> torch.Tensor:
@@ -177,23 +183,34 @@ def _lm_dims(shape: cb.ShapeSpec, smoke: bool) -> tuple[int, int]:
     return (2, 64) if smoke else (shape.dims["global_batch"], shape.dims["seq_len"])
 
 
+def _opt(arch: cb.ArchSpec) -> optim.Optimizer:
+    """The arch's optimizer at the reference builder's rates."""
+    return optim.adafactor(1e-3) if arch.optimizer == "adafactor" else optim.adamw(3e-4)
+
+
 def build_lm(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *,
              smoke: bool = False) -> Program:
-    """``prefill_32k``: ``fn(params, tokens int32[B, S])`` -> (logits [B,
-    V] f32, cache); a decode shape: ``fn(params, cache [L, B, S, Kv, dh]
-    bf16, tokens_new int32[B], lengths int32[B])`` -> (logits, cache), the
-    cache written in place.  Smoke programs are B = 2, S = 64, as in the
-    JAX builder.  ``mesh`` (default: the current card) must hold one
-    device; the program runs wherever its inputs are."""
-    if shape.kind == "train":
-        raise NotImplementedError(
-            f"{arch.arch_id}:{shape.shape_id}: training (the flash backward, the optimizers, "
-            "the loss gradient) is not ported yet (ROADMAP Queue 1 item 3)")
+    """``train_4k``: ``fn(params, opt_state, {"tokens", "labels"} int32[B,
+    S])`` -> (params, opt_state, {"loss", "grad_norm"}), one step of the
+    arch's optimizer (``program.opt``), the parameters and state updated
+    in place; ``prefill_32k``: ``fn(params, tokens int32[B, S])`` ->
+    (logits [B, V] f32, cache); a decode shape: ``fn(params, cache [L, B,
+    S, Kv, dh] bf16, tokens_new int32[B], lengths int32[B])`` -> (logits,
+    cache), the cache written in place.  Smoke programs are B = 2, S = 64,
+    as in the JAX builder.  ``mesh`` (default: the current card) must hold
+    one device; the program runs wherever its inputs are."""
     _lead_device(meshlib.make_mesh((1, 1), ("data", MODEL_AXIS)) if mesh is None else mesh)
     cfg: tfm.TransformerCfg = arch.smoke_cfg if smoke else arch.cfg
     B, S = _lm_dims(shape, smoke)
     pspecs = tfm.param_specs(cfg, _param_dtype(arch))
     name = f"{arch.arch_id}:{shape.shape_id}"
+    if shape.kind == "train":
+        opt = _opt(arch)
+        return Program(
+            name=name, fn=make_train_step(lambda p, b: tfm.loss_fn(cfg, p, b), opt),
+            in_specs=(pspecs, opt.init(pspecs), {"tokens": _spec(B, S), "labels": _spec(B, S)}),
+            model_flops=lm_train_flops(cfg, B * S), cfg=cfg, opt=opt,
+        )
     if shape.kind == "prefill":
         return Program(
             name=name, fn=lambda p, t: tfm.prefill(cfg, p, t), in_specs=(pspecs, _spec(B, S)),
@@ -212,11 +229,12 @@ def lm_inputs(program: Program, device="cuda", *, seed: int = 0, batch: int | No
               seq_len: int | None = None) -> tuple:
     """The concrete arguments of an LM program on ``device``: parameters
     from ``tfm.init`` with a generator on ``device`` seeded ``seed``, in
-    the program's parameter dtype; then for prefill ``TokenStream(vocab,
-    seq_len, seed=seed)`` prompts, for decode a cache of bf16 normals
-    (seed ``seed + 1``) of ``seq_len`` positions, one ``TokenStream`` token
-    a sequence and ``lengths`` ``seq_len - 1`` (the new token takes the
-    last slot).
+    the program's parameter dtype; then for train ``program.opt.init`` of
+    them and one ``TokenStream(vocab, seq_len, seed=seed)`` batch of
+    tokens and labels, for prefill ``TokenStream`` prompts, for decode a
+    cache of bf16 normals (seed ``seed + 1``) of ``seq_len`` positions, one
+    ``TokenStream`` token a sequence and ``lengths`` ``seq_len - 1`` (the
+    new token takes the last slot).
     ``batch`` and ``seq_len`` default to the program's and may not exceed
     them."""
     dev = resolve_device(device)
@@ -224,13 +242,20 @@ def lm_inputs(program: Program, device="cuda", *, seed: int = 0, batch: int | No
         raise ValueError(f"{program.name} is not an LM program")
     cfg = program.cfg
     pspecs, *rest = program.in_specs
-    B, S = rest[0].shape if len(rest) == 1 else rest[0]["k"].shape[1:3]
+    if program.opt is not None:
+        B, S = rest[1]["tokens"].shape
+    else:
+        B, S = rest[0].shape if len(rest) == 1 else rest[0]["k"].shape[1:3]
     b, s = B if batch is None else batch, S if seq_len is None else seq_len
     if not (1 <= b <= B and 1 <= s <= S):
         raise ValueError(f"{program.name} takes batch <= {B} and length <= {S}, "
                          f"asked for {b} x {s}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = tfm.init(cfg, gen, device=dev, dtype=pspecs["embed"].dtype)
+    if program.opt is not None:
+        data = TokenStream(cfg.vocab, s, seed=seed).batch(b)
+        return params, program.opt.init(params), {k: torch.from_numpy(v).to(dev)
+                                                  for k, v in data.items()}
     if len(rest) == 1:
         toks = TokenStream(cfg.vocab, s, seed=seed).batch(b)["tokens"]
         return params, torch.from_numpy(toks).to(dev)

@@ -21,13 +21,15 @@ product with a bf16 result, as in the reference.  The activations
 input's dtype, each op rounded as XLA rounds it, rather than torch's fused
 versions, which round once.
 
-The flash backward (the reference's custom VJP) is not here: these are
-the serving forward passes.
+The flash backward is the reference's custom VJP (``_flash_vjp_bwd``),
+a :class:`torch.autograd.Function` that recomputes each block's
+probabilities from the saved log-sum-exp.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -87,6 +89,153 @@ def _block_kind(q0, q1, k0, k1, kv_len, causal, window) -> str:
     return "full" if full else "partial"
 
 
+def _blocks(Sq, Skv, chunk_q, chunk_kv, causal, window):
+    """Every block of query rows [q0, q1] against keys [k0, k1] whose mask
+    is not all false, as (q0, q1, k0, k1, kind): query chunks outer, key
+    chunks inner, each in the reference's order.  The last chunks are
+    short where the reference pads."""
+    out = []
+    for q0 in range(0, Sq, chunk_q):
+        q1 = min(q0 + chunk_q, Sq) - 1
+        for k0 in range(0, Skv, chunk_kv):
+            k1 = min(k0 + chunk_kv, Skv) - 1
+            kind = _block_kind(q0, q1, k0, k1, Skv, causal, window)
+            if kind != "empty":
+                out.append((q0, q1, k0, k1, kind))
+    return out
+
+
+class _Geom(NamedTuple):
+    """The static arguments of a flash call."""
+
+    G: int  # query heads a kv head
+    Sq: int
+    Skv: int
+    causal: bool
+    window: int | None
+    cap: float | None  # the attention softcap
+    scale: float
+    chunk_q: int
+    chunk_kv: int
+
+
+def _scores(qc, kc, g: _Geom, q0, q1, k0, k1, kind, pos):
+    """One block's scores [B, Kv, rows, keys] in f32 (softcapped, masked
+    to ``NEG_INF`` in a partial block) and the mask, None in a full one."""
+    s = torch.matmul(qc, kc.transpose(-1, -2)) * g.scale
+    s = softcap(s, g.cap)
+    if kind == "full":
+        return s, None
+    mask = _attn_mask(pos[q0:q1 + 1], pos[k0:k1 + 1], g.Skv, g.causal,
+                      g.window).repeat_interleave(g.G, dim=0)
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def _flash_fwd(qh, kh, vh, g: _Geom, with_lse: bool):
+    """The online softmax of the reference's ``_flash_fwd_impl`` over the
+    ``[B, Kv, S·G, dh]`` query layout; -> (out f32, lse f32 [B, Kv, S·G]
+    or None)."""
+    B, Kv, _, dh = qh.shape
+    dev = qh.device
+    kf, vf = kh.float(), vh.float()
+    pos = torch.arange(max(g.Sq, g.Skv), device=dev)
+    out = torch.empty(B, Kv, g.Sq * g.G, dh, dtype=torch.float32, device=dev)
+    lse = torch.empty(B, Kv, g.Sq * g.G, dtype=torch.float32, device=dev) if with_lse else None
+    blocks = _blocks(g.Sq, g.Skv, g.chunk_q, g.chunk_kv, g.causal, g.window)
+    for q0 in range(0, g.Sq, g.chunk_q):
+        q1 = min(q0 + g.chunk_q, g.Sq) - 1
+        rows = slice(q0 * g.G, (q1 + 1) * g.G)
+        qc = qh[:, :, rows].float()
+        n = qc.shape[2]
+        m = torch.full((B, Kv, n), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, Kv, n), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Kv, n, dh), dtype=torch.float32, device=dev)
+        for _, _, k0, k1, kind in (b for b in blocks if b[0] == q0):
+            s, _ = _scores(qc, kf[:, :, k0:k1 + 1], g, q0, q1, k0, k1, kind, pos)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.matmul(p, vf[:, :, k0:k1 + 1])
+            m = m_new
+        out[:, :, rows] = acc / torch.clamp(l, min=1e-30)[..., None]
+        if with_lse:
+            lse[:, :, rows] = m + torch.log(torch.clamp(l, min=1e-30))
+    return out, lse
+
+
+def _ds(s, mask, lsec, doc, vc, dlt, g: _Geom):
+    """The recomputed probabilities p = exp(s - lse) of one block and the
+    scores' cotangent ds = p·(do·vᵀ - delta)·dcap·scale, dcap = 1 - (s/cap)²
+    (0 where masked) the softcap's derivative."""
+    p = torch.exp(s - lsec[..., None])
+    dp = torch.matmul(doc, vc.transpose(-1, -2))
+    ds = p * (dp - dlt[..., None])
+    if g.cap is not None:  # without a cap dcap is 1 (a masked p is exactly 0)
+        dcap = 1.0 - (s / g.cap) ** 2
+        ds = ds * (dcap if mask is None else torch.where(mask, dcap, 0.0))
+    return p, ds * g.scale
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP (``_flash_vjp_fwd``
+    / ``_flash_vjp_bwd``): the forward keeps each row's log-sum-exp, the
+    backward recomputes every block's probabilities from it in two sweeps
+    (dq, then dk / dv), in f32 on upcast operands.  No probability is
+    stored: memory stays O(B·S·H·dh).  It skips and masks the blocks the
+    forward skips and masks; a skipped block adds exactly 0 in the
+    reference too (p and dcap are 0 there)."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh, g: _Geom):
+        out, lse = _flash_fwd(qh, kh, vh, g, with_lse=True)
+        ctx.save_for_backward(qh, kh, vh, out, lse)
+        ctx.g = g
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qh, kh, vh, out, lse = ctx.saved_tensors
+        g = ctx.g
+        B, Kv, _, dh = qh.shape
+        dev = qh.device
+        do = do.float().contiguous()
+        delta = (do * out).sum(dim=-1)  # [B, Kv, S·G]
+        kf, vf = kh.float(), vh.float()
+        pos = torch.arange(max(g.Sq, g.Skv), device=dev)
+        blocks = _blocks(g.Sq, g.Skv, g.chunk_q, g.chunk_kv, g.causal, g.window)
+
+        def rows_of(q0, q1):
+            r = slice(q0 * g.G, (q1 + 1) * g.G)
+            return qh[:, :, r].float(), lse[:, :, r], do[:, :, r], delta[:, :, r], r
+
+        dq = torch.zeros(B, Kv, g.Sq * g.G, dh, dtype=torch.float32, device=dev)
+        for q0 in range(0, g.Sq, g.chunk_q):
+            q1 = min(q0 + g.chunk_q, g.Sq) - 1
+            qc, lsec, doc, dlt, r = rows_of(q0, q1)
+            acc = torch.zeros_like(qc)
+            for _, _, k0, k1, kind in (b for b in blocks if b[0] == q0):
+                kc = kf[:, :, k0:k1 + 1]
+                s, mask = _scores(qc, kc, g, q0, q1, k0, k1, kind, pos)
+                _, ds = _ds(s, mask, lsec, doc, vf[:, :, k0:k1 + 1], dlt, g)
+                acc = acc + torch.matmul(ds, kc)
+            dq[:, :, r] = acc
+        dk = torch.zeros(B, Kv, g.Skv, dh, dtype=torch.float32, device=dev)
+        dv = torch.zeros_like(dk)
+        for k0 in range(0, g.Skv, g.chunk_kv):
+            k1 = min(k0 + g.chunk_kv, g.Skv) - 1
+            kc, vc = kf[:, :, k0:k1 + 1], vf[:, :, k0:k1 + 1]
+            dk_acc, dv_acc = torch.zeros_like(kc), torch.zeros_like(vc)
+            for q0, q1, _, _, kind in (b for b in blocks if b[2] == k0):
+                qc, lsec, doc, dlt, _ = rows_of(q0, q1)
+                s, mask = _scores(qc, kc, g, q0, q1, k0, k1, kind, pos)
+                p, ds = _ds(s, mask, lsec, doc, vc, dlt, g)
+                dv_acc = dv_acc + torch.matmul(p.transpose(-1, -2), doc)
+                dk_acc = dk_acc + torch.matmul(ds.transpose(-1, -2), qc)
+            dk[:, :, k0:k1 + 1], dv[:, :, k0:k1 + 1] = dk_acc, dv_acc
+        return dq.to(qh.dtype), dk.to(kh.dtype), dv.to(vh.dtype), None
+
+
 def chunked_attention(
     q: torch.Tensor,  # [B, Sq, H, dh]
     k: torch.Tensor,  # [B, Skv, Kv, dh]
@@ -99,9 +248,11 @@ def chunked_attention(
     chunk_q: int = 512,
     chunk_kv: int = 1024,
 ) -> torch.Tensor:
-    """Flash-style attention forward: the online softmax of the
-    reference's ``_flash_fwd_impl`` over ``chunk_q`` × ``chunk_kv`` blocks;
-    the result in bf16.
+    """Flash-style attention: the online softmax of the reference's
+    ``_flash_fwd_impl`` over ``chunk_q`` × ``chunk_kv`` blocks; the result
+    in bf16.  Where a gradient is needed it runs through :class:`_Flash`,
+    whose backward is the reference's custom VJP; otherwise the forward
+    alone, the same values.
 
     Each query row sees the key chunks in the reference's order.  A block
     whose mask is all false is skipped: in the reference it either adds
@@ -117,41 +268,15 @@ def chunked_attention(
     B, Sq, H, dh = q.shape
     _, Skv, Kv, _ = k.shape
     G = H // Kv
-    scale = 1.0 / math.sqrt(dh)
-    chunk_q = min(chunk_q, max(Sq, 1))
-    chunk_kv = min(chunk_kv, max(Skv, 1))
-    dev = q.device
+    g = _Geom(G, Sq, Skv, causal, window, attn_softcap, 1.0 / math.sqrt(dh),
+              min(chunk_q, max(Sq, 1)), min(chunk_kv, max(Skv, 1)))
     # [B, Kv, S·G, dh]: row s·G + g is query s of head (kv, g)
     qh = q.reshape(B, Sq, Kv, G, dh).permute(0, 2, 1, 3, 4).reshape(B, Kv, Sq * G, dh)
-    kh = k.permute(0, 2, 1, 3).float()  # [B, Kv, Skv, dh]
-    vh = v.permute(0, 2, 1, 3).float()
-    pos = torch.arange(max(Sq, Skv), device=dev)
-    out = torch.empty(B, Kv, Sq * G, dh, dtype=torch.float32, device=dev)
-    for q0 in range(0, Sq, chunk_q):
-        q1 = min(q0 + chunk_q, Sq) - 1
-        rows = slice(q0 * G, (q1 + 1) * G)
-        qc = qh[:, :, rows].float()
-        n = qc.shape[2]
-        m = torch.full((B, Kv, n), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, Kv, n), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, Kv, n, dh), dtype=torch.float32, device=dev)
-        for k0 in range(0, Skv, chunk_kv):
-            k1 = min(k0 + chunk_kv, Skv) - 1
-            kind = _block_kind(q0, q1, k0, k1, Skv, causal, window)
-            if kind == "empty":
-                continue
-            s = torch.matmul(qc, kh[:, :, k0:k1 + 1].transpose(-1, -2)) * scale
-            s = softcap(s, attn_softcap)
-            if kind == "partial":
-                mask = _attn_mask(pos[q0:q1 + 1], pos[k0:k1 + 1], Skv, causal, window)
-                s = torch.where(mask.repeat_interleave(G, dim=0), s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.matmul(p, vh[:, :, k0:k1 + 1])
-            m = m_new
-        out[:, :, rows] = acc / torch.clamp(l, min=1e-30)[..., None]
+    kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)  # [B, Kv, Skv, dh]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = _Flash.apply(qh, kh, vh, g)
+    else:
+        out = _flash_fwd(qh, kh, vh, g, with_lse=False)[0]
     out = out.reshape(B, Kv, Sq, G, dh).permute(0, 2, 1, 3, 4).reshape(B, Sq, H, dh)
     return out.to(torch.bfloat16)
 
@@ -197,9 +322,28 @@ def decode_attention(
 # ---------------------------------------------------------------------------
 
 
+class _Silu(torch.autograd.Function):
+    """``jax.nn.silu`` = x · logistic(x), logistic op by op as XLA expands
+    it, 1 / (1 + exp(-x)), each op rounded to x's dtype.  The backward is
+    the reference's: the product's two terms plus logistic's derivative
+    rule ``ans · (1 - ans)``, ct·s + (ct·x)·(s·(1 - s)), each op rounded
+    to x's dtype (autograd through the expansion rounds differently)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, s = ctx.saved_tensors
+        return ct * s + (ct * x) * (s * (1 - s))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``: x · 1 / (1 + exp(-x)), each op rounded to x's dtype."""
-    return x * (1 / (1 + torch.exp(-x)))
+    return _Silu.apply(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

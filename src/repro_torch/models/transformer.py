@@ -9,10 +9,11 @@ layer is ``params["layers"][name][i]``), held by :class:`Transformer` as
 a module or passed to the functional entry points, which keep the JAX
 signatures and run on the parameters' device.
 
-This module holds the serving path: ``forward``, ``unembed_logits``,
-``loss_fn`` (its value), ``prefill`` and ``decode_step`` against a KV
-cache, with the single-shard MoE.  The expert-parallel MoE
-(``moe_ffn_shmap``) and training come later (ROADMAP Queue 1 item 3).
+This module holds ``forward``, ``unembed_logits``, ``loss_fn`` (its value
+and, through autograd, its gradient, layers rematerialised as in the
+reference), ``prefill`` and ``decode_step`` against a KV cache, with the
+single-shard MoE.  The expert-parallel MoE (``moe_ffn_shmap``) comes
+with ``dist/`` (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -24,9 +25,11 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.query import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.tree import build as _build, leaves as _leaves
 
 Params = Any
 
@@ -150,26 +153,6 @@ def logical_axes(cfg: TransformerCfg) -> dict:
     if not cfg.tie_embeddings:
         p["unembed"] = ("embed", "vocab")
     return p
-
-
-def _leaves(tree: dict, prefix=()):
-    """(path, leaf) pairs in sorted-key order, as ``jax.tree.flatten``
-    orders a dict."""
-    for k in sorted(tree):
-        if isinstance(tree[k], dict):
-            yield from _leaves(tree[k], prefix + (k,))
-        else:
-            yield prefix + (k,), tree[k]
-
-
-def _build(pairs) -> dict:
-    out: dict = {}
-    for path, leaf in pairs:
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
-    return out
 
 
 def init(cfg: TransformerCfg, generator: torch.Generator, device="cuda",
@@ -411,13 +394,33 @@ def _embed(params, tokens):
     return params["embed"][tokens.long()].to(torch.bfloat16)
 
 
+def _layer_list(params: Params) -> list[dict[str, torch.Tensor]]:
+    """Every layer's parameters, one ``unbind`` a stacked leaf: under
+    autograd each leaf's gradient is one stack of the layers' gradients."""
+    names = list(params["layers"])
+    return [dict(zip(names, lp)) for lp in zip(*(params["layers"][k].unbind(0) for k in names))]
+
+
+def _train_layer(cfg, lp, x, positions, is_local):
+    """One block's output; its k / v are not kept."""
+    return _layer(cfg, lp, x, positions, is_local)[0]
+
+
 def forward(cfg: TransformerCfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """Token ids int[B, S] -> final hidden states [B, S, D] (bf16)."""
+    """Token ids int[B, S] -> final hidden states [B, S, D] (bf16).  Under
+    autograd with ``cfg.remat`` each layer is rematerialised in the
+    backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint(nothing_saveable)``): only its input is kept."""
     B, S = tokens.shape
     x = _embed(params, tokens)
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    for i, is_local in enumerate(local_flags(cfg)):
-        x, _ = _layer(cfg, _layer_params(params, i), x, positions, is_local)
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for _, t in _leaves(params))
+    for lp, is_local in zip(_layer_list(params), local_flags(cfg)):
+        if remat:
+            x = checkpoint(_train_layer, cfg, lp, x, positions, is_local, use_reentrant=False)
+        else:
+            x = _train_layer(cfg, lp, x, positions, is_local)
     return L.rms_norm(x, params["final_norm"])
 
 
@@ -429,13 +432,13 @@ def unembed_logits(cfg, params, h):
     return L.softcap(logits, cfg.final_softcap)
 
 
-@torch.no_grad()
 def loss_fn(cfg: TransformerCfg, params: Params, batch: dict) -> torch.Tensor:
-    """Next-token cross-entropy over labels >= 0 (its value; the gradient
-    comes with training)."""
+    """Next-token cross-entropy over labels >= 0, differentiable in the
+    parameters; the row max is detached (the reference's
+    ``stop_gradient``)."""
     tokens, labels = batch["tokens"], batch["labels"].long()
     logits = unembed_logits(cfg, params, forward(cfg, params, tokens))  # [B,S,V] f32
-    lmax = logits.amax(dim=-1, keepdim=True)
+    lmax = logits.amax(dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(logits - lmax), dim=-1)) + lmax[..., 0]
     lab = torch.take_along_dim(logits, labels.clamp(min=0)[..., None], dim=-1)[..., 0]
     mask = labels >= 0

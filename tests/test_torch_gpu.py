@@ -1478,3 +1478,79 @@ def test_lm_registry_smoke_programs_on_the_card(shape, cuda):
     got, _ = prog.fn(*args)
     assert got.device.type == "cuda"
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=5e-2, atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# the transformer LM's training path (no kernel of its own: torch products)
+# ---------------------------------------------------------------------------
+
+
+# card against CPU, one smoke train step from the same inputs (chip_smoke.py's STEP_TOL and
+# its measurements): loss, grad_norm relative; optimizer state relative L2 a leaf; AdamW's new
+# parameters: the share of elements off (each within 2.02·lr); f32 Adafactor: the update's
+# relative L2; bf16 parameters: the share a bf16 step apart.  gemma2's smoke config amplifies
+# roundings most (a 1e-6 relative nudge of its parameters moves its grad_norm by up to 21% on
+# the CPU alone).
+TRAIN_STEP_TOL = dict(loss=1e-3, grad_norm=2e-2, state=1e-1, share=2e-2, update=1e-1, bf16=1e-1)
+TRAIN_STEP_TOL_OF = {"gemma2-27b": dict(TRAIN_STEP_TOL, grad_norm=1e-1, state=5e-1, share=1e-1)}
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_smoke_train_step_on_the_card_matches_the_cpu(arch, cuda):
+    """One step of the smoke ``train_4k`` program on the card and the CPU,
+    the same ``lm_inputs``, within ``TRAIN_STEP_TOL``."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import mesh as meshlib, programs
+    from repro_torch.tree import leaves, tree_map
+
+    tol = TRAIN_STEP_TOL_OF.get(arch, TRAIN_STEP_TOL)
+    mesh = meshlib.make_mesh((1, 1), ("data", "model"), [cuda])
+    prog = programs.build(arch, "train_4k", mesh, smoke=True)
+    params, state, batch = programs.lm_inputs(prog, "cpu", seed=6)
+    p0 = tree_map(torch.clone, params)  # the steps update in place
+    card = [tree_map(lambda t: t.to(cuda, copy=True), x) for x in (params, state, batch)]
+    _, _, want = prog.fn(params, state, batch)
+    _, _, got = prog.fn(*card)
+    assert got["loss"].device.type == "cuda"
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=tol[key])
+    for (path, a), (_, b) in zip(leaves(card[1]), leaves(state)):
+        if path == ("step",):
+            assert int(a) == int(b) == 1
+        elif float(b.norm()):
+            assert _rel_l2(a, b) <= tol["state"], path
+    spec = ARCHS[arch]
+    lr = 1e-3 if spec.optimizer == "adafactor" else 3e-4
+    for (path, a), (_, b), (_, a0) in zip(leaves(card[0]), leaves(params), leaves(p0)):
+        a, b, a0 = a.float().cpu(), b.float(), a0.float()
+        off = (a - b).abs()
+        if spec.optimizer == "adamw":
+            assert float(off.max()) <= 2.02 * lr, path
+            assert float((off > 1e-6 + 1e-6 * b.abs()).float().mean()) <= tol["share"], path
+        elif spec.param_dtype == "float32":  # (an unused leaf does not move)
+            assert torch.equal(a, b) or _rel_l2(a - a0, b - a0) <= tol["update"], path
+        else:
+            assert float(off.max()) <= 2.0 ** -7 * float(b.abs().max()), path
+            assert float((off > 0).float().mean()) <= tol["bf16"], path
+
+
+def test_flash_gradients_on_the_card_match_the_cpu(cuda):
+    """``chunked_attention``'s gradients (the ``_Flash`` backward) at
+    B 2 × S 300, GQA 8 / 2, dh 64, chunks 64 / 128 (short last chunks), a
+    window and a softcap, on the card against the CPU: relative L2 1e-2
+    (bf16 results of f32 sums in another order)."""
+    from repro_torch.models import layers as L
+
+    rng = np.random.default_rng(7)
+    q, k, v, w = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  for s in ((2, 300, 8, 64), (2, 300, 2, 64), (2, 300, 2, 64), (2, 300, 8, 64)))
+    for kw in (dict(causal=True), dict(causal=True, window=100, attn_softcap=30.0),
+               dict(causal=False)):
+        grads = []
+        for dev in ("cpu", cuda):
+            ins = [t.to(dev).bfloat16().requires_grad_() for t in (q, k, v)]
+            out = L.chunked_attention(*ins, chunk_q=64, chunk_kv=128, **kw)
+            (out.float() * w.to(dev)).sum().backward()
+            grads.append([t.grad for t in ins])
+        for got, want in zip(grads[1], grads[0]):
+            assert got.dtype == torch.bfloat16 and _rel_l2(got, want) <= 1e-2, kw

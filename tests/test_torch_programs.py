@@ -5,12 +5,12 @@ the JAX package's ``repro.configs`` / ``repro.launch.programs``:
   field (cfg, smoke cfg, shapes with their dims, rules and skips,
   optimizer, parameter dtype, source), ``all_cells()`` against the JAX
   one restricted to the ported families, and ``build``'s refusals (the
-  GNN/recsys archs, ``train_4k``, an LM program on a mesh of several
-  devices);
+  GNN/recsys archs, an LM program on a mesh of several devices);
 * ``build_engine``'s meta-device ``in_specs`` against the JAX
   ``ShapeDtypeStruct``s (uint32 as int32) for both shapes, smoke and
   full, on (1, 1) and (2, 4) meshes, and ``model_flops``; the same for
-  ``build_lm``'s prefill and decode programs of every LM arch;
+  ``build_lm``'s train, prefill and decode programs of every LM arch
+  (the train program's optimizer state is the arch's optimizer's);
 * the smoke cells run for real: the smoke store on a (1, 1) and a (2, 4)
   mesh of the ``cpu`` device against the JAX program's ``fn`` on a (1, 1)
   JAX mesh, every field exact (``serve_64k`` at B = 256 with all six ops;
@@ -19,7 +19,9 @@ the JAX package's ``repro.configs`` / ``repro.launch.programs``:
   give the same bits, ``tests/test_k2_scan.py``).  LM smoke programs
   (B = 2, S = 64) run on the JAX parameters against the JAX programs'
   ``fn``, logits within 5e-2 (``tests/test_torch_transformer.py``'s
-  whole-model bound), and ``lm_inputs`` makes seeded arguments.
+  whole-model bound), and ``lm_inputs`` makes seeded arguments, for the
+  train program parameters, optimizer state and a ``TokenStream`` batch
+  that one step consumes.
 """
 
 import dataclasses
@@ -107,8 +109,6 @@ def test_build_refuses_an_unported_family(monkeypatch):
             with pytest.raises(KeyError, match="Queue 1 item 3"):
                 programs.build(arch_id, jspec.shapes[0].shape_id, mesh)
     for arch_id in LM_ARCHS:
-        with pytest.raises(NotImplementedError, match="training"):
-            programs.build(arch_id, "train_4k", mesh, smoke=True)
         with pytest.raises(ValueError, match="one device"):
             programs.build(arch_id, "decode_32k", _mesh((1, 2)), smoke=True)
     with pytest.raises(ValueError, match="one device"):
@@ -340,3 +340,49 @@ def test_lm_inputs():
         programs.lm_inputs(engine, "cpu")
     with pytest.raises(ValueError, match="not an engine program"):
         programs.inputs(pre, None, mesh, None)
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_program_like_jax(arch, smoke):
+    """``train_4k``: the in_specs (parameters, the arch's optimizer state on
+    the ``meta`` device, the int32 token / label batch) leaf for leaf and
+    the model flops against the JAX builder's."""
+    prog = programs.build(arch, "train_4k", _mesh((1, 1)), smoke=smoke)
+    jprog = jprograms.build(arch, "train_4k", _jax_mesh((1, 1)), smoke=smoke)
+    assert prog.name == jprog.name and prog.model_flops == jprog.model_flops
+    B, S = (2, 64) if smoke else (256, 4096)
+    assert prog.model_flops == programs.lm_train_flops(prog.cfg, B * S)
+    assert len(prog.in_specs) == len(jprog.in_specs) == 3
+    for got, want in zip(prog.in_specs, jprog.in_specs):
+        got, want = list(tfm._leaves(got)), jax.tree_util.tree_leaves_with_path(want)
+        assert [p for p, _ in got] == [tuple(k.key for k in p) for p, _ in want]
+        for (path, g), (_, w) in zip(got, want):
+            assert g.device.type == "meta", path  # nothing allocated
+            assert tuple(g.shape) == tuple(w.shape), path
+            assert str(g.dtype).removeprefix("torch.") == str(w.dtype), path
+    assert (ARCHS[arch].optimizer == "adafactor") == ("f" in prog.in_specs[1])
+
+
+def test_lm_train_inputs():
+    """``lm_inputs`` of a train program: seeded parameters, the
+    optimizer's fresh state and a ``TokenStream`` batch that one step of
+    ``fn`` consumes; the batch is at most the cell's 256 sequences."""
+    mesh = _mesh((1, 1))
+    prog = programs.build("olmoe-1b-7b", "train_4k", mesh, smoke=True)
+    params, state, batch = programs.lm_inputs(prog, "cpu", seed=2, seq_len=16)
+    want = tokens.TokenStream(prog.cfg.vocab, 16, seed=2).batch(2)
+    for k in ("tokens", "labels"):
+        assert batch[k].dtype == torch.int32 and np.array_equal(batch[k].numpy(), want[k])
+    assert int(state["step"]) == 0 and state["mu"]["embed"].dtype == torch.float32
+    before = params["layers"]["router"].clone()
+    _, state, m = prog.fn(params, state, batch)
+    assert int(state["step"]) == 1 and np.isfinite(float(m["loss"]))
+    assert float(m["grad_norm"]) > 0 and not torch.equal(params["layers"]["router"], before)
+    full = programs.build("tinyllama-1.1b", "train_4k", mesh)
+    assert full.in_specs[2]["tokens"].shape == (256, 4096)
+    with pytest.raises(ValueError, match="takes batch <= 256"):
+        programs.lm_inputs(full, "cpu", batch=257, seq_len=8)
+    kimi = programs.build("kimi-k2-1t-a32b", "train_4k", mesh, smoke=True)
+    params, state, _ = programs.lm_inputs(kimi, "cpu", batch=1, seq_len=8)
+    assert params["embed"].dtype == torch.bfloat16 and set(state) == {"f", "step"}

@@ -4,8 +4,8 @@
   imports ``jax`` or the JAX package ``repro`` (an AST scan of every import).
 * Every entry point defaults to ``device="cuda"``, and asking for CUDA
   without a card raises instead of running on the CPU (the LM's ``init``,
-  ``params_from_arrays``, ``KVCache.zeros`` and ``programs.lm_inputs``
-  included).
+  ``params_from_arrays``, ``KVCache.zeros``, ``programs.lm_inputs`` and
+  the train driver included).
 * ``ExecConfig`` resolves without reading the environment.
 """
 
@@ -20,7 +20,7 @@ import torch
 from repro_torch.core import bitvec, convert, engine as eng, k2tree, k2triples
 from repro_torch.core import query
 from repro_torch.core.query import ExecConfig, resolve_device
-from repro_torch.launch import broker, serve
+from repro_torch.launch import broker, serve, train
 from repro_torch.launch import mesh as meshlib, programs
 from repro_torch.models import transformer as tfm
 
@@ -55,6 +55,7 @@ def test_entry_points_default_to_cuda():
                tfm.params_from_arrays, tfm.KVCache.zeros, programs.lm_inputs):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert serve.parse_args([]).device == "cuda"
+    assert train.parse_args(["--arch", "tinyllama-1.1b"]).device == "cuda"
     # a mesh defaults to the visible CUDA cards
     assert inspect.signature(meshlib.make_mesh).parameters["devices"].default is None
     assert inspect.signature(programs.build).parameters["mesh"].default is None
@@ -94,6 +95,10 @@ def test_cuda_without_card_raises(monkeypatch):
         tfm.KVCache.zeros(cfg, 1, 4)
     with pytest.raises(ValueError):  # an LM program's default mesh is a card
         programs.build("tinyllama-1.1b", "decode_32k")
+    with pytest.raises(ValueError):
+        programs.build("tinyllama-1.1b", "train_4k")
+    with pytest.raises(RuntimeError, match="no CUDA card"):  # the train driver
+        train.main(["--arch", "tinyllama-1.1b", "--smoke", "--steps", "1"])
     e = eng.Engine(st, device="cpu")
     # a broker follows its engine's device; a cuda config is refused
     assert broker.ServeBroker(e).config.device == "cpu"
