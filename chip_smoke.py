@@ -210,12 +210,35 @@ Phases (any failure exits non-zero before the result line):
    step ms (median of steps 2 on), tokens a second, peak memory, a
    training-step bound (``train_bound``) and one profiled step's device
    idle share and top kernels beside the card.
+13. the LM family's serving programs on meshes of the card (``dist/``,
+   ``models/transformer_mesh.py``; no kernel of their own, none of the
+   nine may launch):
+   13a. the five smoke archs' ``prefill_32k``, ``decode_32k`` and
+   ``long_500k`` programs on a (2, 4) mesh of the card against the same
+   on a (2, 4) mesh of ``cpu`` and against the card's (1, 1) programs, the
+   same ``lm_inputs``: layer 0's k / v within 1e-2 relative L2, every
+   other layer's within 5e-2 and the logits within 0.1 (a bf16 partial
+   sum rounds once a model shard, and random smoke weights grow it; an
+   MoE prefill's (1, 1) comparison runs on (1, 4): a (2, 4) mesh sizes
+   capacity by each data slice's tokens);
+   13b. ``olmoe-1b-7b:prefill_32k`` at full width, cut to B = 4 x S =
+   2,048 (11c's cut), on (1, 1), (1, 4) and (2, 2) meshes of the card:
+   tokens a second, peak memory, the dropped (token, expert) share; no
+   byte added by placing the parameters on a mesh; layer 0's MoE on the
+   prompt's embeddings on (1, 4) routes exactly as the single-shard
+   ``moe_ffn`` (slots and ``valid`` equal, the same pairs dropped);
+   13c. ``tinyllama-1.1b:long_500k`` uncut on (1, 4): ms a step against
+   (1, 1) on the same cache, a profiled step's top kernels (whether
+   cuBLAS still picks ``gemmSN`` for the 131,072-long products), one
+   decode layer on identical inputs within 2e-2 relative L2 of (1, 1)'s;
+   13d. ``tinyllama-1.1b:decode_32k`` on (1, 4) at B = 8 (11b's cut), as
+   13c.
    Then the ``{"kernels": [...]}`` line (``launches_by_path`` gains
    ``dynamic``, phase 8's launches, ``sharded``, those of 9a's and 9b's
    mesh runs, ``functional``, those of 9c, ``tree``, those of 10a,
-   ``registry``, those of the programs' runs in 10b-10c, and ``train``,
-   phase 12's, all 0), the card's name and power limit, and the final
-   ``{"ok": true, ...}`` line.
+   ``registry``, those of the programs' runs in 10b-10c, ``train``,
+   phase 12's, and ``lm_mesh``, phase 13's, both 0), the card's name and
+   power limit, and the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -4100,6 +4123,298 @@ def train_phase(device, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the LM family's serving programs on meshes of the card
+# ---------------------------------------------------------------------------
+
+MESH_SMOKE = (2, 4)  # 13a
+# relative L2 (tests/test_torch_lm_mesh.py's measured bounds): 13a's k / v of layer 0 and of the
+# others, and logits; one layer's output on identical inputs, a mesh against (1, 1) (13c, 13d)
+MESH_TOL = dict(layer0=1e-2, layer=5e-2, logits=0.1, one_layer=2e-2)
+MESH_MOE = ((1, 4), (2, 2))  # 13b: olmoe prefill_32k at MOE_PREFILL
+MESH_DECODE = (1, 4)  # 13c, 13d
+
+
+def _mesh_of(device, shape, spread: bool = False):
+    """A ``shape`` mesh of ``device`` repeated or, with ``spread``, of the
+    first distinct cards (device 0 first)."""
+    from repro_torch.launch import mesh as meshlib
+
+    n = shape[0] * shape[1]
+    return meshlib.make_mesh(shape, ("data", "model"), None if spread else [device] * n)
+
+
+def _unsharded(x):
+    from repro_torch.dist.sharding import Sharded
+
+    return x.unshard() if isinstance(x, Sharded) else x
+
+
+def _serve_out(prog, args):
+    """(logits, k, v) of one run of ``prog`` on ``args``, the cache
+    gathered: a decode writes a copy of the given cache."""
+    args = list(args)
+    if len(args) > 2:
+        args[1] = {k: v.clone() for k, v in args[1].items()}
+    logits, cache = prog.fn(*args)
+    return logits, _unsharded(cache["k"]), _unsharded(cache["v"])
+
+
+def _mesh_held(got, want, where: str) -> dict:
+    """``got`` (logits, k, v) against ``want`` by ``MESH_TOL``; -> the
+    relative L2 of the logits and the largest of any layer's k / v."""
+    logits, k, v = got
+    layer = 0.0
+    for i in range(k.shape[0]):
+        tol = MESH_TOL["layer0"] if i == 0 else MESH_TOL["layer"]
+        for a, b, n in ((k[i], want[1][i], "k"), (v[i], want[2][i], "v")):
+            layer = max(layer, _rel_l2(a, b, tol, f"{where}: layer {i}'s {n}"))
+    return dict(logits=_rel_l2(logits, want[0], MESH_TOL["logits"], f"{where}: logits"),
+                layer=layer)
+
+
+def mesh_smoke_13a(device, seed: int) -> dict:
+    """Each smoke arch's three serving programs on a ``MESH_SMOKE`` mesh
+    of the card, of ``cpu`` and on the card's (1, 1) mesh, the same inputs.
+    An MoE prefill routes each data slice apart (capacity from its tokens),
+    so (1, 4) of the card stands in for ``MESH_SMOKE`` against (1, 1)."""
+    import torch
+
+    from repro_torch.launch import programs
+
+    out = {}
+    cpu = torch.device("cpu")
+    for arch in LM_ARCHS:
+        for shape in ("prefill_32k", "decode_32k", "long_500k"):
+            single = programs.build(arch, shape, _mesh_of(device, (1, 1)), smoke=True)
+            card = programs.build(arch, shape, _mesh_of(device, MESH_SMOKE), smoke=True)
+            host = programs.build(arch, shape, _mesh_of(cpu, MESH_SMOKE), smoke=True)
+            args = programs.lm_inputs(single, device, seed=seed)
+            args_cpu = [_tree_to(a, cpu) if isinstance(a, dict) else a.cpu() for a in args]
+            got = _serve_out(card, args)
+            if not all(isinstance(x, torch.Tensor) and x.device == device for x in got):
+                fail(f"13a {arch}:{shape}: the card mesh's results are not on {device}")
+            cpu_held = _mesh_held(got, _serve_out(host, args_cpu), f"13a {arch}:{shape} cpu mesh")
+            if single.cfg.moe and shape == "prefill_32k":
+                got = _serve_out(programs.build(arch, shape, _mesh_of(device, (1, 4)), smoke=True),
+                                 args)
+            out[f"{arch}:{shape}"] = dict(
+                single=_mesh_held(got, _serve_out(single, args), f"13a {arch}:{shape} (1, 1)"),
+                cpu=cpu_held, moe_prefill=bool(single.cfg.moe) and shape == "prefill_32k")
+    return out
+
+
+def _placed_bytes(prog, params) -> int:
+    """Bytes allocated on the mesh's cards by placing ``params`` on
+    ``prog``'s mesh (0 on a repeated card: every shard a view)."""
+    import torch
+
+    from repro_torch.launch import programs
+
+    cards = list(dict.fromkeys(prog.mesh.devices))
+    before = sum(torch.cuda.memory_allocated(d) for d in cards)
+    placed = programs.shard_params(params, prog.mesh, prog.rules)
+    grown = sum(torch.cuda.memory_allocated(d) for d in cards) - before
+    del placed
+    return grown
+
+
+def moe_mesh_13b(device, seed: int, spread: bool = False) -> dict:
+    """``olmoe-1b-7b:prefill_32k`` at ``MOE_PREFILL`` on (1, 1) and the
+    ``MESH_MOE`` meshes (of distinct cards with ``spread``); layer 0's MoE
+    on (1, 4) against ``moe_ffn``."""
+    import torch
+
+    from repro_torch.launch import programs
+    from repro_torch.models import layers as L, transformer as tfm
+
+    arch = "olmoe-1b-7b"
+    B, S = MOE_PREFILL
+    single = programs.build(arch, "prefill_32k", _mesh_of(device, (1, 1)))
+    cfg = single.cfg
+    base = _peak_reset(device)
+    params, toks = programs.lm_inputs(single, device, seed=seed, batch=B, seq_len=S)
+    pairs = B * S * cfg.moe.top_k * cfg.n_layers
+    out = {}
+    for shape in ((1, 1),) + MESH_MOE:
+        prog = single if shape == (1, 1) else programs.build(arch, "prefill_32k",
+                                                             _mesh_of(device, shape, spread))
+        grown = 0 if shape == (1, 1) else _placed_bytes(prog, params)
+        if grown and not spread:
+            fail(f"13b {shape}: placing the parameters on the mesh allocated {grown} bytes")
+        args = programs.lm_place(prog, (params, toks))
+        with MoeTally() as tally:  # also the warm-up
+            prog.fn(*args)
+        kept = tally.totals()[1]
+        _peak_reset(device)
+        (logits, _), secs = _timed(lambda: prog.fn(*args))
+        peak = torch.cuda.max_memory_allocated(device)
+        del args
+        if not torch.isfinite(logits).all() or tuple(logits.shape) != (B, cfg.vocab):
+            fail(f"13b {shape}: logits of shape {tuple(logits.shape)}")
+        out[shape] = dict(seconds=secs, tokens_per_s=B * S / secs, peak=peak, base=base,
+                          kept=kept, dropped_share=1 - kept / pairs, logits=logits, grown=grown)
+    for shape in MESH_MOE:
+        r = out[shape]
+        r["vs_single"] = float((r["logits"] - out[(1, 1)]["logits"]).norm()
+                               / out[(1, 1)]["logits"].norm())
+    # layer 0's MoE on the prompt's embeddings: (1, 4) routes as moe_ffn
+    lp = tfm._layer_params(params, 0)
+    x = L.rms_norm(tfm._embed(params, toks), lp["ffn_norm"])
+    m = cfg.moe
+    C = tfm.moe_capacity(cfg, B * S)
+    want = tfm._moe_route(tfm.moe_gates(lp, x.reshape(-1, cfg.d_model)), m.n_experts, m.top_k, C)
+    mesh = _mesh_of(device, (1, 4), spread)
+    routes = []
+    orig = tfm._moe_route
+
+    def recorded(*a):
+        r = orig(*a)
+        routes.append((a[4], r[:3]))
+        return r
+
+    tfm._moe_route = recorded
+    try:
+        y = tfm.moe_ffn_shmap(cfg, lp, x, mesh=mesh, dp_axes=("data",))
+    finally:
+        tfm._moe_route = orig
+    E_loc = m.n_experts // 4
+    for e0, r in routes:
+        sl = slice(e0 * C, (e0 + E_loc) * C)
+        for name, a, b in zip(("idx", "wslot", "valid"), r, want[:3]):
+            if not torch.equal(a.to(b.device), b[sl]):
+                fail(f"13b: layer 0's MoE on (1, 4), experts {e0}.., {name} differs from moe_ffn's")
+    ref = tfm._moe_expert_compute(lp, x.reshape(-1, cfg.d_model), *want[:3], m.n_experts, C,
+                                  want[3])
+    out["layer"] = dict(T=B * S, C=C, kept=int(want[2].sum()), routes=len(routes),
+                        err=_rel_l2(y.reshape(-1, cfg.d_model), ref, REL_TOL,
+                                    "13b: layer 0's MoE on (1, 4) against moe_ffn"))
+    del params
+    return out
+
+
+def _one_layer(cfg, params, cache):
+    """Layer 0 alone: a one-layer config, its parameters and cache views."""
+    import dataclasses
+
+    return (dataclasses.replace(cfg, n_layers=1),
+            dict(params, layers={k: v[:1] for k, v in params["layers"].items()}),
+            {k: v[:1] for k, v in cache.items()})
+
+
+def decode_mesh_13cd(device, seed: int, shape: str, batch, spread: bool = False) -> dict:
+    """``tinyllama-1.1b`` decode ``shape`` on (1, 1) and ``MESH_DECODE``
+    meshes of the card (of distinct cards with ``spread``) on one seeded
+    cache: ms a step, peak memory, a profiled step; layer 0 on identical
+    inputs held (1, 4) against (1, 1)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import programs
+    from repro_torch.models import transformer as tfm, transformer_mesh as tmesh
+
+    arch = "tinyllama-1.1b"
+    single = programs.build(arch, shape, _mesh_of(device, (1, 1)))
+    prog = programs.build(arch, shape, _mesh_of(device, MESH_DECODE, spread))
+    cfg = single.cfg
+    base = _peak_reset(device)
+    params, cache, new, lengths = programs.lm_inputs(single, device, seed=seed, batch=batch)
+    b, ctx = cache["k"].shape[1], cache["k"].shape[2]
+    out = dict(B=b, ctx=ctx, base=base, grown=_placed_bytes(prog, params),
+               bound=lm_bound(cfg, params["embed"].element_size(), B=b, S=1, ctx=ctx))
+    if out["grown"] and not spread:
+        fail(f"13 {shape}: placing the parameters on the mesh allocated {out['grown']} bytes")
+    for name, p in (("single", single), ("mesh", prog)):
+        a = programs.lm_place(p, (params, cache, new, lengths))  # views: the same cache
+        _peak_reset(device)
+        ms, steps, _ = _decode_steps(cfg, p, *a, TIMED_STEPS + 1, greedy=False)
+        x = steps[-1]
+        if not torch.isfinite(x).all() or tuple(x.shape) != (b, cfg.vocab):
+            fail(f"13 {shape} {name}: logits of shape {tuple(x.shape)}")
+        out[name] = dict(ms=ms[1:], median_ms=float(np.median(ms[1:])), logits=x,
+                         peak=torch.cuda.max_memory_allocated(device),
+                         prof=_profiled(lambda: p.fn(*a)))
+        del a, steps
+    out["free"] = float((out["mesh"]["logits"] - out["single"]["logits"]).norm()
+                        / out["single"]["logits"].norm())
+    # layer 0 on identical inputs: a one-layer model's logits, (1, 4) against (1, 1)
+    cfg1, p1, c1 = _one_layer(cfg, params, cache)
+    want, _ = tfm.decode_step(cfg1, p1, c1, new, lengths)
+    got, _ = tmesh.decode_step(cfg1, *programs.lm_place(prog, (p1, c1, new, lengths)),
+                               mesh=prog.mesh)
+    out["layer"] = _rel_l2(got, want, MESH_TOL["one_layer"],
+                           f"13 {shape}: layer 0 on (1, 4) against (1, 1)")
+    del params, cache
+    return out
+
+
+def mesh_phase(device, seed: int, spread: bool = False) -> dict:
+    """Phase 13; fails unless every check holds and none of the nine kernels
+    launched.  -> the nine kernels' launches in the phase (all 0).  With
+    ``spread`` (four or more cards) 13b-13d's meshes lie on distinct cards,
+    the lead card the first."""
+    from repro_torch.kernels import ops
+
+    t_all = time.perf_counter()
+    before = dict(ops.LAUNCHES)
+    card = gpu_line()
+    phase("13a. the five LM smoke archs' serving programs on a (2, 4) mesh of the card")
+    t0 = time.perf_counter()
+    for cell, r in mesh_smoke_13a(device, seed).items():
+        moe = " (against (1, 1) on (1, 4))" if r["moe_prefill"] else ""
+        print(f"13a {cell} on {MESH_SMOKE}{moe}: against the card's (1, 1) logits relative L2 "
+              f"{r['single']['logits']:.3g}, k / v {r['single']['layer']:.3g}; against a "
+              f"{MESH_SMOKE} mesh of cpu logits {r['cpu']['logits']:.3g}, k / v "
+              f"{r['cpu']['layer']:.3g} (tol {MESH_TOL})", flush=True)
+    print(f"13a done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    phase(f"13b. olmoe-1b-7b:prefill_32k at full width on meshes of "
+          f"{'distinct cards' if spread else 'the card'}")
+    t0 = time.perf_counter()
+    m = moe_mesh_13b(device, seed + 1, spread)
+    for shape in ((1, 1),) + MESH_MOE:
+        r = m[shape]
+        extra = "" if shape == (1, 1) else (f", logits relative L2 to (1, 1) {r['vs_single']:.3g} "
+                                            "(not held: random weights grow a rounding through "
+                                            "16 layers)")
+        print(f"13b {shape} prefill B = {MOE_PREFILL[0]} x S = {MOE_PREFILL[1]}: "
+              f"{r['seconds']:.4f}s, {r['tokens_per_s']:.1f} tokens/s, peak {r['peak']} bytes "
+              f"on the lead ({r['base']} resident before; {r['grown']} bytes added placing "
+              f"the parameters), pairs kept {r['kept']}, dropped share "
+              f"{r['dropped_share']:.5f}{extra}; {card}", flush=True)
+    ly = m["layer"]
+    print(f"13b layer 0's MoE on the prompt ({ly['T']} tokens, C = {ly['C']}): on (1, 4) each "
+          f"of {ly['routes']} model shards' idx / wslot / valid equal to moe_ffn's slots of its "
+          f"experts ({ly['kept']} pairs kept), output relative L2 {ly['err']:.3g} (tol "
+          f"{REL_TOL})", flush=True)
+    print(f"13b done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    for label, shape, batch in (("13c", "long_500k", None), ("13d", "decode_32k", DENSE_DECODE_B)):
+        phase(f"{label}. tinyllama-1.1b:{shape} on a {MESH_DECODE} mesh of "
+              f"{'distinct cards' if spread else 'the card'}")
+        t0 = time.perf_counter()
+        d = decode_mesh_13cd(device, seed + 2, shape, batch, spread)
+        for name in ("single", "mesh"):
+            r = d[name]
+            where = (1, 1) if name == "single" else MESH_DECODE
+            print(f"{label} {shape} {where}, B = {d['B']}, {d['ctx']} slots: median "
+                  f"{r['median_ms']:.3f} ms a step over {len(r['ms'])} (min {min(r['ms']):.3f}, "
+                  f"max {max(r['ms']):.3f}), peak {r['peak']} bytes ({d['base']} before); bound "
+                  f"{d['bound'][0]:.4f} ms ({d['bound'][1]}); {card}", flush=True)
+            print(_prof_line(f"{label} a {where} step", r["prof"]), flush=True)
+        print(f"{label} layer 0 on identical inputs, {MESH_DECODE} against (1, 1): relative L2 "
+              f"{d['layer']:.3g} (tol {MESH_TOL['one_layer']}); the whole step's logits {d['free']:.3g} (not "
+              f"held: random weights grow a rounding through 22 layers); parameters placed "
+              f"with {d['grown']} bytes added", flush=True)
+        print(f"{label} done in {time.perf_counter() - t0:.1f}s", flush=True)
+    launched = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+    if launched:
+        fail(f"phase 13 launched kernels of the k²-triples path: {launched}")
+    print(f"13 done in {time.perf_counter() - t_all:.1f}s; none of the nine kernels launched",
+          flush=True)
+    return {k: ops.LAUNCHES[k] - before[k] for k in before}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4360,9 +4675,10 @@ def main(argv=None) -> int:
         next(row for row in rows if row["name"] == name)["shapes"][label] = times
     lm_phase(device, args.seed + 11)
     train = train_phase(device, args.seed + 12)
+    lm_mesh = mesh_phase(device, args.seed + 13)
     for row in rows:
-        row["launches_by_path"]["train"] = train[row["name"]]
-        row["launches"] += train[row["name"]]
+        row["launches_by_path"].update(train=train[row["name"]], lm_mesh=lm_mesh[row["name"]])
+        row["launches"] += train[row["name"]] + lm_mesh[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,21 +11,27 @@ shapes and dtypes (uint32 words as int32): nothing is allocated.
   store's.  ``inputs(program, store, mesh, batch)`` makes the concrete
   arguments on the mesh's devices, with the store's own widths.
 * lm (the five transformer archs): ``train_4k`` a training step
-  ``fn(params, opt_state, batch)`` of the arch's optimizer,
+  ``fn(params, opt_state, batch)`` of the arch's optimizer on one device,
   ``prefill_32k`` a prefill program ``fn(params, tokens)``,
   ``decode_32k`` / ``long_500k`` a decode step ``fn(params, cache,
-  tokens_new, lengths)``, on one device.  ``lm_inputs(program, device)``
-  makes seeded parameters and optimizer state, a batch, a prompt or a
-  cache, at the cell's batch and length or smaller ones.
+  tokens_new, lengths)``, on one device or, on a mesh of several, laid
+  out by ``dist.sharding.spec_for`` under the shape's rules
+  (``Program.in_shardings``, the JAX builder's) and run by
+  ``models/transformer_mesh.py``.  ``lm_inputs(program, device)`` makes
+  seeded parameters and optimizer state, a batch, a prompt or a cache, at
+  the cell's batch and length or smaller ones, placed on the program's
+  mesh; ``shard_params`` places a parameter tree (``params_from_arrays``'s)
+  on a mesh.
 
 ``program.fn(*inputs(...))`` runs the cell: size bytes or memory from
-what the inputs hold, not from ``in_specs``.  A mesh of more than one
-device for an LM program and the GNN and recsys archs are refused
-(ROADMAP Queue 1 item 3).
+what the inputs hold, not from ``in_specs``.  ``train_4k`` on a mesh of
+several devices and the GNN and recsys archs are refused (ROADMAP Queue
+1).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -36,10 +42,13 @@ from repro_torch.core.k2forest import K2Forest
 from repro_torch.core.k2tree import K2Meta, hybrid_ks
 from repro_torch.core.query import resolve_device
 from repro_torch.data.tokens import TokenStream
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import Sharded
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.mesh import MODEL_AXIS, Mesh
-from repro_torch.models import transformer as tfm
+from repro_torch.models import transformer as tfm, transformer_mesh as tmesh
 from repro_torch.train import optim
+from repro_torch.tree import tree_map
 from repro_torch.train.trainer import make_train_step
 
 
@@ -55,19 +64,15 @@ class Program(NamedTuple):
     model_flops: float = 0.0
     cfg: Any = None  # lm: the TransformerCfg ``fn`` runs
     opt: Any = None  # lm train: the Optimizer ``fn`` steps with
+    # lm on a mesh of several devices: the mesh, the shape's sharding rules and
+    # the partition spec of each ``in_specs`` leaf (the JAX builder's in_shardings)
+    mesh: Mesh | None = None
+    rules: dict | None = None
+    in_shardings: tuple | None = None
 
 
 def _spec(*shape: int) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.int32, device="meta")
-
-
-def _lead_device(mesh: Mesh) -> torch.device:
-    """The one device an LM program runs on; a larger mesh is refused."""
-    if len(mesh.devices) != 1:
-        raise ValueError(f"an LM program runs on one device, the mesh holds {mesh.sizes}: the "
-                         "sharded LM and the expert-parallel MoE (dist/, moe_ffn_shmap) are "
-                         "not ported (ROADMAP Queue 1 item 3)")
-    return mesh.lead
 
 
 def _pad_to(x: int, mult: int) -> int:
@@ -188,6 +193,98 @@ def _opt(arch: cb.ArchSpec) -> optim.Optimizer:
     return optim.adafactor(1e-3) if arch.optimizer == "adafactor" else optim.adamw(3e-4)
 
 
+def _mesh_specs(cfg: tfm.TransformerCfg, kind: str, mesh: Mesh, rules: dict, B: int,
+                S: int) -> tuple:
+    """The partition specs of an LM serving program's inputs at batch ``B``
+    and length ``S``, as the JAX builder's ``in_shardings``: parameters by
+    ``spec_for`` over their logical axes; prefill tokens over every data
+    axis; a decode cache by ``spec_for`` over ``KV_AXES``, tokens and
+    lengths over ``("batch",)``."""
+    pspecs = tfm.param_specs(cfg)
+    psh = tree_map(lambda t, ax: shd.spec_for(mesh, ax, tuple(t.shape), rules), pspecs,
+                   tfm.param_axes(pspecs))
+    if kind == "prefill":
+        dp = meshlib.dp_axes(mesh)
+        return psh, ((dp if len(dp) > 1 else (dp[0] if dp else None)), None)
+    cache = shd.spec_for(mesh, tmesh.KV_AXES, (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head),
+                         rules)
+    bsh = shd.spec_for(mesh, ("batch",), (B,), rules)
+    return psh, {"k": cache, "v": cache}, bsh, bsh
+
+
+def _check_lm_mesh(cfg: tfm.TransformerCfg, shape: cb.ShapeSpec, mesh: Mesh, B: int) -> None:
+    name = f"{cfg.name}:{shape.shape_id}"
+    if shape.kind == "train":
+        raise ValueError(f"{name}: train_4k on a mesh of several devices is not ported (the "
+                         "next slice, ROADMAP Queue 1: the DP gradient mean, sharded optimizer "
+                         "state); build it on a (1, 1) mesh")
+    if MODEL_AXIS not in mesh.shape or set(mesh.axis_names) - {"pod", "data", MODEL_AXIS}:
+        raise ValueError(f"{name}: an LM mesh has a {MODEL_AXIS!r} axis and otherwise 'pod' / "
+                         f"'data', not {mesh.axis_names}")
+    mp = mesh.shape[MODEL_AXIS]
+    if cfg.moe and cfg.moe.n_experts % mp:
+        raise ValueError(f"{name}: {cfg.moe.n_experts} experts do not split over {mp} model "
+                         "shards (the expert-parallel MoE needs them to)")
+    dp = mesh.size(meshlib.dp_axes(mesh))
+    if shape.kind == "prefill" and B % dp:
+        raise ValueError(f"{name}: a batch of {B} does not split over {dp} data slices")
+
+
+def _placed(x, mesh: Mesh, spec) -> Sharded:
+    """``x`` on ``mesh`` by ``spec``: a tensor is split (views on its own
+    device); a ``Sharded`` must already be so."""
+    if isinstance(x, Sharded):
+        if x.mesh != mesh or x.spec != tuple(spec):
+            raise ValueError(f"an input split as {x.spec} on {x.mesh.sizes}, the program's "
+                             f"layout is {tuple(spec)} on {mesh.sizes}")
+        return x
+    return shd.shard(x, mesh, spec)
+
+
+def _place(tree, mesh: Mesh, specs):
+    """Every leaf of ``tree`` placed by the spec at its path in ``specs``."""
+    if isinstance(tree, dict):
+        return {k: _place(v, mesh, specs[k]) for k, v in tree.items()}
+    return _placed(tree, mesh, specs)
+
+
+def shard_params(params: tfm.Params, mesh: Mesh, rules: dict | None = None) -> dict:
+    """A parameter tree (``tfm.init``'s or ``params_from_arrays``'s) on
+    ``mesh``: each leaf split by ``spec_for`` over its logical axes under
+    ``rules`` (views where the mesh names the tree's device)."""
+    return tree_map(lambda t, ax: shd.shard(t, mesh, shd.spec_for(mesh, ax, tuple(t.shape), rules)),
+                    params, tfm.param_axes(params))
+
+
+def _place_args(cfg: tfm.TransformerCfg, kind: str, mesh: Mesh, rules: dict, args) -> tuple:
+    """An LM serving program's arguments on ``mesh`` by the specs of their
+    own shapes: tensors split (views on their own device), ``Sharded``
+    ones checked."""
+    B, S = args[1].shape if kind == "prefill" else args[1]["k"].shape[1:3]
+    specs = _mesh_specs(cfg, kind, mesh, rules, B, S)
+    return tuple(_place(a, mesh, sp) for a, sp in zip(args, specs))
+
+
+def _mesh_fn(cfg: tfm.TransformerCfg, kind: str, mesh: Mesh, rules: dict) -> Callable:
+    """The program function on ``mesh``: its arguments placed by
+    :func:`_place_args`."""
+    run = partial(tmesh.prefill, rules=rules) if kind == "prefill" else tmesh.decode_step
+
+    def fn(*args):
+        return run(cfg, *_place_args(cfg, kind, mesh, rules, args), mesh=mesh)
+    return fn
+
+
+def lm_place(program: Program, args) -> tuple:
+    """``args`` of an LM serving program placed on its mesh once, as its
+    ``fn`` would place them on every call; a one-device program's as they
+    are."""
+    if program.mesh is None:
+        return tuple(args)
+    kind = "prefill" if len(args) == 2 else "decode"
+    return _place_args(program.cfg, kind, program.mesh, program.rules, args)
+
+
 def build_lm(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *,
              smoke: bool = False) -> Program:
     """``train_4k``: ``fn(params, opt_state, {"tokens", "labels"} int32[B,
@@ -197,13 +294,31 @@ def build_lm(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *
     (logits [B, V] f32, cache); a decode shape: ``fn(params, cache [L, B,
     S, Kv, dh] bf16, tokens_new int32[B], lengths int32[B])`` -> (logits,
     cache), the cache written in place.  Smoke programs are B = 2, S = 64,
-    as in the JAX builder.  ``mesh`` (default: the current card) must hold
-    one device; the program runs wherever its inputs are."""
-    _lead_device(meshlib.make_mesh((1, 1), ("data", MODEL_AXIS)) if mesh is None else mesh)
+    as in the JAX builder.
+
+    ``mesh`` (default: the current card) of one device: the program runs
+    wherever its inputs are.  Of several (prefill and decode only): the
+    program runs on it, its inputs laid out by ``program.in_shardings``
+    (tensors are split as they come, ``Sharded`` ones taken as they are);
+    logits come back [B, V] on the mesh's lead device, the cache as
+    ``Sharded`` blocks."""
     cfg: tfm.TransformerCfg = arch.smoke_cfg if smoke else arch.cfg
     B, S = _lm_dims(shape, smoke)
     pspecs = tfm.param_specs(cfg, _param_dtype(arch))
     name = f"{arch.arch_id}:{shape.shape_id}"
+    if mesh is None:
+        meshlib.make_mesh((1, 1), ("data", MODEL_AXIS))  # the current card, or raise
+    elif len(mesh.devices) > 1:
+        _check_lm_mesh(cfg, shape, mesh, B)
+        rules = dict(shape.rules_override)
+        kind = "prefill" if shape.kind == "prefill" else "decode"
+        in_specs = ((pspecs, _spec(B, S)) if kind == "prefill" else
+                    (pspecs, tfm.KVCache.specs(cfg, B, S), _spec(B), _spec(B)))
+        return Program(
+            name=name, fn=_mesh_fn(cfg, kind, mesh, rules), in_specs=in_specs,
+            model_flops=_lm_flops(cfg, kind, B, S), cfg=cfg, mesh=mesh, rules=rules,
+            in_shardings=_mesh_specs(cfg, kind, mesh, rules, B, S),
+        )
     if shape.kind == "train":
         opt = _opt(arch)
         return Program(
@@ -214,15 +329,21 @@ def build_lm(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *
     if shape.kind == "prefill":
         return Program(
             name=name, fn=lambda p, t: tfm.prefill(cfg, p, t), in_specs=(pspecs, _spec(B, S)),
-            model_flops=2.0 * cfg.n_active_params * B * S, cfg=cfg,
+            model_flops=_lm_flops(cfg, "prefill", B, S), cfg=cfg,
         )
     return Program(
         name=name, fn=lambda p, c, t, ln: tfm.decode_step(cfg, p, c, t, ln),
         in_specs=(pspecs, tfm.KVCache.specs(cfg, B, S), _spec(B), _spec(B)),
-        model_flops=2.0 * cfg.n_active_params * B
-        + 4.0 * B * S * cfg.n_layers * cfg.n_kv_heads * cfg.d_head,
-        cfg=cfg,
+        model_flops=_lm_flops(cfg, "decode", B, S), cfg=cfg,
     )
+
+
+def _lm_flops(cfg: tfm.TransformerCfg, kind: str, B: int, S: int) -> float:
+    """The JAX builder's model flops of a prefill or decode cell."""
+    if kind == "prefill":
+        return 2.0 * cfg.n_active_params * B * S
+    return (2.0 * cfg.n_active_params * B
+            + 4.0 * B * S * cfg.n_layers * cfg.n_kv_heads * cfg.d_head)
 
 
 def lm_inputs(program: Program, device="cuda", *, seed: int = 0, batch: int | None = None,
@@ -236,7 +357,10 @@ def lm_inputs(program: Program, device="cuda", *, seed: int = 0, batch: int | No
     ``TokenStream`` token a sequence and ``lengths`` ``seq_len - 1`` (the
     new token takes the last slot).
     ``batch`` and ``seq_len`` default to the program's and may not exceed
-    them."""
+    them.  A program on a mesh of several devices gets them made on
+    ``device`` and placed on its mesh by the specs of their shapes
+    (``in_shardings`` at the program's own sizes): views where the mesh
+    names ``device``."""
     dev = resolve_device(device)
     if program.cfg is None:
         raise ValueError(f"{program.name} is not an LM program")
@@ -258,13 +382,15 @@ def lm_inputs(program: Program, device="cuda", *, seed: int = 0, batch: int | No
                                                   for k, v in data.items()}
     if len(rest) == 1:
         toks = TokenStream(cfg.vocab, s, seed=seed).batch(b)["tokens"]
-        return params, torch.from_numpy(toks).to(dev)
-    gen.manual_seed(seed + 1)
-    cache = {k: torch.randn((cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head), generator=gen,
-                            dtype=torch.bfloat16, device=dev) for k in ("k", "v")}
-    toks = TokenStream(cfg.vocab, 1, seed=seed).batch(b)["tokens"][:, 0]
-    return (params, cache, torch.from_numpy(toks).to(dev),
-            torch.full((b,), s - 1, dtype=torch.int32, device=dev))
+        args = (params, torch.from_numpy(toks).to(dev))
+    else:
+        gen.manual_seed(seed + 1)
+        cache = {k: torch.randn((cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head), generator=gen,
+                                dtype=torch.bfloat16, device=dev) for k in ("k", "v")}
+        toks = TokenStream(cfg.vocab, 1, seed=seed).batch(b)["tokens"][:, 0]
+        args = (params, cache, torch.from_numpy(toks).to(dev),
+                torch.full((b,), s - 1, dtype=torch.int32, device=dev))
+    return lm_place(program, args)
 
 
 # ---------------------------------------------------------------------------

@@ -295,13 +295,22 @@ def decode_attention(
     f32 against the bf16 cache upcast a layer at a time, the window under
     the ``is_local`` flag; the result in bf16."""
     B, H, dh = q.shape
+    s = _decode_scores(q, k_cache, length, 0, window, is_local, attn_softcap)
+    # p stays f32, as in the reference
+    p = torch.softmax(s, dim=-1)
+    out = torch.matmul(p, v_cache.permute(0, 2, 1, 3).float())  # [B, Kv, G, dh]
+    return out.reshape(B, H, dh).to(torch.bfloat16)
+
+
+def _decode_scores(q, k_cache, length, start: int, window, is_local, attn_softcap):
+    """Masked f32 scores [B, Kv, G, S] of one new token a sequence against
+    cache positions ``start .. start + S - 1``."""
+    B, H, dh = q.shape
     _, S, Kv, _ = k_cache.shape
-    G = H // Kv
-    scale = 1.0 / math.sqrt(dh)
-    qg = q.reshape(B, Kv, G, dh).float()
-    s = torch.matmul(qg, k_cache.permute(0, 2, 3, 1).float()) * scale  # [B, Kv, G, S]
+    qg = q.reshape(B, Kv, H // Kv, dh).float()
+    s = torch.matmul(qg, k_cache.permute(0, 2, 3, 1).float()) * (1.0 / math.sqrt(dh))
     s = softcap(s, attn_softcap)
-    pos = torch.arange(S, device=q.device)[None, None, None, :]
+    pos = (start + torch.arange(S, device=q.device))[None, None, None, :]
     ln = torch.as_tensor(length, device=q.device)
     ln = ln[:, None, None, None] if ln.dim() else ln
     mask = pos < ln
@@ -310,11 +319,41 @@ def decode_attention(
         if is_local is not None:
             win_mask = win_mask | ~torch.as_tensor(is_local, device=q.device)
         mask = mask & win_mask
-    s = torch.where(mask, s, NEG_INF)
-    # p stays f32, as in the reference
-    p = torch.softmax(s, dim=-1)
-    out = torch.matmul(p, v_cache.permute(0, 2, 1, 3).float())  # [B, Kv, G, dh]
-    return out.reshape(B, H, dh).to(torch.bfloat16)
+    return torch.where(mask, s, NEG_INF)
+
+
+def decode_attention_partial(q, k_cache, v_cache, *, length, start: int = 0,
+                             window: int | None = None, is_local=None,
+                             attn_softcap: float | None = None):
+    """:func:`decode_attention` over one slice of a cache split along S:
+    ``k_cache`` / ``v_cache`` [B, S_loc, Kv, dh] hold absolute positions
+    ``start .. start + S_loc - 1``, which the causal ``length`` and the
+    window read.  Returns the slice's f32 partials (row max m [B, Kv, G],
+    sum l = Σ exp(s - m) [B, Kv, G], acc = Σ exp(s - m)·v [B, Kv, G, dh]),
+    for :func:`combine_decode_partials`.  A slice whose positions are all
+    masked has m = ``NEG_INF``; the combine weighs it by exp(NEG_INF - m*)
+    = 0 wherever another slice holds a valid position."""
+    s = _decode_scores(q, k_cache, length, start, window, is_local, attn_softcap)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return m, p.sum(dim=-1), torch.matmul(p, v_cache.permute(0, 2, 1, 3).float())
+
+
+def combine_decode_partials(parts) -> torch.Tensor:
+    """The log-sum-exp combine of :func:`decode_attention_partial`'s
+    partials over the slices of S, in the given order: the attention
+    output [B, Kv·G, dh] in f32."""
+    m = parts[0][0]
+    for mi, _, _ in parts[1:]:
+        m = torch.maximum(m, mi)
+    l = acc = None
+    for mi, li, ai in parts:
+        w = torch.exp(mi - m)
+        l = li * w if l is None else l + li * w
+        acc = ai * w[..., None] if acc is None else acc + ai * w[..., None]
+    out = acc / l[..., None]
+    B, Kv, G, dh = out.shape
+    return out.reshape(B, Kv * G, dh)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,9 @@ signatures and run on the parameters' device.
 This module holds ``forward``, ``unembed_logits``, ``loss_fn`` (its value
 and, through autograd, its gradient, layers rematerialised as in the
 reference), ``prefill`` and ``decode_step`` against a KV cache, with the
-single-shard MoE.  The expert-parallel MoE (``moe_ffn_shmap``) comes
-with ``dist/`` (ROADMAP Queue 1 item 3).
+single-shard MoE, and the expert-parallel MoE ``moe_ffn_shmap`` on a
+mesh of several devices.  The serving functions on such a mesh are in
+``models/transformer_mesh.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.query import resolve_device
+from repro_torch.dist import collectives as col
+from repro_torch.dist.sharding import Sharded, block_index, shard
 from repro_torch.models import layers as L
 from repro_torch.tree import build as _build, leaves as _leaves
 
@@ -103,32 +106,36 @@ def local_flags(cfg: TransformerCfg) -> list[bool]:
 # ---------------------------------------------------------------------------
 
 
+# logical axes of each parameter: one layer's (stacked under "layers"), and the rest
+LAYER_AXES: dict[str, tuple[str | None, ...]] = {
+    "attn_norm": ("embed",),
+    "wq": ("embed", "heads", "head_dim"),
+    "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"),
+    "wo": ("heads", "head_dim", "embed_out"),
+    "ffn_norm": ("embed",),
+    "router": ("embed", None),
+    "we1": ("experts", "embed", "ffn"),
+    "we3": ("experts", "embed", "ffn"),
+    "we2": ("experts", "ffn", "embed_out"),
+    "w1": ("embed", "ffn"),
+    "w3": ("embed", "ffn"),
+    "w2": ("ffn", "embed_out"),
+}
+TOP_AXES: dict[str, tuple[str, ...]] = {
+    "embed": ("vocab", "embed"), "unembed": ("embed", "vocab"), "final_norm": ("embed",)}
+
+
 def _layer_shapes(cfg: TransformerCfg) -> dict[str, tuple[tuple[int, ...], tuple[str | None, ...]]]:
     D, H, Kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    s: dict[str, tuple[tuple[int, ...], tuple[str | None, ...]]] = {
-        "attn_norm": ((D,), ("embed",)),
-        "wq": ((D, H, dh), ("embed", "heads", "head_dim")),
-        "wk": ((D, Kv, dh), ("embed", "kv_heads", "head_dim")),
-        "wv": ((D, Kv, dh), ("embed", "kv_heads", "head_dim")),
-        "wo": ((H, dh, D), ("heads", "head_dim", "embed_out")),
-        "ffn_norm": ((D,), ("embed",)),
-    }
+    s = {"attn_norm": (D,), "wq": (D, H, dh), "wk": (D, Kv, dh), "wv": (D, Kv, dh),
+         "wo": (H, dh, D), "ffn_norm": (D,)}
     if cfg.moe:
         E, Fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
-        s |= {
-            "router": ((D, E), ("embed", None)),
-            "we1": ((E, D, Fe), ("experts", "embed", "ffn")),
-            "we3": ((E, D, Fe), ("experts", "embed", "ffn")),
-            "we2": ((E, Fe, D), ("experts", "ffn", "embed_out")),
-        }
+        s |= {"router": (D, E), "we1": (E, D, Fe), "we3": (E, D, Fe), "we2": (E, Fe, D)}
     else:
-        F_ = cfg.d_ff
-        s |= {
-            "w1": ((D, F_), ("embed", "ffn")),
-            "w3": ((D, F_), ("embed", "ffn")),
-            "w2": ((F_, D), ("ffn", "embed_out")),
-        }
-    return s
+        s |= {"w1": (D, cfg.d_ff), "w3": (D, cfg.d_ff), "w2": (cfg.d_ff, D)}
+    return {k: (shape, LAYER_AXES[k]) for k, shape in s.items()}
 
 
 def param_specs(cfg: TransformerCfg, dtype=torch.float32) -> dict:
@@ -148,11 +155,14 @@ def param_specs(cfg: TransformerCfg, dtype=torch.float32) -> dict:
 
 def logical_axes(cfg: TransformerCfg) -> dict:
     """Same tree as the params, leaves = logical axis-name tuples."""
-    lay = {k: ("layers", *ax) for k, (_, ax) in _layer_shapes(cfg).items()}
-    p = {"embed": ("vocab", "embed"), "layers": lay, "final_norm": ("embed",)}
-    if not cfg.tie_embeddings:
-        p["unembed"] = ("embed", "vocab")
-    return p
+    return param_axes(param_specs(cfg))
+
+
+def param_axes(params: Params) -> dict:
+    """The logical axes of a parameter tree, leaf for leaf, read from its
+    names (:func:`logical_axes` of its config)."""
+    return {k: ({n: ("layers", *LAYER_AXES[n]) for n in v} if k == "layers" else TOP_AXES[k])
+            for k, v in params.items()}
 
 
 def init(cfg: TransformerCfg, generator: torch.Generator, device="cuda",
@@ -339,6 +349,51 @@ def moe_ffn(cfg: TransformerCfg, lp: dict[str, torch.Tensor], x: torch.Tensor) -
     C = moe_capacity(cfg, x.shape[0])
     idx, wslot, valid, tab = _moe_route(moe_gates(lp, x), m.n_experts, m.top_k, C)
     return _moe_expert_compute(lp, x, idx, wslot, valid, m.n_experts, C, tab)
+
+
+def moe_shmap_parts(cfg: TransformerCfg, router, we1, we3, we2, x2, mesh, e_axes) -> tuple:
+    """The expert-parallel MoE over per-position values (``dist``'s
+    layout): ``x2`` each position's tokens [T_p, D] (bf16), ``router`` its
+    router, ``we1`` / ``we3`` / ``we2`` its experts ``e0 .. e0 + E_loc - 1``,
+    ``e0`` its block over ``e_axes`` times ``E_loc``.  Each position routes
+    its own T_p tokens (capacity from T_p) to its local experts, foreign
+    experts sorted to the tail, runs them and combines; a sum over
+    ``e_axes`` gives each position its tokens' output [T_p, D]."""
+    m = cfg.moe
+    E_loc = we1[0].shape[0]
+    e0s = [block_index(mesh, p, e_axes) * E_loc for p in range(len(mesh.devices))]
+    gates = col.per_position(lambda x, r: moe_gates({"router": r}, x), mesh, x2, router)
+
+    def local(x, g, w1, w3, w2, e0):
+        C = moe_capacity(cfg, x.shape[0])
+        idx, wslot, valid, tab = _moe_route(g, m.n_experts, m.top_k, C, e0, E_loc)
+        return _moe_expert_compute({"we1": w1, "we3": w3, "we2": w2}, x, idx, wslot, valid,
+                                   E_loc, C, tab)
+
+    return col.psum(col.per_position(local, mesh, x2, gates, we1, we3, we2, e0s), mesh, e_axes)
+
+
+def moe_ffn_shmap(cfg: TransformerCfg, lp, x3: torch.Tensor, *, mesh, dp_axes,
+                  model_axis: str = "model") -> torch.Tensor:
+    """Expert-parallel MoE on ``mesh``, the reference's ``shard_map``
+    layout: ``x3`` [B, S, D] split over the data axes ``dp_axes`` (those on
+    the mesh), ``lp``'s experts (``we1`` / ``we3`` / ``we2``) over
+    ``model_axis``, the router replicated (views on the tensors' own
+    device).  Every model shard routes its data slice's tokens (capacity
+    from the slice's token count) to its local experts and a sum over
+    ``model_axis`` combines: with more than one data slice the dropped
+    (token, expert) pairs differ from the single-shard :func:`moe_ffn`'s.
+    Returns [B, S, D] on the mesh's lead device."""
+    dp = tuple(a for a in dp_axes if a in mesh.shape)
+    x_spec = (dp if len(dp) > 1 else (dp[0] if dp else None), None, None)
+    xs = shard(x3, mesh, x_spec)
+    w = {k: shard(lp[k], mesh, (None, None) if k == "router" else (model_axis, None, None)).parts
+         for k in ("router", "we1", "we3", "we2")}
+    x2 = col.per_position(lambda x: x.reshape(-1, x.shape[-1]), mesh, xs.parts)
+    out = moe_shmap_parts(cfg, w["router"], w["we1"], w["we3"], w["we2"], x2, mesh,
+                          (model_axis,))
+    return Sharded(col.per_position(lambda o, x: o.reshape(x.shape), mesh, out, xs.parts),
+                   mesh, x_spec).unshard()
 
 
 # ---------------------------------------------------------------------------

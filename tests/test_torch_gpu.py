@@ -1481,6 +1481,99 @@ def test_lm_registry_smoke_programs_on_the_card(shape, cuda):
 
 
 # ---------------------------------------------------------------------------
+# the LM serving programs on a mesh (dist/, models/transformer_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def _mesh(shape, devices):
+    from repro_torch.launch import mesh as meshlib
+
+    return meshlib.make_mesh(shape, ("data", "model"), devices)
+
+
+def _gathered(out):
+    from repro_torch.dist.sharding import Sharded
+
+    logits, cache = out
+    return [logits] + [cache[k].unshard() if isinstance(cache[k], Sharded) else cache[k]
+                       for k in ("k", "v")]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_mesh_programs_on_the_card(arch, cuda):
+    """The three smoke serving programs on a (2, 4) mesh of the card
+    against the same on a (2, 4) mesh of the CPU, the same inputs: layer 0's
+    k / v within 1e-2 relative L2 (bf16 products on the card), the rest
+    within 5e-2 and the logits within 0.1 (tests/test_torch_lm_mesh.py's
+    whole-model bounds); every parameter shard a view of its tensor."""
+    from repro_torch.launch import programs
+    from repro_torch.tree import tree_map
+
+    for shape in ("prefill_32k", "decode_32k", "long_500k"):
+        card = programs.build(arch, shape, _mesh((2, 4), [cuda] * 8), smoke=True)
+        host = programs.build(arch, shape, _mesh((2, 4), ["cpu"] * 8), smoke=True)
+        args = programs.lm_inputs(card, cuda, seed=8, seq_len=32)
+        for _, s in programs.tfm._leaves(args[0]):
+            assert len({p.untyped_storage().data_ptr() for p in s.parts}) == 1
+            assert all(p.device == cuda for p in s.parts)
+        cpu_args = [tree_map(lambda t: t.unshard().cpu(), a) if isinstance(a, dict)
+                    else a.unshard().cpu() for a in args]
+        got = _gathered(card.fn(*args))
+        want = _gathered(host.fn(*cpu_args))
+        assert got[0].device == cuda
+        for i in range(got[1].shape[0]):
+            for a, b in ((got[1], want[1]), (got[2], want[2])):
+                assert _rel_l2(a[i], b[i]) <= (1e-2 if i == 0 else 5e-2), (shape, i)
+        assert _rel_l2(got[0], want[0]) <= 0.1, shape
+
+
+def test_lm_mesh_over_distinct_cards(cuda):
+    """tinyllama's smoke prefill and decode on a (1, 4) mesh over four
+    cards against the same mesh of the lead card: each shard on its own
+    card, the same values (the same kernels, the partials summed on the
+    lead in the same order); skips with fewer than four cards."""
+    from repro_torch.launch import programs
+    from repro_torch.tree import tree_map
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 CUDA cards, {torch.cuda.device_count()} visible")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    for shape in ("prefill_32k", "decode_32k"):
+        spread = programs.build("tinyllama-1.1b", shape, _mesh((1, 4), cards), smoke=True)
+        one = programs.build("tinyllama-1.1b", shape, _mesh((1, 4), [cards[0]] * 4), smoke=True)
+        args = programs.lm_inputs(one, cards[0], seed=9)
+        base = [tree_map(lambda t: t.unshard(), a) if isinstance(a, dict) else a.unshard()
+                for a in args]
+        placed = programs.lm_place(spread, base)
+        assert [p.device for p in placed[0]["layers"]["wq"].parts] == cards
+        got, want = _gathered(spread.fn(*placed)), _gathered(one.fn(*args))
+        for a, b in zip(got, want):
+            assert a.device == cards[0]
+            np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_compress_on_the_card(cuda):
+    """The int8 error-feedback mean on an (8,) mesh of the card against the
+    CPU over three calls: the residual exact, the mean within 1e-6."""
+    from repro_torch.dist import compress
+    from repro_torch.launch import mesh as meshlib
+
+    g = np.random.default_rng(3).standard_normal((8, 1000)).astype(np.float32)
+    out = {}
+    for name, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        mesh = meshlib.make_mesh((8,), ("data",), [dev] * 8)
+        gs = tuple(torch.from_numpy(g[i]).to(dev) for i in range(8))
+        errs = tuple(torch.zeros(1000, device=dev) for _ in range(8))
+        for _ in range(3):
+            mean, errs = compress.compress_decompress_psum(gs, errs, mesh, "data")
+        out[name] = (mean[0].cpu(), [e.cpu() for e in errs])
+    assert all(torch.equal(a, b) for a, b in zip(out["card"][1], out["cpu"][1]))
+    np.testing.assert_allclose(out["card"][0].numpy(), out["cpu"][0].numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
 # the transformer LM's training path (no kernel of its own: torch products)
 # ---------------------------------------------------------------------------
 

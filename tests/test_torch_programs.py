@@ -5,7 +5,7 @@ the JAX package's ``repro.configs`` / ``repro.launch.programs``:
   field (cfg, smoke cfg, shapes with their dims, rules and skips,
   optimizer, parameter dtype, source), ``all_cells()`` against the JAX
   one restricted to the ported families, and ``build``'s refusals (the
-  GNN/recsys archs, an LM program on a mesh of several devices);
+  GNN/recsys archs, ``train_4k`` on a mesh of several devices);
 * ``build_engine``'s meta-device ``in_specs`` against the JAX
   ``ShapeDtypeStruct``s (uint32 as int32) for both shapes, smoke and
   full, on (1, 1) and (2, 4) meshes, and ``model_flops``; the same for
@@ -108,11 +108,12 @@ def test_build_refuses_an_unported_family(monkeypatch):
         if jspec.family not in PORTED:
             with pytest.raises(KeyError, match="Queue 1 item 3"):
                 programs.build(arch_id, jspec.shapes[0].shape_id, mesh)
-    for arch_id in LM_ARCHS:
-        with pytest.raises(ValueError, match="one device"):
-            programs.build(arch_id, "decode_32k", _mesh((1, 2)), smoke=True)
-    with pytest.raises(ValueError, match="one device"):
-        programs.build("olmoe-1b-7b", "prefill_32k", _mesh((2, 4)))
+    for arch_id in LM_ARCHS:  # a mesh of several devices: serving programs, not train_4k
+        with pytest.raises(ValueError, match="train_4k on a mesh"):
+            programs.build(arch_id, "train_4k", _mesh((1, 2)), smoke=True)
+        assert programs.build(arch_id, "decode_32k", _mesh((1, 2)), smoke=True).mesh.sizes == (1, 2)
+    assert programs.build("olmoe-1b-7b", "prefill_32k", _mesh((2, 4))).in_shardings[1] == (
+        "data", None)
     with pytest.raises(KeyError, match="unknown shape"):
         programs.build("k2triples", "train_4k", mesh)
     with pytest.raises(KeyError, match="unknown shape"):

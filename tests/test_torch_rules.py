@@ -141,3 +141,29 @@ def test_fixed_layout_wrapper_checks_inputs_and_runs_plain_on_cpu():
         ops.pred_gather(st.pred_index.meta, dev, rows, cap=2)  # a DAC meta
     with pytest.raises(ValueError):
         ops.pred_gather(pmeta, dev, rows.to("meta"), cap=2)  # not the index's device
+
+
+def test_dist_and_mesh_programs_are_covered(monkeypatch):
+    """``dist/`` and the mesh programs are port files (the import scan above
+    covers them); they read no environment, and a mesh's devices, not a
+    default card, decide where they run: a mesh of ``cpu`` needs no card."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    mine = [f"src/repro_torch/dist/{n}.py" for n in ("__init__", "sharding", "collectives",
+                                                     "compress")]
+    mine.append("src/repro_torch/models/transformer_mesh.py")
+    for f in mine:
+        assert f in names, f
+        assert "environ" not in (ROOT / f).read_text(), f
+    from repro_torch.dist import compress, sharding as shd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = meshlib.make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    s = shd.shard(torch.ones(4, 4), mesh, ("data", "model"))
+    assert {p.device.type for p in s.parts} == {"cpu"}
+    mean, _ = compress.compress_decompress_psum(s.parts, s.parts, mesh, "data")
+    assert mean[0].device.type == "cpu"
+    prog = programs.build("olmoe-1b-7b", "decode_32k", mesh, smoke=True)
+    args = programs.lm_inputs(prog, "cpu", seq_len=4)
+    assert prog.fn(*args)[0].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA card"):  # lm_inputs still defaults to cuda
+        programs.lm_inputs(prog)
