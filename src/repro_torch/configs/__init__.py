@@ -1,7 +1,8 @@
 """Arch registry: ``get(arch_id)`` -> ArchSpec; ``ARCHS`` lists all ids.
 
-The engine family and the five transformer LM archs are registered, in
-the JAX package's order; the GNN and recsys archs come with their models.
+The engine family, the five transformer LM archs and the recsys arch
+are registered, in the JAX package's order; the GNN archs come with their
+models.
 """
 
 from repro_torch.configs.base import ARCHS, ArchSpec, ShapeSpec, get, register
@@ -13,5 +14,6 @@ from repro_torch.configs import (  # noqa: F401
     gemma2_27b,
     kimi_k2_1t_a32b,
     olmoe_1b_7b,
+    xdeepfm,
     k2triples,
 )

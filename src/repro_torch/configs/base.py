@@ -1,9 +1,10 @@
 """Arch/shape registry: the configurations the program builder knows.
 
 A cell is arch × shape × mesh (``launch.programs.build``).  The registry
-holds the paper's engine arch (``configs/k2triples.py``) and the five
-transformer LM archs with their shape table (:func:`lm_shapes`); the GNN
-and recsys families and their shape tables are not ported yet.
+holds the paper's engine arch (``configs/k2triples.py``), the five
+transformer LM archs with their shape table (:func:`lm_shapes`) and the
+recsys arch xDeepFM (:func:`recsys_shapes`); the GNN family and its shape
+table are not ported yet.
 """
 
 from __future__ import annotations
@@ -74,4 +75,13 @@ def lm_shapes(*, sub_quadratic: bool = False) -> tuple[ShapeSpec, ...]:
             "long_500k", "decode", dict(seq_len=524288, global_batch=1),
             rules_override={"batch": None, "kv_seq": ("pod", "data", "model")},
         ),
+    )
+
+
+def recsys_shapes() -> tuple[ShapeSpec, ...]:
+    return (
+        ShapeSpec("train_batch", "train", dict(batch=65_536)),
+        ShapeSpec("serve_p99", "forward", dict(batch=512)),
+        ShapeSpec("serve_bulk", "forward", dict(batch=262_144)),
+        ShapeSpec("retrieval_cand", "retrieval", dict(batch=1, n_candidates=1_000_000)),
     )

@@ -95,7 +95,7 @@ def reduce_over(parts: Sequence, mesh, axes, combine: Callable) -> tuple:
     return tuple(out)
 
 
-def _sum(vals):
+def sum_in_order(vals):
     """The sum of ``vals`` in order; a float type narrower than f32 is
     summed in f32 and rounded once."""
     dt = vals[0].dtype
@@ -115,7 +115,7 @@ def _max(vals):
 
 def psum(parts: Sequence, mesh, axes) -> tuple:
     """Sum over ``axes`` (bf16 summed in f32 and rounded once)."""
-    return reduce_over(parts, mesh, axes, _sum)
+    return reduce_over(parts, mesh, axes, sum_in_order)
 
 
 def pmax(parts: Sequence, mesh, axes) -> tuple:

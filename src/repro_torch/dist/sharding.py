@@ -153,8 +153,8 @@ class Sharded:
     def dtype(self) -> torch.dtype:
         return self.parts[0].dtype
 
-    def unshard(self) -> torch.Tensor:
-        return unshard(self)
+    def unshard(self, device=None) -> torch.Tensor:
+        return unshard(self, device)
 
 
 def shard(t: torch.Tensor, mesh, spec) -> Sharded:
@@ -214,3 +214,33 @@ def empty(shape, dtype, mesh, spec) -> Sharded:
             made[key] = torch.empty(sizes, dtype=dtype, device=mesh.devices[pos])
         parts.append(made[key])
     return Sharded(tuple(parts), mesh, tuple(spec))
+
+
+def zeros(shape, dtype, mesh, spec) -> Sharded:
+    """:func:`empty`, zeroed."""
+    s = empty(shape, dtype, mesh, spec)
+    for p in distinct(s):
+        p.zero_()
+    return s
+
+
+def distinct(s: Sharded) -> list[torch.Tensor]:
+    """Each distinct tensor of ``s`` once, in position order: a block a
+    device it lies on."""
+    return list({id(p): p for p in s.parts}.values())
+
+
+def holders(s: Sharded) -> dict[tuple, list[torch.Tensor]]:
+    """{block coordinates: the distinct tensors holding that block}, both
+    in position order: one a device that holds it."""
+    out: dict = {}
+    for pos, blk in enumerate(_blocks(s.mesh, s.spec)):
+        out.setdefault(blk, {}).setdefault(id(s.parts[pos]), s.parts[pos])
+    return {blk: list(ts.values()) for blk, ts in out.items()}
+
+
+def map_distinct(fn, s: Sharded) -> Sharded:
+    """``fn`` of each distinct tensor of ``s``, laid out as ``s`` (positions
+    that shared a tensor share its result)."""
+    made = {id(p): fn(p) for p in distinct(s)}
+    return Sharded(tuple(made[id(p)] for p in s.parts), s.mesh, s.spec)

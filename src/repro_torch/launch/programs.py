@@ -11,7 +11,7 @@ shapes and dtypes (uint32 words as int32): nothing is allocated.
   store's.  ``inputs(program, store, mesh, batch)`` makes the concrete
   arguments on the mesh's devices, with the store's own widths.
 * lm (the five transformer archs): ``train_4k`` a training step
-  ``fn(params, opt_state, batch)`` of the arch's optimizer on one device,
+  ``fn(params, opt_state, batch)`` of the arch's optimizer,
   ``prefill_32k`` a prefill program ``fn(params, tokens)``,
   ``decode_32k`` / ``long_500k`` a decode step ``fn(params, cache,
   tokens_new, lengths)``, on one device or, on a mesh of several, laid
@@ -22,11 +22,16 @@ shapes and dtypes (uint32 words as int32): nothing is allocated.
   the cell's batch and length or smaller ones, placed on the program's
   mesh; ``shard_params`` places a parameter tree (``params_from_arrays``'s)
   on a mesh.
+* recsys (xDeepFM): ``train_batch`` a training step, ``serve_p99`` /
+  ``serve_bulk`` a forward ``fn(params, ids)``, ``retrieval_cand``
+  ``fn(params, user, candidates)``, on one device or a mesh (the tables'
+  rows over ``model``, the batch over the data axes);
+  ``recsys_inputs(program, device)`` makes seeded parameters, state and a
+  ``ctr_batch``, placed on the program's mesh.
 
 ``program.fn(*inputs(...))`` runs the cell: size bytes or memory from
-what the inputs hold, not from ``in_specs``.  ``train_4k`` on a mesh of
-several devices and the GNN and recsys archs are refused (ROADMAP Queue
-1).
+what the inputs hold, not from ``in_specs``.  The GNN archs are refused
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs import base as cb
@@ -46,7 +52,9 @@ from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import Sharded
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.mesh import MODEL_AXIS, Mesh
+from repro_torch.data import recsys as rdata
 from repro_torch.models import transformer as tfm, transformer_mesh as tmesh
+from repro_torch.models.recsys import xdeepfm
 from repro_torch.train import optim
 from repro_torch.tree import tree_map
 from repro_torch.train.trainer import make_train_step
@@ -194,39 +202,45 @@ def _opt(arch: cb.ArchSpec) -> optim.Optimizer:
 
 
 def _mesh_specs(cfg: tfm.TransformerCfg, kind: str, mesh: Mesh, rules: dict, B: int,
-                S: int) -> tuple:
-    """The partition specs of an LM serving program's inputs at batch ``B``
-    and length ``S``, as the JAX builder's ``in_shardings``: parameters by
-    ``spec_for`` over their logical axes; prefill tokens over every data
-    axis; a decode cache by ``spec_for`` over ``KV_AXES``, tokens and
-    lengths over ``("batch",)``."""
+                S: int, opt: optim.Optimizer | None = None) -> tuple:
+    """The partition specs of an LM program's inputs at batch ``B`` and
+    length ``S``, as the JAX builder's ``in_shardings``: parameters by
+    ``spec_for`` over their logical axes; train, the optimizer state by
+    ``spec_for`` over ``opt.state_logical_axes`` and tokens / labels over
+    every data axis; prefill tokens over every data axis; a decode cache by
+    ``spec_for`` over ``KV_AXES``, tokens and lengths over ``("batch",)``."""
     pspecs = tfm.param_specs(cfg)
-    psh = tree_map(lambda t, ax: shd.spec_for(mesh, ax, tuple(t.shape), rules), pspecs,
-                   tfm.param_axes(pspecs))
+    paxes = tfm.param_axes(pspecs)
+    psh = tree_map(lambda t, ax: shd.spec_for(mesh, ax, tuple(t.shape), rules), pspecs, paxes)
+    dp = meshlib.dp_axes(mesh)
+    rows = ((dp if len(dp) > 1 else (dp[0] if dp else None)), None)
+    if kind == "train":
+        osh = tree_map(lambda t, ax: shd.spec_for(mesh, ax, tuple(t.shape), rules),
+                       opt.init(pspecs), opt.state_logical_axes(paxes))
+        return psh, osh, {"tokens": rows, "labels": rows}
     if kind == "prefill":
-        dp = meshlib.dp_axes(mesh)
-        return psh, ((dp if len(dp) > 1 else (dp[0] if dp else None)), None)
+        return psh, rows
     cache = shd.spec_for(mesh, tmesh.KV_AXES, (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head),
                          rules)
     bsh = shd.spec_for(mesh, ("batch",), (B,), rules)
     return psh, {"k": cache, "v": cache}, bsh, bsh
 
 
+def _check_axes(name: str, mesh: Mesh) -> None:
+    if MODEL_AXIS not in mesh.shape or set(mesh.axis_names) - {"pod", "data", MODEL_AXIS}:
+        raise ValueError(f"{name}: a program's mesh has a {MODEL_AXIS!r} axis and otherwise "
+                         f"'pod' / 'data', not {mesh.axis_names}")
+
+
 def _check_lm_mesh(cfg: tfm.TransformerCfg, shape: cb.ShapeSpec, mesh: Mesh, B: int) -> None:
     name = f"{cfg.name}:{shape.shape_id}"
-    if shape.kind == "train":
-        raise ValueError(f"{name}: train_4k on a mesh of several devices is not ported (the "
-                         "next slice, ROADMAP Queue 1: the DP gradient mean, sharded optimizer "
-                         "state); build it on a (1, 1) mesh")
-    if MODEL_AXIS not in mesh.shape or set(mesh.axis_names) - {"pod", "data", MODEL_AXIS}:
-        raise ValueError(f"{name}: an LM mesh has a {MODEL_AXIS!r} axis and otherwise 'pod' / "
-                         f"'data', not {mesh.axis_names}")
+    _check_axes(name, mesh)
     mp = mesh.shape[MODEL_AXIS]
     if cfg.moe and cfg.moe.n_experts % mp:
         raise ValueError(f"{name}: {cfg.moe.n_experts} experts do not split over {mp} model "
                          "shards (the expert-parallel MoE needs them to)")
     dp = mesh.size(meshlib.dp_axes(mesh))
-    if shape.kind == "prefill" and B % dp:
+    if shape.kind in ("prefill", "train") and B % dp:
         raise ValueError(f"{name}: a batch of {B} does not split over {dp} data slices")
 
 
@@ -243,9 +257,7 @@ def _placed(x, mesh: Mesh, spec) -> Sharded:
 
 def _place(tree, mesh: Mesh, specs):
     """Every leaf of ``tree`` placed by the spec at its path in ``specs``."""
-    if isinstance(tree, dict):
-        return {k: _place(v, mesh, specs[k]) for k, v in tree.items()}
-    return _placed(tree, mesh, specs)
+    return tree_map(lambda x, spec: _placed(x, mesh, spec), tree, specs)
 
 
 def shard_params(params: tfm.Params, mesh: Mesh, rules: dict | None = None) -> dict:
@@ -256,33 +268,40 @@ def shard_params(params: tfm.Params, mesh: Mesh, rules: dict | None = None) -> d
                     params, tfm.param_axes(params))
 
 
-def _place_args(cfg: tfm.TransformerCfg, kind: str, mesh: Mesh, rules: dict, args) -> tuple:
-    """An LM serving program's arguments on ``mesh`` by the specs of their
-    own shapes: tensors split (views on their own device), ``Sharded``
-    ones checked."""
-    B, S = args[1].shape if kind == "prefill" else args[1]["k"].shape[1:3]
-    specs = _mesh_specs(cfg, kind, mesh, rules, B, S)
+def _place_args(cfg: tfm.TransformerCfg, mesh: Mesh, rules: dict, args, opt=None) -> tuple:
+    """An LM program's arguments on ``mesh`` by the specs of their own
+    shapes: tensors split (views on their own device), ``Sharded`` ones
+    checked."""
+    kind = "train" if opt is not None else ("prefill" if len(args) == 2 else "decode")
+    if kind == "train":
+        B, S = args[2]["tokens"].shape
+    else:
+        B, S = args[1].shape if kind == "prefill" else args[1]["k"].shape[1:3]
+    specs = _mesh_specs(cfg, kind, mesh, rules, B, S, opt)
     return tuple(_place(a, mesh, sp) for a, sp in zip(args, specs))
 
 
-def _mesh_fn(cfg: tfm.TransformerCfg, kind: str, mesh: Mesh, rules: dict) -> Callable:
+def _mesh_fn(cfg: tfm.TransformerCfg, kind: str, mesh: Mesh, rules: dict,
+             opt: optim.Optimizer | None) -> Callable:
     """The program function on ``mesh``: its arguments placed by
     :func:`_place_args`."""
-    run = partial(tmesh.prefill, rules=rules) if kind == "prefill" else tmesh.decode_step
+    if kind == "train":
+        run = make_train_step(partial(tmesh.loss_fn, cfg, mesh=mesh), opt)
+    else:
+        step = partial(tmesh.prefill, rules=rules) if kind == "prefill" else tmesh.decode_step
+        run = partial(step, cfg, mesh=mesh)
 
     def fn(*args):
-        return run(cfg, *_place_args(cfg, kind, mesh, rules, args), mesh=mesh)
+        return run(*_place_args(cfg, mesh, rules, args, opt))
     return fn
 
 
 def lm_place(program: Program, args) -> tuple:
-    """``args`` of an LM serving program placed on its mesh once, as its
-    ``fn`` would place them on every call; a one-device program's as they
-    are."""
+    """``args`` of an LM program placed on its mesh once, as its ``fn``
+    would place them on every call; a one-device program's as they are."""
     if program.mesh is None:
         return tuple(args)
-    kind = "prefill" if len(args) == 2 else "decode"
-    return _place_args(program.cfg, kind, program.mesh, program.rules, args)
+    return _place_args(program.cfg, program.mesh, program.rules, args, program.opt)
 
 
 def build_lm(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *,
@@ -297,45 +316,42 @@ def build_lm(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *
     as in the JAX builder.
 
     ``mesh`` (default: the current card) of one device: the program runs
-    wherever its inputs are.  Of several (prefill and decode only): the
-    program runs on it, its inputs laid out by ``program.in_shardings``
-    (tensors are split as they come, ``Sharded`` ones taken as they are);
-    logits come back [B, V] on the mesh's lead device, the cache as
-    ``Sharded`` blocks."""
+    wherever its inputs are.  Of several: the program runs on it, its
+    inputs laid out by ``program.in_shardings`` (tensors are split as they
+    come, ``Sharded`` ones taken as they are); logits come back [B, V] on
+    the mesh's lead device, the cache as ``Sharded`` blocks, a train
+    step's loss and ``grad_norm`` on the lead device, its parameters and
+    state as the ``Sharded`` trees it was given, updated in place."""
     cfg: tfm.TransformerCfg = arch.smoke_cfg if smoke else arch.cfg
     B, S = _lm_dims(shape, smoke)
     pspecs = tfm.param_specs(cfg, _param_dtype(arch))
     name = f"{arch.arch_id}:{shape.shape_id}"
+    kind = {"train": "train", "prefill": "prefill"}.get(shape.kind, "decode")
+    opt = _opt(arch) if kind == "train" else None
+    if kind == "train":
+        in_specs = (pspecs, opt.init(pspecs), {"tokens": _spec(B, S), "labels": _spec(B, S)})
+    elif kind == "prefill":
+        in_specs = (pspecs, _spec(B, S))
+    else:
+        in_specs = (pspecs, tfm.KVCache.specs(cfg, B, S), _spec(B), _spec(B))
+    flops = lm_train_flops(cfg, B * S) if kind == "train" else _lm_flops(cfg, kind, B, S)
     if mesh is None:
         meshlib.make_mesh((1, 1), ("data", MODEL_AXIS))  # the current card, or raise
     elif len(mesh.devices) > 1:
         _check_lm_mesh(cfg, shape, mesh, B)
         rules = dict(shape.rules_override)
-        kind = "prefill" if shape.kind == "prefill" else "decode"
-        in_specs = ((pspecs, _spec(B, S)) if kind == "prefill" else
-                    (pspecs, tfm.KVCache.specs(cfg, B, S), _spec(B), _spec(B)))
         return Program(
-            name=name, fn=_mesh_fn(cfg, kind, mesh, rules), in_specs=in_specs,
-            model_flops=_lm_flops(cfg, kind, B, S), cfg=cfg, mesh=mesh, rules=rules,
-            in_shardings=_mesh_specs(cfg, kind, mesh, rules, B, S),
+            name=name, fn=_mesh_fn(cfg, kind, mesh, rules, opt), in_specs=in_specs,
+            model_flops=flops, cfg=cfg, opt=opt, mesh=mesh, rules=rules,
+            in_shardings=_mesh_specs(cfg, kind, mesh, rules, B, S, opt),
         )
-    if shape.kind == "train":
-        opt = _opt(arch)
-        return Program(
-            name=name, fn=make_train_step(lambda p, b: tfm.loss_fn(cfg, p, b), opt),
-            in_specs=(pspecs, opt.init(pspecs), {"tokens": _spec(B, S), "labels": _spec(B, S)}),
-            model_flops=lm_train_flops(cfg, B * S), cfg=cfg, opt=opt,
-        )
-    if shape.kind == "prefill":
-        return Program(
-            name=name, fn=lambda p, t: tfm.prefill(cfg, p, t), in_specs=(pspecs, _spec(B, S)),
-            model_flops=_lm_flops(cfg, "prefill", B, S), cfg=cfg,
-        )
-    return Program(
-        name=name, fn=lambda p, c, t, ln: tfm.decode_step(cfg, p, c, t, ln),
-        in_specs=(pspecs, tfm.KVCache.specs(cfg, B, S), _spec(B), _spec(B)),
-        model_flops=_lm_flops(cfg, "decode", B, S), cfg=cfg,
-    )
+    if kind == "train":
+        fn = make_train_step(lambda p, b: tfm.loss_fn(cfg, p, b), opt)
+    elif kind == "prefill":
+        fn = lambda p, t: tfm.prefill(cfg, p, t)  # noqa: E731
+    else:
+        fn = lambda p, c, t, ln: tfm.decode_step(cfg, p, c, t, ln)  # noqa: E731
+    return Program(name=name, fn=fn, in_specs=in_specs, model_flops=flops, cfg=cfg, opt=opt)
 
 
 def _lm_flops(cfg: tfm.TransformerCfg, kind: str, B: int, S: int) -> float:
@@ -362,7 +378,7 @@ def lm_inputs(program: Program, device="cuda", *, seed: int = 0, batch: int | No
     (``in_shardings`` at the program's own sizes): views where the mesh
     names ``device``."""
     dev = resolve_device(device)
-    if program.cfg is None:
+    if not isinstance(program.cfg, tfm.TransformerCfg):
         raise ValueError(f"{program.name} is not an LM program")
     cfg = program.cfg
     pspecs, *rest = program.in_specs
@@ -378,9 +394,9 @@ def lm_inputs(program: Program, device="cuda", *, seed: int = 0, batch: int | No
     params = tfm.init(cfg, gen, device=dev, dtype=pspecs["embed"].dtype)
     if program.opt is not None:
         data = TokenStream(cfg.vocab, s, seed=seed).batch(b)
-        return params, program.opt.init(params), {k: torch.from_numpy(v).to(dev)
-                                                  for k, v in data.items()}
-    if len(rest) == 1:
+        args = (params, program.opt.init(params), {k: torch.from_numpy(v).to(dev)
+                                                   for k, v in data.items()})
+    elif len(rest) == 1:
         toks = TokenStream(cfg.vocab, s, seed=seed).batch(b)["tokens"]
         args = (params, torch.from_numpy(toks).to(dev))
     else:
@@ -394,21 +410,145 @@ def lm_inputs(program: Program, device="cuda", *, seed: int = 0, batch: int | No
 
 
 # ---------------------------------------------------------------------------
+# recsys (xDeepFM) programs
+# ---------------------------------------------------------------------------
+
+
+def _recsys_dims(shape: cb.ShapeSpec, smoke: bool) -> tuple[int, int]:
+    """(batch, candidates) of a recsys cell (the JAX builder's smoke sizes)."""
+    return (64 if smoke else shape.dims["batch"],
+            (4096 if smoke else shape.dims.get("n_candidates", 0)))
+
+
+def _recsys_specs(cfg: xdeepfm.XDeepFMCfg, kind: str, mesh: Mesh, opt=None) -> tuple:
+    """The partition specs of a recsys program's inputs, as the JAX
+    builder's ``in_shardings``: parameters by ``spec_for`` (the tables'
+    and the linear term's rows over ``model``), the optimizer state by
+    ``state_logical_axes``; ids over the data axes, a retrieval user
+    replicated and its candidates over the data axes."""
+    pspecs = xdeepfm.param_specs(cfg)
+    paxes = xdeepfm.param_axes(cfg)
+    psh = tree_map(lambda t, ax: shd.spec_for(mesh, ax, tuple(t.shape)), pspecs, paxes)
+    dp = meshlib.dp_axes(mesh)
+    data = dp if len(dp) > 1 else (dp[0] if dp else None)
+    if kind == "retrieval":
+        return psh, (None,), (data,)
+    if kind == "forward":
+        return psh, (data, None)
+    osh = tree_map(lambda t, ax: shd.spec_for(mesh, ax, tuple(t.shape)), opt.init(pspecs),
+                   opt.state_logical_axes(paxes))
+    return psh, osh, {"ids": (data, None), "labels": (data,)}
+
+
+def build_recsys(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *,
+                 smoke: bool = False) -> Program:
+    """``train_batch``: ``fn(params, opt_state, {"ids" int32[B, F],
+    "labels" int32[B]})`` -> (params, opt_state, {"loss", "grad_norm"}),
+    one AdamW step in place; ``serve_p99`` / ``serve_bulk``: ``fn(params,
+    ids)`` -> logits [B]; ``retrieval_cand``: ``fn(params, user int32[F],
+    candidates int32[N])`` -> scores [N].  Smoke programs are B = 64 and N
+    = 4,096, as in the JAX builder.  ``mesh`` as :func:`build_lm`'s: on
+    several devices the inputs are laid out by ``program.in_shardings``
+    (tensors split as they come), results land on the lead device."""
+    cfg: xdeepfm.XDeepFMCfg = arch.smoke_cfg if smoke else arch.cfg
+    B, nc = _recsys_dims(shape, smoke)
+    pspecs = xdeepfm.param_specs(cfg)
+    name = f"{arch.arch_id}:{shape.shape_id}"
+    kind = shape.kind
+    opt = _opt(arch) if kind == "train" else None
+    F = cfg.n_fields
+    if kind == "retrieval":
+        in_specs = (pspecs, _spec(F), _spec(nc))
+        flops = 2.0 * nc * cfg.embed_dim
+    elif kind == "forward":
+        in_specs = (pspecs, _spec(B, F))
+        flops = xdeepfm.flops_forward(cfg, B)
+    else:
+        in_specs = (pspecs, opt.init(pspecs), {"ids": _spec(B, F), "labels": _spec(B)})
+        flops = 3.0 * xdeepfm.flops_forward(cfg, B)
+    if mesh is None:
+        meshlib.make_mesh((1, 1), ("data", MODEL_AXIS))  # the current card, or raise
+    elif len(mesh.devices) > 1:
+        _check_axes(name, mesh)
+        dp = mesh.size(meshlib.dp_axes(mesh))
+        if (nc if kind == "retrieval" else B) % dp:
+            raise ValueError(f"{name}: {nc if kind == 'retrieval' else B} rows do not split "
+                             f"over {dp} data slices")
+        specs = _recsys_specs(cfg, kind, mesh, opt)
+        run = {"retrieval": xdeepfm.retrieval_on, "forward": xdeepfm.forward_on}.get(kind)
+        if run is None:
+            step = make_train_step(partial(xdeepfm.loss_on, cfg, mesh=mesh), opt)
+        else:
+            step = partial(run, cfg, mesh=mesh)
+
+        def fn(*args):
+            return step(*(_place(a, mesh, sp) for a, sp in zip(args, specs)))
+
+        return Program(name=name, fn=fn, in_specs=in_specs, model_flops=flops, cfg=cfg, opt=opt,
+                       mesh=mesh, in_shardings=specs)
+    if kind == "retrieval":
+        fn = partial(xdeepfm.retrieval_score, cfg)
+    elif kind == "forward":
+        fn = partial(xdeepfm.forward, cfg)
+    else:
+        fn = make_train_step(partial(xdeepfm.loss_fn, cfg), opt)
+    return Program(name=name, fn=fn, in_specs=in_specs, model_flops=flops, cfg=cfg, opt=opt)
+
+
+def recsys_inputs(program: Program, device="cuda", *, seed: int = 0,
+                  batch: int | None = None) -> tuple:
+    """The concrete arguments of a recsys program on ``device``:
+    parameters from ``xdeepfm.init`` with a generator on ``device`` seeded
+    ``seed``; then for train AdamW's state and one ``ctr_batch(batch, F,
+    R, seed=seed)`` of ids and labels, for a forward program that batch's
+    ids, for retrieval the user of ``ctr_batch(1, ...)`` and ``batch``
+    candidate rows of field 0 drawn uniformly from ``seed``.  ``batch``
+    (the candidates for retrieval) defaults to the program's and may not
+    exceed it.  A program on a mesh of several devices gets them placed
+    by ``in_shardings`` (views where the mesh names ``device``)."""
+    dev = resolve_device(device)
+    cfg = program.cfg
+    if not isinstance(cfg, xdeepfm.XDeepFMCfg):
+        raise ValueError(f"{program.name} is not a recsys program")
+    pspecs, *rest = program.in_specs
+    most = rest[1]["ids"].shape[0] if program.opt is not None else rest[-1].shape[0]
+    b = most if batch is None else batch
+    if not 1 <= b <= most:
+        raise ValueError(f"{program.name} takes at most {most} rows, asked for {b}")
+    params = xdeepfm.init(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    F, R = cfg.n_fields, cfg.rows_per_field
+    if len(rest) == 2 and program.opt is None:  # retrieval
+        user = rdata.ctr_batch(1, F, R, seed=seed)["ids"][0]
+        cands = np.random.default_rng(seed).integers(0, R, b).astype(np.int32)
+        args = (params, torch.from_numpy(user).to(dev), torch.from_numpy(cands).to(dev))
+    else:
+        data = {k: torch.from_numpy(v).to(dev)
+                for k, v in rdata.ctr_batch(b, F, R, seed=seed).items()}
+        args = ((params, program.opt.init(params), data) if program.opt is not None
+                else (params, data["ids"]))
+    if program.mesh is None:
+        return args
+    return tuple(_place(a, program.mesh, sp) for a, sp in zip(args, program.in_shardings))
+
+
+# ---------------------------------------------------------------------------
 
 
 def build(arch_id: str, shape_id: str, mesh: Mesh | None = None, *,
           smoke: bool = False) -> Program:
     """The program of one cell.  ``mesh`` defaults to :func:`default_mesh`
-    for the engine and to the current card for an LM program."""
+    for the engine and to the current card for an LM or recsys program."""
     if arch_id not in cb.ARCHS:
-        raise KeyError(f"{arch_id!r} is not registered: the GNN and recsys archs are not "
-                       "ported (ROADMAP Queue 1 item 3)")
+        raise KeyError(f"{arch_id!r} is not registered: the GNN archs are not ported (ROADMAP "
+                       "Queue 1 item 3, the next slice)")
     arch = cb.get(arch_id)
     shape = arch.shape(shape_id)
     if shape.skip:
         raise ValueError(f"{arch_id}:{shape_id} skipped: {shape.skip}")
     if arch.family == "lm":
         return build_lm(arch, shape, mesh, smoke=smoke)
+    if arch.family == "recsys":
+        return build_recsys(arch, shape, mesh, smoke=smoke)
     return build_engine(arch, shape, default_mesh() if mesh is None else mesh, smoke=smoke)
 
 

@@ -1,19 +1,21 @@
 """End-to-end training driver: ``python -m repro_torch.launch.train --arch <id>``.
 
-Trains an LM arch for real (parameters allocated on the device, batches
-streamed from ``TokenStream``) with the full fault-tolerance loop of
-:class:`repro_torch.train.trainer.Trainer`: auto-resume, periodic atomic
-checkpoints, the straggler watchdog.  The flags are the JAX package's
-(``repro.launch.train``) plus ``--device`` (default ``cuda``; ``cpu``
-runs the plain torch path, e.g. ``--smoke --device cpu --steps 3``).
-Parameters come from a ``torch.Generator`` seeded 0; the optimizer is
-the arch's (Adafactor or AdamW) at ``--lr``.  The GNN and recsys archs
-are not ported (ROADMAP Queue 1 item 3).
+Trains an LM or recsys arch for real (parameters allocated on the
+device; LM batches streamed from ``TokenStream``, recsys batches a
+``ctr_batch`` of ``--batch`` rows from seed ``i`` at step ``i``) with the
+full fault-tolerance loop of :class:`repro_torch.train.trainer.Trainer`:
+auto-resume, periodic atomic checkpoints, the straggler watchdog.  The
+flags are the JAX package's (``repro.launch.train``) plus ``--device``
+(default ``cuda``; ``cpu`` runs the plain torch path, e.g. ``--smoke
+--device cpu --steps 3``).  Parameters come from a ``torch.Generator``
+seeded 0; the optimizer is the arch's (Adafactor or AdamW) at ``--lr``.
+The GNN archs are not ported (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
 import argparse
+from functools import partial
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -40,30 +42,46 @@ def main(argv=None) -> list[dict]:
 
     from repro_torch.configs import ARCHS
     from repro_torch.core.query import resolve_device
+    from repro_torch.data import recsys as R
     from repro_torch.data.tokens import TokenStream
     from repro_torch.models import transformer as tfm
+    from repro_torch.models.recsys import xdeepfm
     from repro_torch.train import optim
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     if args.arch not in ARCHS:
-        raise SystemExit(f"{args.arch!r} is not registered: the GNN and recsys archs are not "
-                         "ported (ROADMAP Queue 1 item 3)")
+        raise SystemExit(f"{args.arch!r} is not registered: the GNN archs are not ported "
+                         "(ROADMAP Queue 1 item 3)")
     arch = ARCHS[args.arch]
-    if arch.family != "lm":
+    if arch.family not in ("lm", "recsys"):
         raise SystemExit(f"train driver does not apply to family {arch.family!r}")
     dev = resolve_device(args.device)
     cfg = arch.smoke_cfg if args.smoke else arch.cfg
     opt = optim.adafactor(args.lr) if arch.optimizer == "adafactor" else optim.adamw(args.lr)
-    params = tfm.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    ts = TokenStream(cfg.vocab, args.seq, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if arch.family == "lm":
+        params = tfm.init(cfg, gen, device=dev)
+        ts = TokenStream(cfg.vocab, args.seq, seed=0)
 
-    def batches():
-        while True:
-            yield {k: torch.from_numpy(v).to(dev) for k, v in ts.batch(args.batch).items()}
+        def batches():
+            while True:
+                yield {k: torch.from_numpy(v).to(dev) for k, v in ts.batch(args.batch).items()}
 
+        loss_fn = partial(tfm.loss_fn, cfg)
+    else:
+        params = xdeepfm.init(cfg, gen, device=dev)
+
+        def batches():
+            i = 0
+            while True:
+                b = R.ctr_batch(args.batch, cfg.n_fields, cfg.rows_per_field, seed=i)
+                i += 1
+                yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+        loss_fn = partial(xdeepfm.loss_fn, cfg)
     tc = TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                        log_every=args.log_every)
-    tr = Trainer(tc, lambda p, b: tfm.loss_fn(cfg, p, b), opt, params, donate=False)
+    tr = Trainer(tc, loss_fn, opt, params, donate=False)
     if tr.try_resume():
         print(f"resumed from step {tr.step_num}")
     hist = tr.run(batches(), args.steps)

@@ -1,2 +1,4 @@
-"""Model families: the decoder-only transformer LM (``transformer.py``)
-and its layers (``layers.py``)."""
+"""Model families: the decoder-only transformer LM (``transformer.py``,
+its layers ``layers.py``, on a mesh ``transformer_mesh.py``) and the
+recsys family's xDeepFM (``recsys/xdeepfm.py``, with the MLP helpers of
+``gnn/common.py``)."""

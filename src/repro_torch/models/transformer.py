@@ -315,7 +315,12 @@ def _moe_expert_compute(lp, x2, idx, wslot, valid, E_loc: int, C: int, tab) -> t
     combine adds each token's slots (``tab``, from :func:`_moe_route`) one
     at a time in ascending slot order, rounding to bf16 after each add, as
     the reference's scatter-add does: one gather and K - 1 adds, no
-    atomics, the same bits on every run."""
+    atomics, the same bits on every run.  The gather is an ``index_select``:
+    its backward adds into each slot once (a slot belongs to one pair; only
+    the zero row repeats, read by every dropped or, on a model shard,
+    foreign pair, and its gradient is dropped), where advanced indexing's
+    backward would sort and walk the zero row's run serially (3/4 of the
+    pairs on each of four model shards)."""
     D = x2.shape[1]
     xe = (x2[idx.long()] * valid[:, None].to(x2.dtype)).reshape(E_loc, C, D)
     h = torch.bmm(xe, lp["we1"].to(x2.dtype))
@@ -323,7 +328,7 @@ def _moe_expert_compute(lp, x2, idx, wslot, valid, E_loc: int, C: int, tab) -> t
     y = torch.bmm(L.silu(h) * g, lp["we2"].to(x2.dtype)).reshape(E_loc * C, D)
     contrib = torch.cat([y * (wslot * valid).to(x2.dtype)[:, None],
                          torch.zeros((1, D), dtype=x2.dtype, device=x2.device)])
-    parts = contrib[tab]  # [T, K, D]; a dropped pair reads the zero row
+    parts = contrib.index_select(0, tab.reshape(-1)).view(*tab.shape, D)  # [T, K, D]
     out = parts[:, 0]
     for r in range(1, tab.shape[1]):
         out = out + parts[:, r]

@@ -1,7 +1,9 @@
-"""The transformer's serving functions on a mesh of several devices.
+"""The transformer's serving and training functions on a mesh of several
+devices.
 
-``forward``, ``prefill`` and ``decode_step`` take the parameters, tokens,
-lengths and cache as :class:`~repro_torch.dist.sharding.Sharded` values
+``forward``, ``prefill``, ``decode_step`` and ``loss_fn`` take the
+parameters, tokens, labels, lengths and cache as
+:class:`~repro_torch.dist.sharding.Sharded` values
 laid out by ``dist.sharding.spec_for`` (the JAX program builder's
 ``in_shardings``: ``launch.programs.shard_params`` / ``lm_inputs``) and
 run each mesh position's share on its device, one process driving every
@@ -316,3 +318,138 @@ def decode_step(cfg, params, cache: dict, tokens_new: Sharded, lengths: Sharded,
         x = _residual(cfg, lp, x, h, attn, mesh, ax, route)
     h = _pp(L.rms_norm, mesh, x, params["final_norm"].parts)
     return _logits(cfg, params, h, mesh, tokens_new.spec[0]), cache
+
+
+# ---------------------------------------------------------------------------
+# training: the loss and its gradient
+# ---------------------------------------------------------------------------
+
+
+def _layer_parts(params) -> list[dict[str, tuple]]:
+    """Every layer's parameters a position, one ``unbind`` a distinct part
+    of each stacked leaf: under autograd a part's gradient is one stack of
+    its layers' (not a full-size zero tensor a layer)."""
+    memo: dict = {}
+
+    def layers(part):
+        if id(part) not in memo:
+            memo[id(part)] = part.unbind(0)
+        return memo[id(part)]
+
+    stacked = {k: [layers(p) for p in v.parts] for k, v in params["layers"].items()}
+    return [{k: tuple(ls[i] for ls in v) for k, v in stacked.items()}
+            for i in range(len(next(iter(stacked.values()))[0]))]
+
+
+def _train_layer(cfg, lp, x, positions, is_local: bool, mesh, ax) -> tuple:
+    """One block's output a position; its k / v are not kept."""
+    h = _pp(L.rms_norm, mesh, x, lp["attn_norm"])
+    attn, _ = _attention(cfg, lp, h, positions, is_local, mesh, ax)
+    return _residual(cfg, lp, x, h, attn, mesh, ax)
+
+
+class _Remat(torch.autograd.Function):
+    """``fn(*inputs)`` (distinct tensors in, distinct tensors out) kept as
+    its inputs only: the forward runs without a graph, the backward runs it
+    again and differentiates it.  One autograd node for the whole mesh
+    layer, so its recomputation runs once, in whichever device's backward
+    thread reaches it (``torch.utils.checkpoint``'s per-tensor unpack hooks
+    race between the threads of a mesh's distinct devices)."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        ctx.fn = fn
+        ctx.save_for_backward(*inputs)
+        with torch.no_grad():
+            return tuple(fn(*inputs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(t.requires_grad) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ctx.fn(*inputs)
+        used = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+        wanted = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in used], wanted, [g for _, g in used],
+                                       allow_unused=True))
+        return (None, *(next(got) if t.requires_grad else None for t in inputs))
+
+
+def _rematerialised(cfg, lp, x, positions, is_local: bool, mesh, ax) -> tuple:
+    """:func:`_train_layer` through :class:`_Remat`: its distinct input
+    tensors flattened in, its distinct outputs back to their positions."""
+    names = list(lp)
+    groups = [x, positions, *(lp[k] for k in names)]
+    flat = list({id(t): t for g in groups for t in g}.values())
+    slot = {id(t): i for i, t in enumerate(flat)}
+    index = [[slot[id(t)] for t in g] for g in groups]
+    owner = []
+
+    def run(*ts):
+        xs, ps, *ws = (tuple(ts[i] for i in ix) for ix in index)
+        out = _train_layer(cfg, dict(zip(names, ws)), xs, ps, is_local, mesh, ax)
+        distinct = list({id(t): t for t in out}.values())
+        owner[:] = [next(i for i, d in enumerate(distinct) if d is t) for t in out]
+        return distinct
+
+    outs = _Remat.apply(run, *flat)
+    return tuple(outs[i] for i in owner)
+
+
+def _logit_blocks(cfg, params, h, mesh) -> tuple[tuple, tuple, int]:
+    """Each position's f32 logits of its rows ``h`` [B_p, S, D] over its
+    vocab block (the final softcap applied), the vocab axes and the block
+    size."""
+    if cfg.tie_embeddings:
+        w, entry = _pp(lambda t: t.T, mesh, params["embed"].parts), params["embed"].spec[0]
+    else:
+        w, entry = params["unembed"].parts, params["unembed"].spec[1]
+    logits = _pp(lambda h, w: L.softcap(h.float() @ w.to(h.dtype).float(), cfg.final_softcap),
+                 mesh, h, w)
+    return logits, axes_of(entry), w[0].shape[1]
+
+
+def loss_fn(cfg, params, batch: dict, *, mesh) -> torch.Tensor:
+    """Next-token cross-entropy over labels >= 0 on ``mesh`` (see the
+    module docstring), differentiable in every part of ``params``;
+    ``batch`` holds ``tokens`` and ``labels`` int[B, S] :class:`Sharded`
+    over the data axes.  Returns the f32 scalar on the mesh's lead
+    device."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    if labels.spec != tokens.spec:
+        raise ValueError(f"labels split as {labels.spec}, tokens as {tokens.spec}")
+    if tokens.spec[1] is not None:
+        raise ValueError(f"tokens split over the sequence ({tokens.spec})")
+    ax = _axes(params)
+    B, S = tokens.shape
+    x = _embed(params["embed"], tokens.parts, mesh)
+    positions = _pp(lambda t: torch.arange(S, dtype=torch.int32, device=t.device)
+                    .expand(t.shape[0], S), mesh, tokens.parts)
+    layer = _rematerialised if cfg.remat and torch.is_grad_enabled() else _train_layer
+    for lp, is_local in zip(_layer_parts(params), tfm.local_flags(cfg)):
+        x = layer(cfg, lp, x, positions, is_local, mesh, ax)
+    h = _pp(L.rms_norm, mesh, x, params["final_norm"].parts)
+    logits, vax, V_loc = _logit_blocks(cfg, params, h, mesh)
+    lmax = col.pmax(_pp(lambda l: l.detach().amax(dim=-1, keepdim=True), mesh, logits), mesh, vax)
+    sums = col.psum(_pp(lambda l, m: torch.sum(torch.exp(l - m), dim=-1), mesh, logits, lmax),
+                    mesh, vax)
+
+    def label_logit(l, y, v0):
+        local = y.long() - v0
+        ok = (local >= 0) & (local < V_loc)
+        got = torch.take_along_dim(l, local.clamp(0, V_loc - 1)[..., None], dim=-1)[..., 0]
+        return torch.where(ok, got, 0.0)
+
+    lab = col.psum(_pp(label_logit, mesh, logits, labels.parts, _starts(mesh, vax, V_loc)),
+                   mesh, vax)
+
+    def nll(s, m, lab, y):
+        return torch.where(y >= 0, torch.log(s) + m[..., 0] - lab, 0.0).sum()
+
+    total = _pp(nll, mesh, sums, lmax, lab, labels.parts)
+    count = _pp(lambda y: (y >= 0).sum(), mesh, labels.parts)
+    firsts = [row[0] for row in mesh.grid()]  # one position a data slice
+    lead = mesh.lead
+    loss = col.sum_in_order([total[p].to(lead) for p in firsts])
+    n = col.sum_in_order([count[p].to(lead) for p in firsts])
+    return loss / torch.clamp(n, min=1)

@@ -19,7 +19,11 @@ The publishing rules are the reference's: a writer never touches a
 published directory (a crash leaves only a ``.tmp-*`` directory, which
 restore skips and :func:`gc_tmp` removes); :func:`restore_latest` walks
 the published steps newest first and skips a torn one.  Restored leaves
-are CPU tensors; :func:`reshard_restore` places them on devices.
+are CPU tensors; :func:`reshard_restore` places them on devices or on a
+mesh.  A :class:`~repro_torch.dist.sharding.Sharded` leaf (a training
+program on a mesh) is written whole, as the JAX package writes a global
+array, so a checkpoint written on one mesh restores onto any other, onto
+one device, or into the JAX package.
 """
 
 from __future__ import annotations
@@ -33,11 +37,15 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import Sharded
 from repro_torch.tree import build, keystr, leaves, tree_map
 
 
 def _host_array(x) -> np.ndarray:
     """A leaf as the numpy array ``np.savez`` stores (bf16 as ``|V2``)."""
+    if isinstance(x, Sharded):
+        x = x.unshard(device="cpu")
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
@@ -47,7 +55,7 @@ def _host_array(x) -> np.ndarray:
 
 
 def _dtype_name(x) -> str:
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, (torch.Tensor, Sharded)):
         return str(x.dtype).removeprefix("torch.")
     return str(np.asarray(x).dtype)
 
@@ -139,8 +147,9 @@ def restore(ckpt_dir: str, step: int, like):
     for a, entry, (p, leaf) in zip(arrays, entries, flat_like):
         if entry["path"] != keystr(p):
             raise ValueError(f"leaf {entry['path']} stored where {keystr(p)} is wanted")
-        if tuple(a.shape) != tuple(np.shape(leaf)):
-            raise ValueError(f"shape mismatch {a.shape} vs {tuple(np.shape(leaf))} at {entry['path']}")
+        want = tuple(leaf.shape) if isinstance(leaf, Sharded) else tuple(np.shape(leaf))
+        if tuple(a.shape) != want:
+            raise ValueError(f"shape mismatch {a.shape} vs {want} at {entry['path']}")
         out.append((p, _tensor(a, entry["dtype"])))
     return build(out), manifest["step"]
 
@@ -155,17 +164,30 @@ def restore_latest(ckpt_dir: str, like):
     return None
 
 
-def place(tree, devices):
-    """``tree``'s leaves on ``devices``: one ``torch.device`` (or its
-    name) for every leaf, or a tree of them."""
-    if isinstance(devices, dict):
-        return tree_map(lambda x, d: x.to(d), tree, devices)
-    return tree_map(lambda x: x.to(devices), tree)
+def _put(x: torch.Tensor, where, mesh):
+    if mesh is not None:  # a partition spec on ``mesh``
+        return shd.shard(x, mesh, where)
+    if isinstance(where, Sharded):  # laid out as that leaf
+        return shd.shard(x.to(where.mesh.lead), where.mesh, where.spec)
+    if isinstance(where, torch.Tensor):
+        where = where.device
+    return x.to(where)
 
 
-def reshard_restore(ckpt_dir: str, step: int, like, devices):
-    """Restore onto new devices: the stored arrays are whole, so a restore
-    onto another device (or a tree of them) is :func:`restore` then
-    :func:`place`."""
+def place(tree, where, mesh=None):
+    """``tree``'s leaves placed by ``where``: one device (or its name) for
+    every leaf, or a tree whose leaves are devices, tensors (their device)
+    or :class:`Sharded` (split as they are); with ``mesh``, a tree of
+    partition specs (``spec_for``'s, as ``Program.in_shardings`` holds),
+    each leaf split by its spec over ``mesh``."""
+    if isinstance(where, dict):
+        return tree_map(lambda x, w: _put(x, w, mesh), tree, where)
+    return tree_map(lambda x: _put(x, where, mesh), tree)
+
+
+def reshard_restore(ckpt_dir: str, step: int, like, where, mesh=None):
+    """Restore onto new devices or a new mesh: the stored arrays are whole,
+    so this is :func:`restore` then :func:`place` by ``where`` (and
+    ``mesh``)."""
     state, s = restore(ckpt_dir, step, like)
-    return place(state, devices), s
+    return place(state, where, mesh), s

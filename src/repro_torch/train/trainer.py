@@ -4,7 +4,13 @@ straggler watchdog.
 
 The step (:func:`make_train_step`) is eager autograd: the loss's
 gradient with respect to every parameter leaf, the global norm, then the
-optimizer's in-place update.  The loop adds:
+optimizer's in-place update.  The parameters may be
+:class:`~repro_torch.dist.sharding.Sharded` over a mesh (a training
+program on several devices): each distinct tensor of a leaf is read
+through its own alias, and a block's gradient is the sum of its holders'
+(one a device: a copy on another device saw only the work done there,
+the positions on one device share one tensor and so one gradient);
+``grad_norm`` counts each block once.  The loop adds:
 
   * **auto-resume**: ``try_resume`` collects torn writes and restores the
     newest readable checkpoint onto the parameters' devices;
@@ -22,6 +28,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.dist import collectives as col, sharding as shd
+from repro_torch.dist.sharding import Sharded
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optim import Optimizer
 from repro_torch.tree import build, leaves, tree_map
@@ -36,17 +44,61 @@ class TrainerConfig:
     grad_accum: int = 1
 
 
+def _alias(x):
+    """``x`` read through detached aliases that need a gradient: one a
+    distinct tensor of a :class:`Sharded`."""
+    if isinstance(x, Sharded):
+        return shd.map_distinct(lambda t: t.detach().requires_grad_(), x)
+    return x.detach().requires_grad_()
+
+
+def _inputs(x) -> list[torch.Tensor]:
+    return shd.distinct(x) if isinstance(x, Sharded) else [x]
+
+
+def _combined(x, grad_of: dict):
+    """The gradient of leaf ``x`` (an alias) from each input's: a
+    :class:`Sharded` block's is the sum of its holders' in position order,
+    on the first holder's device (bf16 summed in f32, rounded once), given
+    to every holder."""
+    if not isinstance(x, Sharded):
+        return grad_of[id(x)]
+    out = {}
+    for held in shd.holders(x).values():
+        dev = held[0].device
+        grads = [grad_of[id(t)].to(dev) for t in held]
+        total = grads[0] if len(grads) == 1 else col.sum_in_order(grads)
+        for t in held:
+            out[id(t)] = total if t.device == dev else total.to(t.device)
+    return Sharded(tuple(out[id(t)] for t in x.parts), x.mesh, x.spec)
+
+
 def value_and_grad(loss_fn: Callable, params, batch):
     """(loss, gradient tree) of ``loss_fn(params, batch)``; the gradient
     of a leaf the loss does not use is zeros.  ``params`` is read through
     detached aliases, so its tensors keep their flags and gain no
-    ``.grad``."""
+    ``.grad``.  A :class:`Sharded` leaf's gradient is laid out as the leaf
+    (see the module docstring)."""
     paths, tensors = zip(*leaves(params))
     with torch.enable_grad():
-        alias = [t.detach().requires_grad_() for t in tensors]
+        alias = [_alias(t) for t in tensors]
+        flat = [t for a in alias for t in _inputs(a)]
         loss = loss_fn(build(zip(paths, alias)), batch)
-        grads = torch.autograd.grad(loss, alias, allow_unused=True, materialize_grads=True)
-    return loss.detach(), build(zip(paths, grads))
+        grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+    grad_of = {id(t): g for t, g in zip(flat, grads)}
+    return loss.detach(), build((path, _combined(a, grad_of)) for path, a in zip(paths, alias))
+
+
+def _squares(g, device) -> torch.Tensor:
+    """The f32 sum of squares of a gradient leaf, each block of a
+    :class:`Sharded` once, on ``device``."""
+    if not isinstance(g, Sharded):
+        return torch.sum(g.float() ** 2)
+    return sum(torch.sum(held[0].float() ** 2).to(device) for held in shd.holders(g).values())
+
+
+def _copy(x):
+    return shd.map_distinct(torch.clone, x) if isinstance(x, Sharded) else torch.clone(x)
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer, grad_accum: int = 1):
@@ -55,13 +107,16 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, grad_accum: int = 1
 
     With ``grad_accum > 1`` the batch's leading axis is [accum, micro, ...]
     and the gradients (and loss) are summed in f32 over the micro-batches,
-    then divided.  ``grad_norm`` is the f32 L2 norm over every leaf.
+    then divided (parameters on one device).  ``grad_norm`` is the f32 L2
+    norm over every leaf, on the loss's device.
     """
 
     def step(params, opt_state, batch):
         if grad_accum == 1:
             loss, grads = value_and_grad(loss_fn, params, batch)
         else:
+            if any(isinstance(t, Sharded) for _, t in leaves(params)):
+                raise ValueError("gradient accumulation takes parameters on one device")
             loss = torch.zeros((), dtype=torch.float32, device=next(iter(batch.values())).device)
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                              params)
@@ -71,7 +126,7 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, grad_accum: int = 1
                 grads = tree_map(torch.add, grads, g)
             loss = loss / grad_accum
             grads = tree_map(lambda g: g / grad_accum, grads)
-        gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for _, g in leaves(grads)))
+        gnorm = torch.sqrt(sum(_squares(g, loss.device) for _, g in leaves(grads)))
         params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
@@ -109,7 +164,7 @@ class Trainer:
                  donate: bool = True, on_straggler: Callable[[int, float], None] | None = None):
         self.cfg = cfg
         self.optimizer = optimizer
-        self.params = tree_map(torch.clone, params) if donate else params
+        self.params = tree_map(_copy, params) if donate else params
         self.opt_state = optimizer.init(self.params)
         self.step_num = 0
         self.watchdog = StragglerWatchdog(cfg.straggler_factor)
@@ -128,7 +183,7 @@ class Trainer:
         if got is None:
             return False
         state, step = got
-        state = ckpt.place(state, tree_map(lambda t: t.device, like))
+        state = ckpt.place(state, like)
         self.params, self.opt_state = state["params"], state["opt"]
         self.step_num = step
         return True

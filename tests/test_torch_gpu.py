@@ -1647,3 +1647,145 @@ def test_flash_gradients_on_the_card_match_the_cpu(cuda):
             grads.append([t.grad for t in ins])
         for got, want in zip(grads[1], grads[0]):
             assert got.dtype == torch.bfloat16 and _rel_l2(got, want) <= 1e-2, kw
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh, and the xDeepFM recsys family (no kernel of their own: torch products)
+# ---------------------------------------------------------------------------
+
+
+def _distinct_devices(shape, cuda):
+    """``shape``'s positions on distinct devices: four cards (model shard m
+    on card m) when visible, else the card and the CPU alternated."""
+    n = shape[0] * shape[1]
+    if torch.cuda.device_count() >= 4:
+        return [torch.device("cuda", i % 4) for i in range(n)]
+    return [cuda if i % 2 == 0 else torch.device("cpu") for i in range(n)]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_mesh_train_step_over_distinct_devices(arch, cuda):
+    """One smoke ``train_4k`` step on a (2, 4) mesh over distinct devices
+    (no memoisation: each copy of a replicated block gets its own share of
+    the gradient, the trainer sums a block's holders) against the (2, 4)
+    mesh of the card, the same inputs, within ``TRAIN_STEP_TOL`` (an f32
+    Adafactor update within 0.15, chip_smoke.py's measured bound); every
+    holder of a block the same new value, up to its device's roundings of
+    the same update (relative L2 1e-6)."""
+    from repro_torch.dist.sharding import holders
+    from repro_torch.launch import programs
+    from repro_torch.tree import leaves, tree_map
+
+    tol = TRAIN_STEP_TOL_OF.get(arch, dict(TRAIN_STEP_TOL, update=0.15))
+    card = programs.build(arch, "train_4k", _mesh((2, 4), [cuda] * 8), smoke=True)
+    spread = programs.build(arch, "train_4k", _mesh((2, 4), _distinct_devices((2, 4), cuda)),
+                            smoke=True)
+    base = programs.lm_inputs(programs.build(arch, "train_4k", _mesh((1, 1), [cuda]), smoke=True),
+                              "cpu", seed=10)
+    out = []
+    for prog in (card, spread):
+        args = programs.lm_place(prog, tuple(tree_map(lambda t: t.to(cuda, copy=True), a)
+                                             for a in base))
+        p, s, m = prog.fn(*args)
+        assert m["loss"].device == cuda
+        out.append((p, s, m))
+    (p1, s1, m1), (p2, s2, m2) = out
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m2[key]), float(m1[key]), rtol=tol[key])
+    for (path, a), (_, b) in zip(leaves(s2), leaves(s1)):
+        if path[-1] != "step" and float(b.unshard().norm()):
+            assert _rel_l2(a.unshard(), b.unshard()) <= tol["state"], path
+    for (path, a), (_, b) in zip(leaves(p2), leaves(p1)):
+        for held in holders(a).values():
+            assert all(_rel_l2(t, held[0]) <= 1e-6 for t in held[1:]), path
+        off = (a.unshard().float().cpu() - b.unshard().float().cpu()).abs()
+        lr = 1e-3 if programs.cb.get(arch).optimizer == "adafactor" else 3e-4
+        assert float(off.max()) <= max(2.02 * lr, 2.0 ** -7 * float(b.unshard().abs().max())), path
+
+
+def test_gradient_combine_over_distinct_devices(cuda):
+    """The combine rule on distinct devices, in f32: a split and a
+    replicated leaf read at every position of a (2, 4) mesh through a
+    ``psum`` and a detached ``pmax``, the loss read once a data slice: the
+    gradients equal one device's within 1e-5."""
+    from repro_torch.dist import collectives as col, sharding as shd
+    from repro_torch.train import trainer
+
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((8, 12)).astype(np.float32)).to(cuda)
+    r = torch.from_numpy(rng.standard_normal((8,)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((6, 8)).astype(np.float32)).to(cuda)
+    mesh = _mesh((2, 4), _distinct_devices((2, 4), cuda))
+
+    def one(p, x):
+        h = (x * p["r"]) @ p["w"]
+        return torch.sum(torch.tanh(h - h.detach().amax(-1, keepdim=True)) ** 2) / 3.0
+
+    def sharded(p, xs):
+        h = col.per_position(lambda x, w, r: (x * r) @ w, mesh, xs.parts, p["w"].parts,
+                             p["r"].parts)
+        m = col.pmax(col.per_position(lambda h: h.detach().amax(-1, keepdim=True), mesh, h),
+                     mesh, ("model",))
+        s = col.psum(col.per_position(lambda h, m: torch.sum(torch.tanh(h - m) ** 2, dim=-1),
+                                      mesh, h, m), mesh, ("model",))
+        return col.sum_in_order([s[q].sum().to(mesh.lead) for q in
+                                 (row[0] for row in mesh.grid())]) / 3.0
+
+    loss1, g1 = trainer.value_and_grad(one, {"w": w, "r": r}, x)
+    params = {"w": shd.shard(w, mesh, (None, "model")), "r": shd.shard(r, mesh, (None,))}
+    loss, g = trainer.value_and_grad(sharded, params, shd.shard(x, mesh, ("data", None)))
+    assert len(shd.distinct(params["r"])) == len(set(mesh.devices))  # one copy a device
+    np.testing.assert_allclose(float(loss), float(loss1), rtol=1e-5)
+    for k in ("w", "r"):
+        np.testing.assert_allclose(g[k].unshard().cpu().numpy(), g1[k].cpu().numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_xdeepfm_full_serve_bulk_within_memory(cuda):
+    """``xdeepfm:serve_bulk`` at the full config (B = 262,144; 39 x 10^6
+    rows x 10) on the card: finite logits, and the peak within 8 GiB of the
+    inputs (chip_smoke.py's ``BULK_GROWTH``: one unchunked [B, 200, 39,
+    10] CIN intermediate alone would be 81.8 GB); the first 512 rows equal
+    ``serve_p99``'s program on them."""
+    from repro_torch.launch import programs
+
+    prog = programs.build("xdeepfm", "serve_bulk", _mesh((1, 1), [cuda]))
+    params, ids = programs.recsys_inputs(prog, cuda, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    resident = torch.cuda.memory_allocated(cuda)
+    with torch.no_grad():
+        logits = prog.fn(params, ids)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) - resident <= 8 << 30
+    assert logits.shape == (262_144,) and torch.isfinite(logits).all()
+    p99 = programs.build("xdeepfm", "serve_p99", _mesh((1, 1), [cuda]))
+    with torch.no_grad():
+        head = p99.fn(params, ids[:512])
+    assert _rel_l2(head, logits[:512]) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", ["train_batch", "serve_p99", "serve_bulk", "retrieval_cand"])
+def test_xdeepfm_mesh_matches_single_on_the_card(shape, cuda):
+    """The smoke program on a (1, 4) mesh of the card against (1, 1), the
+    same ``recsys_inputs``: forward and retrieval equal within 1e-6 (the
+    lookups' psum has one nonzero term), a train step's loss within 1e-6
+    and its parameters within 1e-5; the same forward program against the
+    CPU within 1e-4."""
+    from repro_torch.launch import programs
+    from repro_torch.tree import leaves, tree_map
+
+    single = programs.build("xdeepfm", shape, _mesh((1, 1), [cuda]), smoke=True)
+    mesh = programs.build("xdeepfm", shape, _mesh((1, 4), [cuda] * 4), smoke=True)
+    got = mesh.fn(*programs.recsys_inputs(mesh, cuda, seed=2))
+    args = programs.recsys_inputs(single, cuda, seed=2)
+    host_args = [tree_map(lambda t: t.cpu(), a) for a in args]
+    want = single.fn(*args)
+    if shape == "train_batch":
+        np.testing.assert_allclose(float(got[2]["loss"]), float(want[2]["loss"]), rtol=1e-6)
+        for (path, a), (_, b) in zip(leaves(got[0]), leaves(want[0])):
+            assert _rel_l2(a.unshard(), b) <= 1e-5, path
+        return
+    assert got.device == cuda and _rel_l2(got, want) <= 1e-6
+    host = programs.build("xdeepfm", shape, _mesh((1, 1), ["cpu"]), smoke=True)
+    assert _rel_l2(want, host.fn(*host_args)) <= 1e-4

@@ -407,8 +407,10 @@ def test_decode_moe_routes_globally():
 
 def test_mesh_program_refusals():
     mesh = cpu_mesh(MESH)
-    with pytest.raises(ValueError, match="train_4k on a mesh"):
-        programs.build("tinyllama-1.1b", "train_4k", mesh, smoke=True)
+    train = programs.build("tinyllama-1.1b", "train_4k", mesh, smoke=True)  # built on a mesh now
+    assert train.in_shardings[2] == {"tokens": ("data", None), "labels": ("data", None)}
+    with pytest.raises(ValueError, match="does not split over 4 data"):
+        programs.build("tinyllama-1.1b", "train_4k", cpu_mesh((4, 2)), smoke=True)
     with pytest.raises(ValueError, match="do not split over 3"):
         programs.build("olmoe-1b-7b", "prefill_32k", cpu_mesh((1, 3)), smoke=True)
     with pytest.raises(ValueError, match="does not split over 4 data"):

@@ -1,11 +1,12 @@
 """The arch registry and the program builder of ``repro_torch`` against
 the JAX package's ``repro.configs`` / ``repro.launch.programs``:
 
-* every registered arch (``k2triples`` and the five LM archs) field by
-  field (cfg, smoke cfg, shapes with their dims, rules and skips,
-  optimizer, parameter dtype, source), ``all_cells()`` against the JAX
-  one restricted to the ported families, and ``build``'s refusals (the
-  GNN/recsys archs, ``train_4k`` on a mesh of several devices);
+* every registered arch (``k2triples``, the five LM archs and
+  ``xdeepfm``) field by field (cfg, smoke cfg, shapes with their dims,
+  rules and skips, optimizer, parameter dtype, source), ``all_cells()``
+  against the JAX one restricted to the ported families, and ``build``'s
+  refusals (the GNN archs; a batch that does not split over the data
+  slices) beside the mesh programs it builds (``train_4k`` included);
 * ``build_engine``'s meta-device ``in_specs`` against the JAX
   ``ShapeDtypeStruct``s (uint32 as int32) for both shapes, smoke and
   full, on (1, 1) and (2, 4) meshes, and ``model_flops``; the same for
@@ -47,7 +48,7 @@ SHAPES = ("serve_64k", "unbounded_4k")
 LM_ARCHS = ("command-r-plus-104b", "tinyllama-1.1b", "gemma2-27b", "kimi-k2-1t-a32b",
             "olmoe-1b-7b")
 LM_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
-PORTED = ("engine", "lm")
+PORTED = ("engine", "lm", "recsys")
 MESHES = ((1, 1), (2, 4))
 
 
@@ -69,7 +70,7 @@ def _same_fields(got, want):
 
 
 def test_registry_like_jax():
-    assert set(ARCHS) == {"k2triples", *LM_ARCHS}
+    assert set(ARCHS) == {"k2triples", "xdeepfm", *LM_ARCHS}
     assert list(ARCHS) == [a for a in JARCHS if JARCHS[a].family in PORTED]  # JAX's order
     for arch_id, spec in ARCHS.items():
         jspec = JARCHS[arch_id]
@@ -100,18 +101,25 @@ def test_registry_like_jax():
         assert list(programs.all_cells(include)) == [
             c for c in jprograms.all_cells(include) if JARCHS[c[0]].family in PORTED]
     assert ("tinyllama-1.1b", "train_4k") in set(programs.all_cells())
+    assert ("xdeepfm", "serve_bulk") in set(programs.all_cells())
+    assert ARCHS["xdeepfm"].source == "arXiv:1803.05170; paper"
 
 
 def test_build_refuses_an_unported_family(monkeypatch):
     mesh = _mesh((1, 1))
-    for arch_id, jspec in JARCHS.items():
-        if jspec.family not in PORTED:
-            with pytest.raises(KeyError, match="Queue 1 item 3"):
-                programs.build(arch_id, jspec.shapes[0].shape_id, mesh)
-    for arch_id in LM_ARCHS:  # a mesh of several devices: serving programs, not train_4k
-        with pytest.raises(ValueError, match="train_4k on a mesh"):
-            programs.build(arch_id, "train_4k", _mesh((1, 2)), smoke=True)
-        assert programs.build(arch_id, "decode_32k", _mesh((1, 2)), smoke=True).mesh.sizes == (1, 2)
+    refused = [a for a, jspec in JARCHS.items() if jspec.family not in PORTED]
+    assert refused and all(JARCHS[a].family == "gnn" for a in refused)
+    for arch_id in refused:  # the GNN archs: the next slice
+        with pytest.raises(KeyError, match="Queue 1 item 3, the next slice"):
+            programs.build(arch_id, JARCHS[arch_id].shapes[0].shape_id, mesh)
+    for arch_id in LM_ARCHS:  # a mesh of several devices: every program, train_4k too
+        for shape in ("train_4k", "decode_32k"):
+            prog = programs.build(arch_id, shape, _mesh((1, 2)), smoke=True)
+            assert prog.mesh.sizes == (1, 2) and (prog.opt is not None) == (shape == "train_4k")
+    with pytest.raises(ValueError, match="does not split over 4 data"):  # B = 2 a step
+        programs.build("tinyllama-1.1b", "train_4k", _mesh((4, 1)), smoke=True)
+    for shape in ("train_batch", "retrieval_cand"):  # the recsys arch, on a mesh too
+        assert programs.build("xdeepfm", shape, _mesh((2, 4)), smoke=True).mesh.sizes == (2, 4)
     assert programs.build("olmoe-1b-7b", "prefill_32k", _mesh((2, 4))).in_shardings[1] == (
         "data", None)
     with pytest.raises(KeyError, match="unknown shape"):

@@ -4,8 +4,9 @@
   imports ``jax`` or the JAX package ``repro`` (an AST scan of every import).
 * Every entry point defaults to ``device="cuda"``, and asking for CUDA
   without a card raises instead of running on the CPU (the LM's ``init``,
-  ``params_from_arrays``, ``KVCache.zeros``, ``programs.lm_inputs`` and
-  the train driver included).
+  ``params_from_arrays``, ``KVCache.zeros``, ``programs.lm_inputs``,
+  xDeepFM's ``init`` / ``params_from_arrays``, ``programs.recsys_inputs``
+  and the train driver included).
 * ``ExecConfig`` resolves without reading the environment.
 """
 
@@ -23,6 +24,7 @@ from repro_torch.core.query import ExecConfig, resolve_device
 from repro_torch.launch import broker, serve, train
 from repro_torch.launch import mesh as meshlib, programs
 from repro_torch.models import transformer as tfm
+from repro_torch.models.recsys import xdeepfm
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -52,7 +54,8 @@ def test_entry_points_default_to_cuda():
     for fn in (eng.Engine.__init__, k2triples.from_id_triples,
                k2triples.from_string_triples, serve.run_bench, k2tree.build,
                bitvec.bitvec_from_bits, convert.tree_from_arrays, tfm.init,
-               tfm.params_from_arrays, tfm.KVCache.zeros, programs.lm_inputs):
+               tfm.params_from_arrays, tfm.KVCache.zeros, programs.lm_inputs, xdeepfm.init,
+               xdeepfm.params_from_arrays, programs.recsys_inputs):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert serve.parse_args([]).device == "cuda"
     assert train.parse_args(["--arch", "tinyllama-1.1b"]).device == "cuda"
@@ -99,6 +102,18 @@ def test_cuda_without_card_raises(monkeypatch):
         programs.build("tinyllama-1.1b", "train_4k")
     with pytest.raises(RuntimeError, match="no CUDA card"):  # the train driver
         train.main(["--arch", "tinyllama-1.1b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        train.main(["--arch", "xdeepfm", "--smoke", "--steps", "1"])
+    xcfg = xdeepfm.XDeepFMCfg(n_fields=2, embed_dim=2, rows_per_field=4, cin_layers=(2,),
+                              mlp_dims=(2,))
+    with pytest.raises(RuntimeError):
+        xdeepfm.init(xcfg, torch.Generator())
+    with pytest.raises(ValueError, match="CUDA"):  # a recsys program's default mesh is a card
+        programs.build("xdeepfm", "serve_p99")
+    rprog = programs.build("xdeepfm", "serve_p99", meshlib.make_mesh((1, 1), ("data", "model"),
+                                                                     ["cpu"]), smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        programs.recsys_inputs(rprog)
     e = eng.Engine(st, device="cpu")
     # a broker follows its engine's device; a cuda config is refused
     assert broker.ServeBroker(e).config.device == "cpu"
@@ -144,13 +159,17 @@ def test_fixed_layout_wrapper_checks_inputs_and_runs_plain_on_cpu():
 
 
 def test_dist_and_mesh_programs_are_covered(monkeypatch):
-    """``dist/`` and the mesh programs are port files (the import scan above
-    covers them); they read no environment, and a mesh's devices, not a
-    default card, decide where they run: a mesh of ``cpu`` needs no card."""
+    """``dist/``, the mesh programs, the training modules and the recsys
+    model are port files (the import scan above covers them); they read no
+    environment, and a mesh's devices, not a default card, decide where
+    they run: a mesh of ``cpu`` needs no card (serving, an LM training step
+    and a recsys training step)."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     mine = [f"src/repro_torch/dist/{n}.py" for n in ("__init__", "sharding", "collectives",
                                                      "compress")]
-    mine.append("src/repro_torch/models/transformer_mesh.py")
+    mine += [f"src/repro_torch/{n}.py" for n in (
+        "models/transformer_mesh", "models/recsys/xdeepfm", "models/gnn/common", "data/recsys",
+        "tree", "train/optim", "train/trainer", "train/checkpoint", "launch/train")]
     for f in mine:
         assert f in names, f
         assert "environ" not in (ROOT / f).read_text(), f
@@ -165,5 +184,10 @@ def test_dist_and_mesh_programs_are_covered(monkeypatch):
     prog = programs.build("olmoe-1b-7b", "decode_32k", mesh, smoke=True)
     args = programs.lm_inputs(prog, "cpu", seq_len=4)
     assert prog.fn(*args)[0].device.type == "cpu"
+    train_prog = programs.build("tinyllama-1.1b", "train_4k", mesh, smoke=True)
+    assert train_prog.fn(*programs.lm_inputs(train_prog, "cpu", seq_len=8))[2]["loss"].device.type \
+        == "cpu"
+    rec = programs.build("xdeepfm", "train_batch", mesh, smoke=True)
+    assert rec.fn(*programs.recsys_inputs(rec, "cpu", batch=8))[2]["loss"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA card"):  # lm_inputs still defaults to cuda
         programs.lm_inputs(prog)

@@ -297,6 +297,27 @@ def test_train_driver_smoke_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from step 3" in out and "done: 3 steps" in out
     assert ARCHS["kimi-k2-1t-a32b"].optimizer == "adafactor"
-    for arch in ("k2triples", "gcn-cora"):
+    for arch in ("k2triples", "gcn-cora", "mace"):
         with pytest.raises(SystemExit, match="family 'engine'|Queue 1 item 3"):
             train_driver.main(["--arch", arch, "--device", "cpu"])
+
+
+def test_train_driver_recsys_on_cpu(tmp_path, capsys, monkeypatch):
+    """The driver's recsys branch: ``xdeepfm --smoke`` two steps on the CPU,
+    batch ``i`` the JAX driver's ``ctr_batch(..., seed=i)``, AdamW state in
+    the checkpoint."""
+    from repro_torch.data import recsys as R
+
+    seen = []
+    orig = R.ctr_batch
+    monkeypatch.setattr(R, "ctr_batch", lambda *a, **kw: seen.append((a, kw)) or orig(*a, **kw))
+    argv = ["--arch", "xdeepfm", "--smoke", "--device", "cpu", "--steps", "2", "--batch", "16",
+            "--log-every", "1", "--ckpt-dir", str(tmp_path)]
+    hist = train_driver.main(argv)
+    assert [h["step"] for h in hist] == [1, 2] and all(np.isfinite(h["loss"]) for h in hist)
+    cfg = ARCHS["xdeepfm"].smoke_cfg
+    assert seen[:2] == [((16, cfg.n_fields, cfg.rows_per_field), {"seed": i}) for i in (0, 1)]
+    man = json.load(open(tmp_path / "step_000000002" / "manifest.json"))
+    assert any(e["path"] == "['opt']['mu']['tables']" for e in man["leaves"])
+    assert any(e["path"] == "['params']['cin'][0]" for e in man["leaves"])
+    assert "done: 2 steps" in capsys.readouterr().out
