@@ -96,7 +96,7 @@ Phases (any failure exits non-zero before the result line):
    churned (half tombstones of static triples, half inserts, 5% of them
    with subjects, 5% with objects past the static extents and 5% on the
    appended predicate ``n_preds + 1``) to 0, 4,096 and 5% of its triples;
-   at each size 128 ``ServeQ`` batches of 256 lanes in the serve mix at cap
+   at each size 100 ``ServeQ`` batches of 256 lanes in the serve mix at cap
    1024, constants a third each from tombstoned, inserted and untouched
    triples, every lane against a numpy oracle of (static − tombstones) ∪
    inserts, with p50/p99 a batch and the snapshot's build time; at 4,096
@@ -105,7 +105,9 @@ Phases (any failure exits non-zero before the result line):
    A-F over the four vpos pairs), first with every kernel call held against
    its plain version;
    8b. a ``ServeBroker`` with the default ``CompactionPolicy`` over a fresh
-   ``DynamicStore`` of the same store, 8 Zipf(1.1) tenants, phase 5's
+   ``DynamicStore`` of a 1 M-triple geonames-shaped store built in the
+   phase (``COMPACT_TRIPLES``; cut from phase 4's 9.4 M, whose host
+   rebuild took 116 s of the script's 1,200), 8 Zipf(1.1) tenants, phase 5's
    coalescing: rounds of 512 writes then 256 reads checked against the
    oracle until the 4,096th write trips a compaction; rounds of 8 writes
    (at most 1,024) and 256 reads while it rebuilds; every raced write read
@@ -113,7 +115,7 @@ Phases (any failure exits non-zero before the result line):
    before, during and after the rebuild, the compaction's split, the peak
    device memory; the compacted epoch's ``k2_range`` dump in full against
    its plain version, and its ids with the rebased delta against the truth;
-   8c. ``from_string_triples`` over 1,000,000 geonames-like string triples
+   8c. ``from_string_triples`` over 500,000 geonames-like string triples
    (``--string-triples``), the dictionary's build and encode seconds and
    bits per triple beside the k²-triples', 256 string queries (encode,
    serve lanes, decode) against a Python evaluation over the strings, then
@@ -202,7 +204,7 @@ Phases (any failure exits non-zero before the result line):
    shapes (B 1, S 4,096, H 32 / Kv 4, dh 64, causal) against a float64
    dense softmax's autograd on the card (relative L2 1e-2);
    12b. ``tinyllama-1.1b:train_4k`` at full width (22 layers, f32 AdamW),
-   the batch cut to B 8 x S 4,096: 6 steps on one ``TokenStream`` batch,
+   the batch cut to B 8 x S 4,096: 4 steps on one ``TokenStream`` batch,
    the last loss below the first;
    12c. ``olmoe-1b-7b:train_4k`` at full width, depth cut to 4 of 16
    layers, the batch to B 4 x S 2,048: 4 steps on one batch, the
@@ -233,11 +235,36 @@ Phases (any failure exits non-zero before the result line):
    decode layer on identical inputs within 2e-2 relative L2 of (1, 1)'s;
    13d. ``tinyllama-1.1b:decode_32k`` on (1, 4) at B = 8 (11b's cut), as
    13c.
+14. the LM training programs on meshes of the card and xDeepFM (no
+   kernel of their own, none of the nine may launch): 14a the five smoke
+   ``train_4k`` programs on a (2, 4) mesh against a cpu mesh, a mesh of
+   distinct devices and (1, 1); 14b ``tinyllama-1.1b`` and 14c
+   ``olmoe-1b-7b`` (cut as 12b / 12c) on (1, 4); 14d ``xdeepfm`` at its
+   full config on (1, 1) and (1, 4).
+15. the GNN family (EGNN, MACE, GraphCast, EquiformerV2; no kernel of
+   their own, none of the nine may launch):
+   15a. every arch's smoke program on all four graph shapes, one step on
+   the card against the same step on the CPU (loss, grad_norm, the new
+   parameters); EGNN, MACE and EquiformerV2 under a rotation of the
+   positions on the card; EquiformerV2 with 3 edge chunks against one
+   (loss and gradients) on the card;
+   15b. every arch x shape at the full config (16 cells), each shape's
+   host graph built once and timed (``minibatch_lg`` samples 1,024 seeds
+   15-10 from a 232,965-node, 114.6 M-edge graph): each cell's footprint
+   estimate at full size (one-step probes: at 1 and 2 layers for
+   ``minibatch_lg``, also at a second graph scale for ``ogb_products``),
+   "uncut" or its cut with the reason (memory: depth for ``minibatch_lg``,
+   the graph's scale for ``ogb_products``; then the script's time, a step
+   within 4 s), ms a step (median of steps 2-3), nodes and edges a second,
+   peak memory, the loss and a bound (``gnn_bound``: model flops at the
+   products' dtype's rate), and one profiled ``minibatch_lg`` step an
+   arch (idle share, top kernels).
    Then the ``{"kernels": [...]}`` line (``launches_by_path`` gains
    ``dynamic``, phase 8's launches, ``sharded``, those of 9a's and 9b's
    mesh runs, ``functional``, those of 9c, ``tree``, those of 10a,
    ``registry``, those of the programs' runs in 10b-10c, ``train``,
-   phase 12's, and ``lm_mesh``, phase 13's, both 0), the card's name and
+   phase 12's, ``lm_mesh``, phase 13's, ``train_mesh`` and ``recsys``,
+   phase 14's, and ``gnn``, phase 15's, all 0), the card's name and
    power limit, and the final ``{"ok": true, ...}`` line.
 """
 
@@ -245,6 +272,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -1804,8 +1832,10 @@ def entry_point_phase(store, ds, intersects, device, seed: int, err: dict) -> li
 DELTA_FRAC = 0.05  # benchmarks/bench_dynamic.py's middle delta fraction
 APPENDED = 64  # appended-range entities the inserts draw from
 ROUND_WRITES, ROUND_READS, RACED_WRITES = 512, 256, 1024
-READ_BATCHES = 128  # 8a's batches a delta size: p99 needs 100
-STRING_TRIPLES = 1_000_000
+READ_BATCHES = 100  # 8a's batches a delta size: p99 needs 100
+# 8c's string corpus: cut from 1,000,000 (host-bound, 37-61 s) for the script's 1,200 s
+STRING_TRIPLES = 500_000
+COMPACT_TRIPLES = 1_000_000  # 8b's geonames-shaped store (phase 4's is 9.4 M)
 
 
 def pack(ids):
@@ -2282,7 +2312,8 @@ def dynamic_phase(store, ds, oracle, device, n_tenants: int, args) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.core import compaction, delta, engine as eng
+    from repro_torch.core import compaction, delta, engine as eng, k2triples
+    from repro_torch.data import rdf
     from repro_torch.kernels import ops
 
     phase("8a. reads over a delta on the geonames store")
@@ -2294,12 +2325,22 @@ def dynamic_phase(store, ds, oracle, device, n_tenants: int, args) -> dict:
         fail(f"a kernel of the dynamic read path never launched: {launches}")
     print(f"8a done in {time.perf_counter() - t0:.1f}s", flush=True)
 
-    phase("8b. broker writes and one compaction at full size")
+    phase(f"8b. broker writes and one compaction on a {COMPACT_TRIPLES}-triple geonames-shaped "
+          "store")
     t0 = time.perf_counter()
-    engine = eng.Engine(delta.DynamicStore(store), device=device)
-    churn = Churn(ds, args.seed + 6)
+    # cut from phase 4's store: the compaction's host rebuild of 9.4 M triples took 116 of
+    # 8b's 134.9 s, and the script runs within 1,200 s
+    cds = rdf.generate_like("geonames", COMPACT_TRIPLES, seed=args.seed + 15)
+    cstore = k2triples.from_id_triples(
+        cds.ids, n_so=cds.n_so, n_subjects=cds.n_subjects, n_objects=cds.n_objects,
+        n_preds=cds.n_preds, device=device)
+    coracle = Oracle(cds.ids)
+    print(f"8b store: {cstore.n_triples} triples, {cstore.n_preds} preds, built with its oracle "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+    engine = eng.Engine(delta.DynamicStore(cstore), device=device)
+    churn = Churn(cds, args.seed + 6)
     ops.reset_launches()
-    out = asyncio.run(writes_8b(engine, oracle, churn, n_tenants, args.seed + 7))
+    out = asyncio.run(writes_8b(engine, coracle, churn, n_tenants, args.seed + 7))
     torch.cuda.synchronize()
     for k, v in ops.LAUNCHES.items():
         launches[k] += v
@@ -3794,7 +3835,7 @@ def lm_phase(device, seed: int) -> dict:
 TRAIN_SMOKE_STEPS = 3  # 12a: train_4k smoke programs (B 2 x S 64), card against the CPU
 FLASH_SHAPE = (1, 4096, 32, 4, 64)  # 12a: B, S, H, Kv, dh of tinyllama's attention
 DENSE_TRAIN = (8, 4096)  # 12b: train_4k cut from 256 x 4,096
-DENSE_TRAIN_STEPS = 6
+DENSE_TRAIN_STEPS = 4  # cut from 6 for the script's 1,200 s
 MOE_TRAIN = (4, 2048)  # 12c: train_4k cut from 256 x 4,096
 MOE_TRAIN_LAYERS = 4  # 12c: olmoe's depth cut from 16 (AdamW state of 16 layers: ~110 GB)
 MOE_TRAIN_STEPS = 4
@@ -4869,6 +4910,348 @@ def train_mesh_phase(device, seed: int, dense_12b=None) -> dict:
             "recsys": {k: ops.LAUNCHES[k] - mid[k] for k in before}}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the GNN family on one card
+# ---------------------------------------------------------------------------
+
+GNN_ARCHS = ("mace", "graphcast", "egnn", "equiformer-v2")
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+# 15a, a smoke step on the card against the CPU: the card's segment sums add with atomics
+# in an order of their own (the CPU tests hold the CPU against the JAX package); GraphCast's
+# bf16 states carry the difference through its layers
+GNN_SMOKE_TOL = dict(loss=1e-4, grad_norm=1e-3)
+GNN_SMOKE_TOL_OF = {"graphcast": dict(loss=2e-2, grad_norm=5e-2)}
+GNN_LR = 3e-4  # AdamW's: a first update moves a parameter by at most 2.02·lr either side
+GNN_ROT_TOL = 2e-4  # 15a: outputs under a rotation of the positions
+GNN_CHUNKS = 3  # 15a: EquiformerV2's chunked attention against one chunk
+GNN_CHUNK_TOL = dict(loss=1e-5, grad=1e-4, floor=1e-6)
+GNN_STEPS = 3  # 15b: steps a cell; ms is the median of steps 2-3
+# 15b: a cut keeps its predicted peak within this share of the card's free memory
+GNN_MEMORY = 0.85
+# 15b: the one-step probes (layers, graph scale) whose peaks and times size a cell's cut:
+# minibatch_lg's graph is fixed, ogb_products' is probed at two scales
+GNN_PROBES = {"layers": ((1, 1.0), (2, 1.0)),
+              "scale": ((1, 1 / 256), (2, 1 / 256), (1, 1 / 128))}
+# 15b: a cut cell's size also keeps its predicted step within this (the script's time limit)
+GNN_STEP_MS = 4000
+GNN_EST_KINDS = {"full_graph_sm": None, "molecule": None, "minibatch_lg": "layers",
+                 "ogb_products": "scale"}
+
+
+def gnn_bound(flops: float, bf16: bool) -> tuple[float, str]:
+    """Least time of a GNN training step: its model flops
+    (``programs.gnn_flops``) at the card's rate for the products' dtype,
+    989 TFLOP/s bf16 (GraphCast's processor) or 67 TFLOP/s f32."""
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_OPS_PER_S
+    return flops / peak * 1e3, "operations, bf16" if bf16 else "operations, f32"
+
+
+def _gnn_step_errs(got, want, params_card, params_cpu) -> dict:
+    """Card step against CPU step: loss and grad_norm relative, and the
+    largest parameter move apart in units of lr."""
+    from repro_torch.tree import leaves
+
+    off = max(float((a.cpu() - b).abs().max()) for (_, a), (_, b) in
+              zip(leaves(params_card), leaves(params_cpu)))
+    return dict(loss=abs(float(got["loss"]) / float(want["loss"]) - 1),
+                grad_norm=abs(float(got["grad_norm"]) / float(want["grad_norm"]) - 1),
+                params_lr=off / GNN_LR)
+
+
+def gnn_smoke_15a(device, seed: int) -> dict:
+    """Every arch's smoke program on all four shapes, one step on the card
+    against the same step on the CPU from the same ``gnn_inputs``; EGNN,
+    MACE and EquiformerV2 under a rotation of the positions on the card;
+    EquiformerV2's chunked attention against one chunk on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import programs
+    from repro_torch.models.gnn import equiformer_v2 as eq
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import leaves, tree_map
+
+    cpu = torch.device("cpu")
+    out = {"steps": {}, "rotation": {}}
+    for arch in GNN_ARCHS:
+        tol = GNN_SMOKE_TOL_OF.get(arch, GNN_SMOKE_TOL)
+        for shape in GNN_SHAPES:
+            host = programs.build(arch, shape, _mesh_of(cpu, (1, 1)), smoke=True)
+            card = programs.build(arch, shape, _mesh_of(device, (1, 1)), smoke=True)
+            params, state, batch = programs.gnn_inputs(host, cpu, seed=seed)
+            cp, cs = (tree_map(lambda t: t.to(device, copy=True), x) for x in (params, state))
+            _, _, got = card.fn(cp, cs, batch.to(device))
+            _, _, want = host.fn(params, state, batch)
+            e = _gnn_step_errs(got, want, cp, params)
+            if not (e["loss"] <= tol["loss"] and e["grad_norm"] <= tol["grad_norm"]
+                    and e["params_lr"] <= 2.02):
+                fail(f"15a {arch}:{shape}: card against CPU {e} (tol {tol}, parameters 2.02 lr)")
+            out["steps"][(arch, shape)] = dict(e, loss_value=float(got["loss"]))
+    rot = torch.tensor([[0.36, 0.48, -0.8], [-0.8, 0.6, 0.0], [0.48, 0.64, 0.6]],
+                       device=device)
+    for arch in ("egnn", "mace", "equiformer-v2"):
+        prog = programs.build(arch, "molecule", _mesh_of(device, (1, 1)), smoke=True)
+        params, _, g = programs.gnn_inputs(prog, device, seed=seed)
+        mod = programs.GNN_MODULES[arch]
+        with torch.no_grad():
+            a = mod.forward(prog.cfg, params, g)
+            b = mod.forward(prog.cfg, params, g._replace(positions=g.positions @ rot.T))
+        err = float((a - b).abs().max() / max(float(a.abs().max()), 1e-30))
+        if not err <= GNN_ROT_TOL:
+            fail(f"15a {arch}: a rotation of the positions moved the output by {err:.3g} "
+                 f"(relative to its largest, tol {GNN_ROT_TOL})")
+        out["rotation"][arch] = err
+    prog = programs.build("equiformer-v2", "molecule", _mesh_of(device, (1, 1)), smoke=True)
+    params, _, g = programs.gnn_inputs(prog, device, seed=seed)
+    runs = [value_and_grad(lambda p, b, c=c: eq.loss_fn(
+        dataclasses.replace(prog.cfg, edge_chunks=c), p, b), params, g) for c in (1, GNN_CHUNKS)]
+    lerr = abs(float(runs[1][0]) / float(runs[0][0]) - 1)
+    total = float(torch.sqrt(sum((b.double() ** 2).sum() for _, b in leaves(runs[0][1]))))
+    gerr, whole = 0.0, 0.0
+    for (path, a), (_, b) in zip(leaves(runs[1][1]), leaves(runs[0][1])):
+        err = float((a - b).norm())
+        whole = max(whole, err / total)
+        if err > GNN_CHUNK_TOL["floor"] * total:  # a leaf zero but for rounding aside
+            gerr = max(gerr, err / float(b.norm()))
+    if not (lerr <= GNN_CHUNK_TOL["loss"] and gerr <= GNN_CHUNK_TOL["grad"]):
+        fail(f"15a equiformer-v2: {GNN_CHUNKS} edge chunks against one: loss {lerr:.3g}, "
+             f"gradient leaves {gerr:.3g} (tol {GNN_CHUNK_TOL})")
+    out["chunks"] = dict(loss=lerr, grad=gerr, whole=whole)
+    return out
+
+
+def _gnn_run(prog, device, seed: int, graph=None, steps: int = GNN_STEPS,
+             profile: bool = False) -> dict:
+    """``steps`` AdamW steps of a GNN program on one ``gnn_inputs`` batch
+    from ``graph``: losses, step ms, the batch's nodes and edges (and the
+    real ones: its masks), peak device memory; with ``profile`` one more
+    step under the profiler."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import programs
+
+    base = _peak_reset(device)
+    params, state, b = programs.gnn_inputs(prog, device, seed=seed, graph=graph)
+    resident = torch.cuda.memory_allocated(device)
+    hist = []
+    for step in range(steps):
+        (_, _, m), secs = _timed(lambda: prog.fn(params, state, b))
+        hist.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), ms=secs * 1e3))
+        if not all(np.isfinite([hist[-1]["loss"], hist[-1]["grad_norm"]])):
+            fail(f"{prog.name}: step {step + 1} gave loss {hist[-1]['loss']}, grad_norm "
+                 f"{hist[-1]['grad_norm']}")
+    peak = torch.cuda.max_memory_allocated(device)
+    prof = _profiled(lambda: prog.fn(params, state, b)) if profile else None
+    n, e = b.node_feat.shape[0], b.edge_src.shape[0]
+    median = float(np.median([h["ms"] for h in hist[1:]])) if steps > 1 else hist[0]["ms"]
+    return dict(hist=hist, median_ms=median, peak=peak, base=base, resident=resident, prof=prof,
+                n=n, e=e, real_n=int(b.node_mask.sum()), real_e=int(b.edge_mask.sum()),
+                nodes_per_s=n / median * 1e3, edges_per_s=e / median * 1e3)
+
+
+def _gnn_cell(arch: str, shape: str, device, seed: int, graph, free: int) -> dict:
+    """One 15b cell at the full config: its footprint estimate at full size
+    and ``GNN_STEPS`` steps, uncut or cut.  A cell's size is its depth L
+    and, for ``ogb_products``, its graph's scale s; a small shape runs
+    uncut and its footprint is its peak.  Otherwise one-step probes at
+    ``GNN_PROBES`` (L, s) fit peak = a + s·(c + L·d) and step ms = t0 +
+    L·(g + h·s) (``minibatch_lg``'s graph is fixed: c = h = 0), which give
+    the full size's footprint; past ``GNN_MEMORY`` of the free memory the
+    cell is cut (``minibatch_lg`` in depth, ``ogb_products`` in scale) to
+    the largest size predicted to fit, and then, to keep a step within
+    ``GNN_STEP_MS``, in scale and past the smallest probed scale in depth.
+    A run out of memory retries at 3/4 of its size."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import programs
+
+    spec = ARCHS[arch]
+    prog = programs.build(arch, shape, _mesh_of(device, (1, 1)))
+    kind = GNN_EST_KINDS[shape]
+    dims = spec.shape(shape).dims
+    depth = prog.cfg.n_layers
+
+    def at(L, s):
+        """(program, graph) at depth ``L`` and graph scale ``s``."""
+        p = prog
+        if L != depth:
+            cut = dataclasses.replace(spec, cfg=dataclasses.replace(spec.cfg, n_layers=L))
+            p = programs.build_gnn(cut, spec.shape(shape), _mesh_of(device, (1, 1)))
+        if s == 1.0:
+            return p, graph
+        return p, programs.gnn_graph(prog, seed=seed, n_nodes=max(1, int(s * dims["n_nodes"])),
+                                     n_edges=int(s * dims["n_edges"]))
+
+    def described(L, s):
+        out = [f"depth cut to {L} of {depth} layers"] if L != depth else []
+        if s != 1.0:
+            out.append(f"graph cut to scale {s}: {max(1, int(s * dims['n_nodes']))} nodes x "
+                       f"{int(s * dims['n_edges'])} edges (d_feat {dims['d_feat']}, "
+                       f"{dims['n_classes']} classes, mean degree and skew kept)")
+        return ", ".join(out)
+
+    base = _peak_reset(device)
+    budget = base + GNN_MEMORY * free
+    L, s, est, cut = depth, 1.0, None, "uncut"
+    if kind is not None:
+        probes = GNN_PROBES[kind]
+        got = []
+        for v in probes:
+            p, g_ = at(*v)
+            r = _gnn_run(p, device, seed, g_, steps=1)
+            got.append((r["peak"], round(r["hist"][0]["ms"], 1)))
+        (p11, t11), (p21, t21) = got[:2]  # (1, s1) and (2, s1)
+        s1 = probes[0][1]
+        d = (p21 - p11) / s1
+        g_h = t21 - t11  # g + h·s1: a layer's step time at s1
+        if kind == "layers":
+            c, h, g = 0.0, 0.0, g_h
+        else:
+            (p12, t12), s2 = got[2], probes[2][1]
+            c = (p12 - p11) / (s2 - s1) - d
+            h = (t12 - t11) / (s2 - s1)
+            g = g_h - h * s1
+        a = p11 - s1 * (c + d)
+        t0 = t11 - g_h
+
+        def peak(L, s):
+            return a + s * (c + L * d)
+
+        def step_ms(L, s):
+            return t0 + L * (g + h * s)
+
+        est = peak(depth, 1.0)
+        seen = f"probes at (layers, scale) {list(probes)}: peaks {[q[0] for q in got]} bytes, " \
+               f"first steps {[q[1] for q in got]} ms"
+        if d <= 0:
+            fail(f"15b {arch}:{shape}: the probes' peaks do not grow with depth ({seen})")
+        if est > budget:
+            cut = (f"the full size's footprint estimate {int(est)} bytes is past {GNN_MEMORY} of "
+                   f"the card's {free} free bytes")
+            if kind == "layers":
+                L = max(1, int((budget - a) / d))
+            else:
+                s = (budget - a) / (c + depth * d)
+            if step_ms(L, s) > GNN_STEP_MS:  # the script's time limit
+                cut += (f", and a step at the largest size that fits is predicted past "
+                        f"{GNN_STEP_MS} ms (the script runs within 1,200 s)")
+                if kind == "scale" and step_ms(L, s1) <= GNN_STEP_MS:  # a scale past s1 will do
+                    s = min(s, ((GNN_STEP_MS - t0) / L - g) / h) if h > 0 else s
+                elif kind == "scale":  # the smallest probed scale, then fewer layers
+                    s = min(s, s1)
+                if step_ms(L, s) > GNN_STEP_MS and g + h * s > 0:
+                    L = max(1, min(L, int((GNN_STEP_MS - t0) / (g + h * s))))
+            s = s if s == 1.0 else int(s * 1000) / 1000
+            if s <= 0:
+                fail(f"15b {arch}:{shape}: no graph scale fits ({seen}, {free} bytes free)")
+            cut = f"{described(L, s)}: {cut} ({seen})"
+    for attempt in range(4):
+        try:
+            p, g_ = at(L, s)
+            r = _gnn_run(p, device, seed, g_, profile=shape == "minibatch_lg")
+            break
+        except torch.cuda.OutOfMemoryError:
+            if kind is None or attempt == 3:
+                raise
+        if kind == "layers":
+            L = max(1, int(L * 0.75))
+        else:
+            s = int(s * 750) / 1000
+        cut = f"{described(L, s)}, out of memory at the predicted size ({cut})"
+    r.update(arch=arch, shape=shape, cfg=p.cfg, est=r["peak"] if est is None else est, cut=cut,
+             flops=programs.gnn_flops(programs.GNN_MODULES[arch].param_specs(p.cfg), r["n"],
+                                      r["e"]))
+    r["bound"] = gnn_bound(r["flops"], arch == "graphcast")
+    return r
+
+
+def gnn_full_15b(device, seed: int, card: str) -> list:
+    """Every arch x shape at the full config (16 cells), each shape's host
+    graph built once and shared by the four archs (``ogb_products``' cut
+    graphs are each arch's own); prints each cell."""
+    import torch
+
+    from repro_torch.launch import programs
+
+    graphs = {}
+    for shape in ("full_graph_sm", "minibatch_lg", "molecule"):
+        t0 = time.perf_counter()
+        graphs[shape] = programs.gnn_graph(
+            programs.build(GNN_ARCHS[0], shape, _mesh_of(device, (1, 1))), seed=seed)
+        if graphs[shape] is not None:
+            g = graphs[shape]
+            print(f"15b host graph {shape}: {g.n_nodes} nodes, {g.n_edges} edges, "
+                  f"{g.feat.shape[1]} features, built in {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+    graphs["ogb_products"] = None
+    rows = []
+    for shape in GNN_SHAPES:
+        for arch in GNN_ARCHS:
+            t0 = time.perf_counter()
+            _peak_reset(device)
+            free = torch.cuda.mem_get_info(device)[0]
+            r = _gnn_cell(arch, shape, device, seed, graphs[shape], free)
+            c = r["cfg"]
+            real = (f" ({r['real_n']} real nodes, {r['real_e']} real edges)"
+                    if (r["real_n"], r["real_e"]) != (r["n"], r["e"]) else "")
+            print(f"15b {arch}:{shape} {c.n_layers} layers, d {c.d_hidden}, "
+                  f"{r['n']} nodes x {r['e']} edges{real}: {r['cut']}; footprint estimate at "
+                  f"full size {int(r['est'])} bytes; losses {[round(h['loss'], 4) for h in r['hist']]}, "
+                  f"step ms {[round(h['ms'], 2) for h in r['hist']]}, median of steps 2-"
+                  f"{GNN_STEPS} {r['median_ms']:.3f} ms, {r['nodes_per_s']:.1f} nodes/s, "
+                  f"{r['edges_per_s']:.1f} edges/s; peak device memory {r['peak']} bytes "
+                  f"({r['resident']} after inputs, {r['base']} before); bound "
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]}; {r['flops']:.4g} model flops); "
+                  f"{time.perf_counter() - t0:.1f}s; {card}", flush=True)
+            if r["prof"] is not None:
+                print(_prof_line(f"15b {arch}:{shape} a step", r["prof"]), flush=True)
+            rows.append(r)
+        if shape == "minibatch_lg":
+            del graphs[shape]  # ~1.5 GB on the host
+    return rows
+
+
+def gnn_phase(device, seed: int) -> dict:
+    """Phase 15; fails unless every check holds and none of the nine
+    kernels launched.  -> the nine kernels' launches (``gnn``), all 0."""
+    from repro_torch.kernels import ops
+
+    t_all = time.perf_counter()
+    before = dict(ops.LAUNCHES)
+    card = gpu_line()
+    phase("15a. the GNN smoke programs, card against CPU")
+    t0 = time.perf_counter()
+    s = gnn_smoke_15a(device, seed)
+    for (arch, shape), e in s["steps"].items():
+        print(f"15a {arch}:{shape} one step, card against CPU: loss {e['loss']:.3g}, grad_norm "
+              f"{e['grad_norm']:.3g} relative, parameters {e['params_lr']:.3g} lr apart (loss "
+              f"{e['loss_value']:.5g}; tol {GNN_SMOKE_TOL_OF.get(arch, GNN_SMOKE_TOL)}, 2.02 lr)",
+              flush=True)
+    print(f"15a rotation of the positions on the card, largest output change relative: "
+          f"{ {k: float(f'{v:.3g}') for k, v in s['rotation'].items()} } (tol {GNN_ROT_TOL}); "
+          f"equiformer-v2 {GNN_CHUNKS} edge chunks against one on the card: loss "
+          f"{s['chunks']['loss']:.3g}, gradient leaves past the floor {s['chunks']['grad']:.3g} "
+          f"relative L2, the largest leaf difference {s['chunks']['whole']:.3g} of the whole "
+          f"gradient's norm (tol {GNN_CHUNK_TOL})", flush=True)
+    print(f"15a done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    phase("15b. the GNN family at full width on one card, every arch x shape")
+    t0 = time.perf_counter()
+    gnn_full_15b(device, seed, card)
+    print(f"15b done in {time.perf_counter() - t0:.1f}s", flush=True)
+    launched = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
+    if launched:
+        fail(f"phase 15 launched kernels of the k²-triples path: {launched}")
+    print(f"15 done in {time.perf_counter() - t_all:.1f}s; none of the nine kernels launched",
+          flush=True)
+    return {k: ops.LAUNCHES[k] - before[k] for k in before}
+
+
 def _errs(e: dict) -> str:
     return f"({e['loss']:.3g}, {e['grad_norm']:.3g}, {e['state']:.3g}, {e['params']:.3g})"
 
@@ -5136,13 +5519,20 @@ def main(argv=None) -> int:
     train = train_phase(device, args.seed + 12)
     lm_mesh = mesh_phase(device, args.seed + 13)
     mesh_train = train_mesh_phase(device, args.seed + 14, train["dense"])
+    # phase 15 sizes its cuts by the free memory: let the geonames store, its plans and the
+    # recorded kernel calls go (~8 GB of the card), as phases 11-14 ran beside them
+    del engine, plan, store, f, pm, rec, rec_q, rec_s, results, s_results
+    gc.collect()
+    torch.cuda.empty_cache()
+    gnn = gnn_phase(device, args.seed + 15)
     for row in rows:
         name = row["name"]
         row["launches_by_path"].update(train=train["launches"][name], lm_mesh=lm_mesh[name],
                                        train_mesh=mesh_train["train_mesh"][name],
-                                       recsys=mesh_train["recsys"][name])
+                                       recsys=mesh_train["recsys"][name], gnn=gnn[name])
         row["launches"] += (train["launches"][name] + lm_mesh[name]
-                            + mesh_train["train_mesh"][name] + mesh_train["recsys"][name])
+                            + mesh_train["train_mesh"][name] + mesh_train["recsys"][name]
+                            + gnn[name])
     print(json.dumps({"kernels": rows}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,7 @@
 """Arch registry: ``get(arch_id)`` -> ArchSpec; ``ARCHS`` lists all ids.
 
-The engine family, the five transformer LM archs and the recsys arch
-are registered, in the JAX package's order; the GNN archs come with their
-models.
+Every arch of the JAX package is registered, in its order: the five
+transformer LM archs, the four GNN archs, the recsys arch and the engine.
 """
 
 from repro_torch.configs.base import ARCHS, ArchSpec, ShapeSpec, get, register
@@ -14,6 +13,10 @@ from repro_torch.configs import (  # noqa: F401
     gemma2_27b,
     kimi_k2_1t_a32b,
     olmoe_1b_7b,
+    mace,
+    graphcast,
+    egnn,
+    equiformer_v2,
     xdeepfm,
     k2triples,
 )

@@ -2,9 +2,9 @@
 
 A cell is arch × shape × mesh (``launch.programs.build``).  The registry
 holds the paper's engine arch (``configs/k2triples.py``), the five
-transformer LM archs with their shape table (:func:`lm_shapes`) and the
-recsys arch xDeepFM (:func:`recsys_shapes`); the GNN family and its shape
-table are not ported yet.
+transformer LM archs with their shape table (:func:`lm_shapes`), the four
+GNN archs (:func:`gnn_shapes`) and the recsys arch xDeepFM
+(:func:`recsys_shapes`).
 """
 
 from __future__ import annotations
@@ -74,6 +74,32 @@ def lm_shapes(*, sub_quadratic: bool = False) -> tuple[ShapeSpec, ...]:
         ShapeSpec(
             "long_500k", "decode", dict(seq_len=524288, global_batch=1),
             rules_override={"batch": None, "kv_seq": ("pod", "data", "model")},
+        ),
+    )
+
+
+def gnn_shapes() -> tuple[ShapeSpec, ...]:
+    """The 4 assigned graph shapes: cora, reddit (sampled 15-10 from 1,024
+    seed nodes), ogbn-products (full batch) and batched molecules."""
+    return (
+        ShapeSpec(
+            "full_graph_sm", "train",
+            dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_classes=7),
+        ),
+        ShapeSpec(
+            "minibatch_lg", "train",
+            dict(
+                n_nodes=232_965, n_edges=114_615_892, d_feat=602,
+                batch_nodes=1024, fanouts=(15, 10), n_classes=41,
+            ),
+        ),
+        ShapeSpec(
+            "ogb_products", "train",
+            dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100, n_classes=47),
+        ),
+        ShapeSpec(
+            "molecule", "train",
+            dict(n_nodes=30, n_edges=64, batch=128),
         ),
     )
 

@@ -29,13 +29,20 @@ shapes and dtypes (uint32 words as int32): nothing is allocated.
   ``recsys_inputs(program, device)`` makes seeded parameters, state and a
   ``ctr_batch``, placed on the program's mesh.
 
+* gnn (EGNN, MACE, GraphCast, EquiformerV2): each graph shape a
+  training step ``fn(params, opt_state, batch)`` of AdamW on one device,
+  the batch a ``GraphBatch``; ``gnn_inputs(program, device)`` makes
+  seeded parameters, state and the shape's graph (a full random graph, a
+  15-10 fanout sample, or batched molecules).  A mesh of several devices
+  is refused (ROADMAP Queue 1 item 3b).
+
 ``program.fn(*inputs(...))`` runs the cell: size bytes or memory from
-what the inputs hold, not from ``in_specs``.  The GNN archs are refused
-(ROADMAP Queue 1).
+what the inputs hold, not from ``in_specs``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Any, Callable, NamedTuple
 
@@ -52,11 +59,12 @@ from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import Sharded
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.mesh import MODEL_AXIS, Mesh
-from repro_torch.data import recsys as rdata
+from repro_torch.data import graphs as gdata, recsys as rdata
 from repro_torch.models import transformer as tfm, transformer_mesh as tmesh
+from repro_torch.models.gnn import common as gnn_common, egnn, equiformer_v2, graphcast, mace
 from repro_torch.models.recsys import xdeepfm
 from repro_torch.train import optim
-from repro_torch.tree import tree_map
+from repro_torch.tree import keystr, leaves, tree_map
 from repro_torch.train.trainer import make_train_step
 
 
@@ -70,8 +78,8 @@ class Program(NamedTuple):
     meta: K2Meta | None = None  # engine: the tree geometry ``fn`` traverses
     # analytic model flops, the JAX package's figure for the same cell
     model_flops: float = 0.0
-    cfg: Any = None  # lm: the TransformerCfg ``fn`` runs
-    opt: Any = None  # lm train: the Optimizer ``fn`` steps with
+    cfg: Any = None  # lm, recsys, gnn: the model config ``fn`` runs
+    opt: Any = None  # a train program: the Optimizer ``fn`` steps with
     # lm on a mesh of several devices: the mesh, the shape's sharding rules and
     # the partition spec of each ``in_specs`` leaf (the JAX builder's in_shardings)
     mesh: Mesh | None = None
@@ -410,6 +418,182 @@ def lm_inputs(program: Program, device="cuda", *, seed: int = 0, batch: int | No
 
 
 # ---------------------------------------------------------------------------
+# GNN programs: a training step on one device
+# ---------------------------------------------------------------------------
+
+GNN_MODULES = {
+    "mace": mace,
+    "graphcast": graphcast,
+    "egnn": egnn,
+    "equiformer-v2": equiformer_v2,
+}
+
+# weights applied once an edge (the rest once a node), for ``model_flops``
+EDGE_KEYS = ("edge_mlp", "phi_e", "phi_x", "w0", "w1_r", "w1_i", "w2_r", "w2_i", "attn",
+             "radial")
+
+
+def _gnn_sizes(shape: cb.ShapeSpec, smoke: bool) -> tuple[int, int, int, int, int]:
+    """(nodes, edges, d_feat, n_classes, graphs) of a graph cell, as the JAX
+    builder's: a fanout sample pads to seeds·Π(1+f) nodes and seeds·Σ Π f
+    edges (16 seeds smoke), molecules are B x 30 nodes and B x 64 edges (B
+    128, 8 smoke), a full graph is the dataset's (256 x 1,024 smoke)."""
+    d = shape.dims
+    if shape.shape_id == "minibatch_lg":
+        seeds = 16 if smoke else d["batch_nodes"]
+        f = d["fanouts"]
+        n = seeds * int(np.prod([x + 1 for x in f]))
+        e, m = 0, seeds
+        for x in f:
+            m *= x
+            e += m
+        return n, e, d["d_feat"], d["n_classes"], 1
+    if shape.shape_id == "molecule":
+        b = 8 if smoke else d["batch"]
+        return b * d["n_nodes"], b * d["n_edges"], 8, 0, b
+    n, e = (256, 1024) if smoke else (d["n_nodes"], d["n_edges"])
+    return n, e, d["d_feat"], d["n_classes"], 1
+
+
+def gnn_flops(pspecs: dict, n: int, e: int) -> float:
+    """The JAX builder's model flops of a GNN training step: 2 flops a
+    weight entry (the last two dimensions of a leaf of rank >= 2) a node or,
+    for the ``EDGE_KEYS`` weights, an edge; x3 for forward and backward."""
+    per_edge = per_node = 0
+    for path, w in leaves(pspecs):
+        if w.dim() < 2:
+            continue
+        sz = w.shape[-2] * w.shape[-1]
+        if any(k in keystr(path) for k in EDGE_KEYS):
+            per_edge += sz
+        else:
+            per_node += sz
+    return 3.0 * 2.0 * (e * per_edge + n * per_node)
+
+
+def build_gnn(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *,
+              smoke: bool = False) -> Program:
+    """One AdamW step of a GNN arch on a graph shape: ``fn(params,
+    opt_state, batch GraphBatch)`` -> (params, opt_state, {"loss",
+    "grad_norm"}), the parameters and state updated in place.  The cfg
+    follows the JAX builder: ``out_dim`` the shape's classes (1 without),
+    ``in_dim`` its feature width where the arch has one, ``edge_chunks=128``
+    at >= 10 M edges, remat off for ``ogb_products`` (full configs).
+    ``in_specs`` are the batch's padded sizes; the program runs a batch of
+    any size (``gnn_inputs``' cut graphs).  On one device only: a mesh of
+    several is refused (the node and edge arrays over the data axes are
+    ROADMAP Queue 1 item 3b)."""
+    name = f"{arch.arch_id}:{shape.shape_id}"
+    if mesh is None:
+        meshlib.make_mesh((1, 1), ("data", MODEL_AXIS))  # the current card, or raise
+    elif len(mesh.devices) > 1:
+        raise ValueError(f"{name}: the GNN programs run on one device, not a {mesh.sizes} mesh "
+                         "(ROADMAP Queue 1 item 3b: node and edge arrays over the data axes)")
+    mod = GNN_MODULES[arch.arch_id]
+    n, e, d_feat, n_classes, n_graphs = _gnn_sizes(shape, smoke)
+    cfg = arch.smoke_cfg if smoke else arch.cfg
+    cfg = dataclasses.replace(cfg, out_dim=n_classes or 1, **(
+        {"in_dim": d_feat} if hasattr(cfg, "in_dim") else {}))
+    if hasattr(cfg, "edge_chunks") and not smoke and e >= 10_000_000:
+        cfg = dataclasses.replace(cfg, edge_chunks=128)
+    if shape.shape_id == "ogb_products" and not smoke:
+        cfg = dataclasses.replace(cfg, remat=False)
+    pspecs = mod.param_specs(cfg)
+
+    def meta(*size, dtype=torch.float32):
+        return torch.empty(size, dtype=dtype, device="meta")
+
+    i32 = torch.int32
+    gb = gnn_common.GraphBatch(
+        node_feat=meta(n, d_feat), positions=meta(n, 3), species=meta(n, dtype=i32),
+        edge_src=meta(e, dtype=i32), edge_dst=meta(e, dtype=i32), edge_feat=meta(e, 4),
+        node_mask=meta(n, dtype=torch.bool), edge_mask=meta(e, dtype=torch.bool),
+        labels=meta(n, dtype=i32), graph_ids=meta(n, dtype=i32), graph_y=meta(n_graphs),
+    )
+    opt = _opt(arch)
+    return Program(name=name, fn=make_train_step(partial(mod.loss_fn, cfg), opt),
+                   in_specs=(pspecs, opt.init(pspecs), gb), model_flops=gnn_flops(pspecs, n, e),
+                   cfg=cfg, opt=opt)
+
+
+def gnn_graph(program: Program, *, seed: int = 0, n_nodes: int | None = None,
+              n_edges: int | None = None) -> gdata.HostGraph | None:
+    """The host graph a GNN program's batch comes from (None for molecules):
+    ``random_graph`` at the program's node and edge counts (for
+    ``minibatch_lg``, which samples from it, the dataset's, or the smoke
+    full graph's 256 x 1,024 for a smoke program), or at ``n_nodes`` /
+    ``n_edges``, at most those (a cut graph: the mean degree and skew kept
+    by the caller's choice), with the shape's feature width and classes,
+    seeded ``seed``."""
+    arch_id, shape_id = program.name.split(":")
+    if arch_id not in GNN_MODULES:
+        raise ValueError(f"{program.name} is not a GNN program")
+    shape = cb.get(arch_id).shape(shape_id)
+    if shape_id == "molecule":
+        if n_nodes is not None or n_edges is not None:
+            raise ValueError(f"{program.name}: a molecule batch is not cut")
+        return None
+    gb = program.in_specs[2]
+    N, E = gb.node_feat.shape[0], gb.edge_src.shape[0]
+    if shape_id == "minibatch_lg":  # the host graph the seeds are drawn from
+        seeds = N // int(np.prod([x + 1 for x in shape.dims["fanouts"]]))
+        N, E = ((256, 1024) if seeds < shape.dims["batch_nodes"]
+                else (shape.dims["n_nodes"], shape.dims["n_edges"]))
+    n, e = N if n_nodes is None else n_nodes, E if n_edges is None else n_edges
+    if not (1 <= n <= N and 0 <= e <= E):
+        raise ValueError(f"{program.name} takes a graph of at most {N} nodes and {E} edges, "
+                         f"asked for {n} x {e}")
+    return gdata.random_graph(n, e, gb.node_feat.shape[1], shape.dims["n_classes"], seed=seed)
+
+
+def gnn_batch(program: Program, graph: gdata.HostGraph | None, *, seed: int = 0
+              ) -> gnn_common.GraphBatch:
+    """A GNN program's batch (numpy) from ``graph`` (``gnn_graph``'s):
+    the whole graph (``to_batch``) for a full-graph shape; for
+    ``minibatch_lg`` a ``NeighborSampler`` sample (the shape's fanouts,
+    seeded ``seed``) of the program's seed count drawn from ``seed``
+    without replacement; for ``molecule`` ``molecule_batch`` seeded
+    ``seed``, its 60 kNN edges a molecule padded with masked edges at node
+    0 to the program's 64."""
+    arch_id, shape_id = program.name.split(":")
+    dims = cb.get(arch_id).shape(shape_id).dims
+    gb = program.in_specs[2]
+    N, E = gb.node_feat.shape[0], gb.edge_src.shape[0]
+    if shape_id == "molecule":
+        b = gdata.molecule_batch(N // dims["n_nodes"], dims["n_nodes"], dims["n_edges"],
+                                 seed=seed)
+        pad = E - b.edge_src.shape[0]
+        return b._replace(**{k: np.concatenate([getattr(b, k), np.zeros(
+            (pad, *getattr(b, k).shape[1:]), getattr(b, k).dtype)])
+            for k in ("edge_src", "edge_dst", "edge_feat", "edge_mask")})
+    if shape_id == "minibatch_lg":
+        f = dims["fanouts"]
+        seeds = N // int(np.prod([x + 1 for x in f]))
+        picked = np.random.default_rng(seed).choice(graph.n_nodes, seeds, replace=False)
+        return gdata.NeighborSampler(graph, f, seed=seed).sample(picked)
+    return gdata.to_batch(graph, dims["n_classes"])
+
+
+def gnn_inputs(program: Program, device="cuda", *, seed: int = 0, n_nodes: int | None = None,
+               n_edges: int | None = None, graph: gdata.HostGraph | None = None) -> tuple:
+    """The concrete arguments of a GNN program on ``device``: parameters
+    from the arch's ``init`` with a generator on ``device`` seeded
+    ``seed``, AdamW's state, and the shape's batch (``gnn_batch``) from
+    ``graph`` or, by default, ``gnn_graph(program, seed=seed, n_nodes=,
+    n_edges=)`` (pass a graph built once to share it between programs)."""
+    dev = resolve_device(device)
+    arch_id = program.name.split(":")[0]
+    if arch_id not in GNN_MODULES:
+        raise ValueError(f"{program.name} is not a GNN program")
+    if graph is None:
+        graph = gnn_graph(program, seed=seed, n_nodes=n_nodes, n_edges=n_edges)
+    params = GNN_MODULES[arch_id].init(program.cfg, torch.Generator(device=dev).manual_seed(seed),
+                                       device=dev)
+    batch = gnn_batch(program, graph, seed=seed).to(dev)
+    return params, program.opt.init(params), batch
+
+
+# ---------------------------------------------------------------------------
 # recsys (xDeepFM) programs
 # ---------------------------------------------------------------------------
 
@@ -537,10 +721,8 @@ def recsys_inputs(program: Program, device="cuda", *, seed: int = 0,
 def build(arch_id: str, shape_id: str, mesh: Mesh | None = None, *,
           smoke: bool = False) -> Program:
     """The program of one cell.  ``mesh`` defaults to :func:`default_mesh`
-    for the engine and to the current card for an LM or recsys program."""
-    if arch_id not in cb.ARCHS:
-        raise KeyError(f"{arch_id!r} is not registered: the GNN archs are not ported (ROADMAP "
-                       "Queue 1 item 3, the next slice)")
+    for the engine and to the current card for an LM, GNN or recsys
+    program."""
     arch = cb.get(arch_id)
     shape = arch.shape(shape_id)
     if shape.skip:
@@ -549,6 +731,8 @@ def build(arch_id: str, shape_id: str, mesh: Mesh | None = None, *,
         return build_lm(arch, shape, mesh, smoke=smoke)
     if arch.family == "recsys":
         return build_recsys(arch, shape, mesh, smoke=smoke)
+    if arch.family == "gnn":
+        return build_gnn(arch, shape, mesh, smoke=smoke)
     return build_engine(arch, shape, default_mesh() if mesh is None else mesh, smoke=smoke)
 
 

@@ -1,20 +1,22 @@
 """End-to-end training driver: ``python -m repro_torch.launch.train --arch <id>``.
 
-Trains an LM or recsys arch for real (parameters allocated on the
-device; LM batches streamed from ``TokenStream``, recsys batches a
-``ctr_batch`` of ``--batch`` rows from seed ``i`` at step ``i``) with the
+Trains an LM, GNN or recsys arch for real (parameters allocated on the
+device; LM batches streamed from ``TokenStream``, a GNN arch the full
+batch of one 512-node, 4,096-edge random graph with 32 features and 7
+classes, recsys batches a ``ctr_batch`` of ``--batch`` rows from seed
+``i`` at step ``i``) with the
 full fault-tolerance loop of :class:`repro_torch.train.trainer.Trainer`:
 auto-resume, periodic atomic checkpoints, the straggler watchdog.  The
 flags are the JAX package's (``repro.launch.train``) plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain torch path, e.g. ``--smoke
 --device cpu --steps 3``).  Parameters come from a ``torch.Generator``
 seeded 0; the optimizer is the arch's (Adafactor or AdamW) at ``--lr``.
-The GNN archs are not ported (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from functools import partial
 
 
@@ -42,18 +44,18 @@ def main(argv=None) -> list[dict]:
 
     from repro_torch.configs import ARCHS
     from repro_torch.core.query import resolve_device
-    from repro_torch.data import recsys as R
+    from repro_torch.data import graphs as G, recsys as R
     from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.programs import GNN_MODULES
     from repro_torch.models import transformer as tfm
     from repro_torch.models.recsys import xdeepfm
     from repro_torch.train import optim
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     if args.arch not in ARCHS:
-        raise SystemExit(f"{args.arch!r} is not registered: the GNN archs are not ported "
-                         "(ROADMAP Queue 1 item 3)")
+        raise SystemExit(f"{args.arch!r} is not registered")
     arch = ARCHS[args.arch]
-    if arch.family not in ("lm", "recsys"):
+    if arch.family not in ("lm", "gnn", "recsys"):
         raise SystemExit(f"train driver does not apply to family {arch.family!r}")
     dev = resolve_device(args.device)
     cfg = arch.smoke_cfg if args.smoke else arch.cfg
@@ -68,6 +70,20 @@ def main(argv=None) -> list[dict]:
                 yield {k: torch.from_numpy(v).to(dev) for k, v in ts.batch(args.batch).items()}
 
         loss_fn = partial(tfm.loss_fn, cfg)
+    elif arch.family == "gnn":
+        mod = GNN_MODULES[args.arch]
+        n_classes = 7
+        cfg = dataclasses.replace(cfg, out_dim=n_classes, **(
+            {"in_dim": 32} if hasattr(cfg, "in_dim") else {}))
+        params = mod.init(cfg, gen, device=dev)
+        graph = G.to_batch(G.random_graph(512, 4096, 32, n_classes=n_classes, seed=0),
+                           n_classes).to(dev)
+
+        def batches():
+            while True:
+                yield graph
+
+        loss_fn = partial(mod.loss_fn, cfg)
     else:
         params = xdeepfm.init(cfg, gen, device=dev)
 

@@ -1,2 +1,3 @@
-"""The GNN family's shared helpers; only the MLP helpers are ported so
-far (``common.py``), which the recsys model uses."""
+"""The GNN family: EGNN, MACE, GraphCast and EquiformerV2 on the shared
+graph plumbing (``common.py``) and the SO(3) substrate (``so3.py``); the
+recsys model uses ``common``'s MLP helpers too."""

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -118,19 +117,7 @@ def params_from_arrays(cfg: XDeepFMCfg, tree, device="cuda") -> dict:
     """The JAX package's parameter tree as numpy arrays, as the port's
     tensors on ``device``; every path and shape checked against
     :func:`param_specs`."""
-    dev = resolve_device(device)
-    want = dict(leaves(param_specs(cfg)))
-    got = dict(leaves(tree))
-    if set(got) != set(want):
-        raise ValueError(f"parameter paths differ: missing {sorted(map(str, set(want) - set(got)))}"
-                         f", unexpected {sorted(map(str, set(got) - set(want)))}")
-    out = []
-    for path, s in want.items():
-        t = torch.from_numpy(np.array(got[path], dtype=np.float32)).to(dev)
-        if tuple(t.shape) != tuple(s.shape):
-            raise ValueError(f"{path}: shape {tuple(t.shape)}, want {tuple(s.shape)}")
-        out.append((path, t))
-    return build(out)
+    return C.params_from_arrays(param_specs(cfg), tree, device)
 
 
 # ---------------------------------------------------------------------------

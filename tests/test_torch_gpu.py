@@ -1789,3 +1789,70 @@ def test_xdeepfm_mesh_matches_single_on_the_card(shape, cuda):
     assert got.device == cuda and _rel_l2(got, want) <= 1e-6
     host = programs.build("xdeepfm", shape, _mesh((1, 1), ["cpu"]), smoke=True)
     assert _rel_l2(want, host.fn(*host_args)) <= 1e-4
+
+
+GNN_ARCHS = ("mace", "graphcast", "egnn", "equiformer-v2")
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+# one smoke GNN step, card against CPU: the card's segment sums add with atomics in an order
+# of their own; GraphCast's bf16 states carry that difference through the layers
+GNN_STEP_TOL = dict(loss=1e-4, grad_norm=1e-3, state=1e-3)
+GNN_STEP_TOL_OF = {"graphcast": dict(loss=2e-2, grad_norm=5e-2, state=1e-1)}
+
+
+@pytest.mark.parametrize("shape", GNN_SHAPES)
+@pytest.mark.parametrize("arch", GNN_ARCHS)
+def test_gnn_smoke_step_on_the_card_matches_the_cpu(arch, shape, cuda):
+    """One step of each smoke GNN program on the card and the CPU from the
+    same ``gnn_inputs``: loss and ``grad_norm`` within ``GNN_STEP_TOL``,
+    AdamW's first moments (0.1 x the gradient) within its ``state``
+    relative L2, the new parameters within 2.02·lr."""
+    from repro_torch.launch import programs
+    from repro_torch.tree import leaves, tree_map
+
+    tol = GNN_STEP_TOL_OF.get(arch, GNN_STEP_TOL)
+    prog = programs.build(arch, shape, _mesh((1, 1), [cuda]), smoke=True)
+    params, state, batch = programs.gnn_inputs(prog, "cpu", seed=4)
+    card = [tree_map(lambda t: t.to(cuda, copy=True), x) for x in (params, state)]
+    card_batch = batch.to(cuda)
+    _, _, want = prog.fn(params, state, batch)
+    _, _, got = prog.fn(*card, card_batch)
+    assert got["loss"].device.type == "cuda"
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=tol[key])
+    for (path, a), (_, b) in zip(leaves(card[1]["mu"]), leaves(state["mu"])):
+        if float(b.norm()) > 1e-6 * float(want["grad_norm"]):
+            assert _rel_l2(a, b) <= tol["state"], path
+    for (path, a), (_, b) in zip(leaves(card[0]), leaves(params)):
+        assert float((a.cpu() - b).abs().max()) <= 2.02 * 3e-4, path
+
+
+def test_equiformer_chunked_gradients_on_the_card(cuda):
+    """EquiformerV2's chunked online softmax (``edge_chunks=3``, the
+    autograd function that recomputes each chunk in its backward) against
+    the one-chunk path on the card: loss within 1e-5, every gradient leaf
+    within 1e-4 relative L2 (a leaf zero but for rounding by 1e-6 of the
+    whole gradient's norm); rotating the positions moves no output."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import graphs as G
+    from repro_torch.models.gnn import equiformer_v2 as eq
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import leaves
+
+    cfg = ARCHS["equiformer-v2"].smoke_cfg
+    params = eq.init(cfg, torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    g = G.molecule_batch(8, 30, 64, seed=5).to(cuda)
+    runs = [value_and_grad(lambda p, b, c=c: eq.loss_fn(dataclasses.replace(cfg, edge_chunks=c),
+                                                        p, b), params, g) for c in (1, 3)]
+    np.testing.assert_allclose(float(runs[1][0]), float(runs[0][0]), rtol=1e-5)
+    total = float(torch.sqrt(sum((b ** 2).sum() for _, b in leaves(runs[0][1]))))
+    for (path, a), (_, b) in zip(leaves(runs[1][1]), leaves(runs[0][1])):
+        err = float((a - b).norm())
+        assert err <= 1e-4 * float(b.norm()) or err <= 1e-6 * total, path
+    c, s = np.cos(0.7), np.sin(0.7)
+    rot = torch.tensor([[c, 0, s], [0, 1, 0], [-s, 0, c]], dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        a = eq.forward(cfg, params, g)
+        b = eq.forward(cfg, params, g._replace(positions=g.positions @ rot.T))
+    torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)

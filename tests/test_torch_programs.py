@@ -1,12 +1,13 @@
 """The arch registry and the program builder of ``repro_torch`` against
 the JAX package's ``repro.configs`` / ``repro.launch.programs``:
 
-* every registered arch (``k2triples``, the five LM archs and
-  ``xdeepfm``) field by field (cfg, smoke cfg, shapes with their dims,
-  rules and skips, optimizer, parameter dtype, source), ``all_cells()``
-  against the JAX one restricted to the ported families, and ``build``'s
-  refusals (the GNN archs; a batch that does not split over the data
-  slices) beside the mesh programs it builds (``train_4k`` included);
+* every registered arch (``k2triples``, the five LM archs, the four GNN
+  archs and ``xdeepfm``: all of the JAX registry) field by field (cfg,
+  smoke cfg, shapes with their dims, rules and skips, optimizer, parameter
+  dtype, source), ``all_cells()`` against the JAX one, and ``build``'s
+  refusals (a GNN program on a mesh of several devices; a batch that does
+  not split over the data slices) beside the mesh programs it builds
+  (``train_4k`` included);
 * ``build_engine``'s meta-device ``in_specs`` against the JAX
   ``ShapeDtypeStruct``s (uint32 as int32) for both shapes, smoke and
   full, on (1, 1) and (2, 4) meshes, and ``model_flops``; the same for
@@ -48,7 +49,7 @@ SHAPES = ("serve_64k", "unbounded_4k")
 LM_ARCHS = ("command-r-plus-104b", "tinyllama-1.1b", "gemma2-27b", "kimi-k2-1t-a32b",
             "olmoe-1b-7b")
 LM_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
-PORTED = ("engine", "lm", "recsys")
+PORTED = ("engine", "lm", "gnn", "recsys")
 MESHES = ((1, 1), (2, 4))
 
 
@@ -70,7 +71,8 @@ def _same_fields(got, want):
 
 
 def test_registry_like_jax():
-    assert set(ARCHS) == {"k2triples", "xdeepfm", *LM_ARCHS}
+    assert set(ARCHS) == {"k2triples", "xdeepfm", *LM_ARCHS, "mace", "graphcast", "egnn",
+                          "equiformer-v2"} == set(JARCHS)
     assert list(ARCHS) == [a for a in JARCHS if JARCHS[a].family in PORTED]  # JAX's order
     for arch_id, spec in ARCHS.items():
         jspec = JARCHS[arch_id]
@@ -107,11 +109,16 @@ def test_registry_like_jax():
 
 def test_build_refuses_an_unported_family(monkeypatch):
     mesh = _mesh((1, 1))
-    refused = [a for a, jspec in JARCHS.items() if jspec.family not in PORTED]
-    assert refused and all(JARCHS[a].family == "gnn" for a in refused)
-    for arch_id in refused:  # the GNN archs: the next slice
-        with pytest.raises(KeyError, match="Queue 1 item 3, the next slice"):
-            programs.build(arch_id, JARCHS[arch_id].shapes[0].shape_id, mesh)
+    assert all(jspec.family in PORTED for jspec in JARCHS.values())  # no family left unported
+    gnn = [a for a, jspec in JARCHS.items() if jspec.family == "gnn"]
+    assert gnn == ["mace", "graphcast", "egnn", "equiformer-v2"]
+    for arch_id in gnn:  # one device only: a mesh of several is the next item
+        shape = JARCHS[arch_id].shapes[0].shape_id
+        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3b"):
+            programs.build(arch_id, shape, _mesh((1, 2)), smoke=True)
+        assert programs.build(arch_id, shape, mesh, smoke=True).mesh is None
+    with pytest.raises(KeyError):
+        programs.build("gcn-cora", "full_graph_sm", mesh)
     for arch_id in LM_ARCHS:  # a mesh of several devices: every program, train_4k too
         for shape in ("train_4k", "decode_32k"):
             prog = programs.build(arch_id, shape, _mesh((1, 2)), smoke=True)

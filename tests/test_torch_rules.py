@@ -159,17 +159,20 @@ def test_fixed_layout_wrapper_checks_inputs_and_runs_plain_on_cpu():
 
 
 def test_dist_and_mesh_programs_are_covered(monkeypatch):
-    """``dist/``, the mesh programs, the training modules and the recsys
-    model are port files (the import scan above covers them); they read no
-    environment, and a mesh's devices, not a default card, decide where
-    they run: a mesh of ``cpu`` needs no card (serving, an LM training step
-    and a recsys training step)."""
+    """``dist/``, the mesh programs, the training modules, the recsys model
+    and the GNN family are port files (the import scan above covers them);
+    they read no environment, and a mesh's devices, not a default card,
+    decide where they run: a mesh of ``cpu`` needs no card (serving, an LM
+    training step, a recsys and a GNN training step)."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     mine = [f"src/repro_torch/dist/{n}.py" for n in ("__init__", "sharding", "collectives",
                                                      "compress")]
     mine += [f"src/repro_torch/{n}.py" for n in (
         "models/transformer_mesh", "models/recsys/xdeepfm", "models/gnn/common", "data/recsys",
-        "tree", "train/optim", "train/trainer", "train/checkpoint", "launch/train")]
+        "tree", "train/optim", "train/trainer", "train/checkpoint", "launch/train",
+        "data/graphs", "models/gnn/so3", "models/gnn/egnn", "models/gnn/graphcast",
+        "models/gnn/mace", "models/gnn/equiformer_v2", "configs/mace", "configs/graphcast",
+        "configs/egnn", "configs/equiformer_v2")]
     for f in mine:
         assert f in names, f
         assert "environ" not in (ROOT / f).read_text(), f
@@ -191,3 +194,8 @@ def test_dist_and_mesh_programs_are_covered(monkeypatch):
     assert rec.fn(*programs.recsys_inputs(rec, "cpu", batch=8))[2]["loss"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA card"):  # lm_inputs still defaults to cuda
         programs.lm_inputs(prog)
+    gnn = programs.build("egnn", "molecule", meshlib.make_mesh((1, 1), ("data", "model"), ["cpu"]),
+                         smoke=True)
+    assert gnn.fn(*programs.gnn_inputs(gnn, "cpu"))[2]["loss"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA card"):  # and gnn_inputs
+        programs.gnn_inputs(gnn)

@@ -297,8 +297,8 @@ def test_train_driver_smoke_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from step 3" in out and "done: 3 steps" in out
     assert ARCHS["kimi-k2-1t-a32b"].optimizer == "adafactor"
-    for arch in ("k2triples", "gcn-cora", "mace"):
-        with pytest.raises(SystemExit, match="family 'engine'|Queue 1 item 3"):
+    for arch in ("k2triples", "gcn-cora"):  # the GNN archs train: test_torch_gnn_programs.py
+        with pytest.raises(SystemExit, match="family 'engine'|is not registered"):
             train_driver.main(["--arch", arch, "--device", "cpu"])
 
 
