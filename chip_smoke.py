@@ -204,7 +204,7 @@ Phases (any failure exits non-zero before the result line):
    shapes (B 1, S 4,096, H 32 / Kv 4, dh 64, causal) against a float64
    dense softmax's autograd on the card (relative L2 1e-2);
    12b. ``tinyllama-1.1b:train_4k`` at full width (22 layers, f32 AdamW),
-   the batch cut to B 8 x S 4,096: 4 steps on one ``TokenStream`` batch,
+   the batch cut to B 8 x S 4,096: 3 steps on one ``TokenStream`` batch,
    the last loss below the first;
    12c. ``olmoe-1b-7b:train_4k`` at full width, depth cut to 4 of 16
    layers, the batch to B 4 x S 2,048: 4 steps on one batch, the
@@ -255,10 +255,27 @@ Phases (any failure exits non-zero before the result line):
    ``minibatch_lg``, also at a second graph scale for ``ogb_products``),
    "uncut" or its cut with the reason (memory: depth for ``minibatch_lg``,
    the graph's scale for ``ogb_products``; then the script's time, a step
-   within 4 s), ms a step (median of steps 2-3), nodes and edges a second,
+   within 2.5 s), ms a step (median of steps 2-3), nodes and edges a second,
    peak memory, the loss and a bound (``gnn_bound``: model flops at the
    products' dtype's rate), and one profiled ``minibatch_lg`` step an
-   arch (idle share, top kernels).
+   arch (idle share, top kernels);
+   15c. the GNN programs on meshes of the card (node and edge arrays over
+   the data axes, the halo gather and the summed scatter of
+   ``dist/collectives.py``): each arch's smoke program on (1, 4), (2, 2)
+   and (2, 4) against the card's (1, 1) step and the same mesh on the CPU
+   (15a's bounds); each arch's ``minibatch_lg`` cell at full width on
+   (2, 2) (EquiformerV2 at 1 layer), ms a step beside 15b's (1, 1)
+   and the bytes its halo gathers and summed scatters move a step.
+16. the dry run (``launch/dryrun.py``) on the card's host of the cells
+   measured above at the same shapes (10b ``serve_64k`` (1, 1), 12b, 14d
+   ``train_batch`` (1, 1), the four 15b ``minibatch_lg`` cells), on
+   ``meta`` copies of their inputs: flops by dtype, bytes, the three H100
+   SXM roofline terms (``launch/roofline.py``, analytic bounds) and the
+   peak estimate beside the measured ms and ``max_memory_allocated``;
+   fails unless each estimate lies within 0.5x-2x of the measured
+   footprint.
+17. the four ``examples/torch_*.py`` on the card at small sizes, side by
+   side as processes: each must exit 0.
    Then the ``{"kernels": [...]}`` line (``launches_by_path`` gains
    ``dynamic``, phase 8's launches, ``sharded``, those of 9a's and 9b's
    mesh runs, ``functional``, those of 9c, ``tree``, those of 10a,
@@ -283,13 +300,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.launch import roofline  # noqa: E402  (the H100 peaks' one home)
+
 GEONAMES_TRIPLES = 9_415_253
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth; the 67 TFLOP/s fp32 non-tensor
-# rate stands in as the peak of 32-bit integer ALU operations; the dense
-# bf16 tensor-core rate bounds a bf16 product
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-PEAK_BF16_FLOPS = 989e12
+# NVIDIA H100 SXM data sheet (``roofline.py``): HBM3 bandwidth; 67 T/s of
+# 32-bit integer ALU operations; the 67 TFLOP/s f32 non-tensor rate; the
+# dense bf16 tensor-core rate bounds a bf16 product
+PEAK_BYTES_PER_S = roofline.HBM_BW
+PEAK_OPS_PER_S = roofline.PEAK_INT32
+PEAK_F32_FLOPS = roofline.PEAK_F32
+PEAK_BF16_FLOPS = roofline.PEAK_BF16
 # 32-bit operations a traversal needs per child bit it tests: the bit's
 # position, the word shift, the mask and the compaction's prefix-sum add
 OPS_PER_CANDIDATE = 4
@@ -1500,8 +1520,7 @@ def bound(name, args, kw, out) -> tuple[float, str, int, int]:
         (m, k), d, elt = a.shape, x.shape[1], a.element_size()
         nbytes = n_on * bm * bk * elt + k * d * elt + m * d * 4 + 4 * mask.numel()
         ops_ = 2 * n_on * bm * bk * d
-        if a.dtype != torch.float32:
-            peak = PEAK_BF16_FLOPS
+        peak = PEAK_F32_FLOPS if a.dtype == torch.float32 else PEAK_BF16_FLOPS
     elif name == "k2_scan":
         q, cap = out[0].shape
         arena, cand = _scan_work(meta_or_pmeta, out[0], out[1])
@@ -1539,9 +1558,7 @@ def bound(name, args, kw, out) -> tuple[float, str, int, int]:
         q, cap = out[0].shape
         nbytes = 4 * q + 5 * q * cap + 5 * q + 8 * q + count.sum() * (1 + 4 * (pm.levels - 1))
         ops_ = 10 * q * cap + 10 * count.sum() * pm.levels
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops_ / peak
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            int(nbytes), int(ops_))
+    return (*roofline.bound_ms(nbytes, ops_, peak), int(nbytes), int(ops_))
 
 
 def path_ms(name, *recorders) -> dict:
@@ -1820,7 +1837,7 @@ def entry_point_phase(store, ds, intersects, device, seed: int, err: dict) -> li
             shapes={t.pop("label"): t for t in by_kernel[name]},
         ))
     print(f"block_spmm worst ratio {worst[0]:.4f} of its bound, {worst[1]:.4f} of its "
-          f"statistical limit; peaks: f32 {PEAK_OPS_PER_S:.3g} FLOP/s "
+          f"statistical limit; peaks: f32 {PEAK_F32_FLOPS:.3g} FLOP/s "
           f"(FMA), bf16 {PEAK_BF16_FLOPS:.3g} FLOP/s (dense tensor core)", flush=True)
     return rows
 
@@ -3039,6 +3056,10 @@ def serve_10b(store, ds, oracle, device, seed: int, tally: Tally, rec) -> dict:
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated(device)
+    note_dry("10b k2triples:serve_64k (1, 1)",
+             lambda m: programs.build("k2triples", "serve_64k", m).fn, args,
+             float(np.median([1e3 * x for x in secs[1:]])), peak, base, args_in_base=True,
+             mesh_shape=(1, 1))
     before = dict(tally.counts)
     with tally:
         prog.fn(*args)
@@ -3289,9 +3310,7 @@ def lm_bound(cfg, elt: int, *, B: int, S: int, ctx: int, kept: int = 0,
         pairs = B * ctx
         nbytes += 8 * B + kv * B * ctx + kv * B + 4 * B * V
     flops = 2 * rows * L * (attn + ffn) + 2 * expert * kept + 4 * H * dh * L * pairs + 2 * B * D * V
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            int(nbytes), int(flops))
+    return (*roofline.bound_ms(nbytes, flops, PEAK_BF16_FLOPS), int(nbytes), int(flops))
 
 
 def _allclose(got, want, tol: float, what: str) -> float:
@@ -3835,7 +3854,7 @@ def lm_phase(device, seed: int) -> dict:
 TRAIN_SMOKE_STEPS = 3  # 12a: train_4k smoke programs (B 2 x S 64), card against the CPU
 FLASH_SHAPE = (1, 4096, 32, 4, 64)  # 12a: B, S, H, Kv, dh of tinyllama's attention
 DENSE_TRAIN = (8, 4096)  # 12b: train_4k cut from 256 x 4,096
-DENSE_TRAIN_STEPS = 4  # cut from 6 for the script's 1,200 s
+DENSE_TRAIN_STEPS = 3  # cut from 6, then 4, for the script's time
 MOE_TRAIN = (4, 2048)  # 12c: train_4k cut from 256 x 4,096
 MOE_TRAIN_LAYERS = 4  # 12c: olmoe's depth cut from 16 (AdamW state of 16 layers: ~110 GB)
 MOE_TRAIN_STEPS = 4
@@ -3874,9 +3893,7 @@ def train_bound(cfg, elt: int, state_bytes: int, *, B: int, S: int,
              if cfg.moe else 6 * tokens * (L * (attn + ffn) + D * V))
     flops += 12 * H * dh * L * pairs
     nbytes = 4 * cfg.n_params * elt + 2 * state_bytes + 8 * tokens
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            int(nbytes), int(flops))
+    return (*roofline.bound_ms(nbytes, flops, PEAK_BF16_FLOPS), int(nbytes), int(flops))
 
 
 def _distinct(t) -> list:
@@ -4020,12 +4037,13 @@ def smoke_12a(device, seed: int) -> dict:
     return out
 
 
-def _train_run(prog, device, seed: int, B: int, S: int, steps: int, on_first=None) -> dict:
+def _train_run(prog, device, seed: int, B: int, S: int, steps: int, on_first=None,
+               note: str | None = None) -> dict:
     """``steps`` steps of a train program on one ``lm_inputs`` batch of B x
     S (the same batch each step, so a falling loss is the optimizer's
     descent and not the spread between batches), then one profiled step:
     the losses, step ms, peak memory; ``on_first(state)`` after the first
-    step goes to ``first``."""
+    step goes to ``first``; ``note``: kept for phase 16 under that label."""
     import numpy as np
     import torch
 
@@ -4044,8 +4062,10 @@ def _train_run(prog, device, seed: int, B: int, S: int, steps: int, on_first=Non
         if step == 0 and on_first is not None:
             first = on_first(state)
     peak = torch.cuda.max_memory_allocated(device)
-    prof = _profiled(lambda: prog.fn(params, state, batch))
     median = float(np.median([h["ms"] for h in hist[1:]]))
+    if note is not None:
+        note_dry(note, prog.fn, (params, state, batch), median, peak, base, args_in_base=False)
+    prof = _profiled(lambda: prog.fn(params, state, batch))
     return dict(B=B, S=S, hist=hist, median_ms=median, tokens_per_s=B * S / (median / 1e3),
                 peak=peak, base=base, resident=resident, prof=prof, first=first,
                 elt=_distinct(params["embed"])[0].element_size(), state_bytes=_tree_bytes(state))
@@ -4059,7 +4079,8 @@ def dense_12b(device, seed: int) -> dict:
 
     prog = programs.build("tinyllama-1.1b", "train_4k")
     B, S = DENSE_TRAIN
-    r = _train_run(prog, device, seed, B, S, DENSE_TRAIN_STEPS)
+    r = _train_run(prog, device, seed, B, S, DENSE_TRAIN_STEPS,
+                   note=f"12b tinyllama-1.1b:train_4k B {B} x S {S}")
     if not r["hist"][-1]["loss"] < r["hist"][0]["loss"]:
         fail(f"12b: the loss did not fall over {DENSE_TRAIN_STEPS} steps: "
              f"{[h['loss'] for h in r['hist']]}")
@@ -4501,7 +4522,7 @@ MESH_STEP_TOL_OF = {"gemma2-27b": {"cpu": STEP_TOL_OF["gemma2-27b"],
 MESH_LATER_TOL = {"cpu": LATER_TOL, "distinct": dict(LATER_TOL, grad_norm=1.0),
                   "layout": dict(loss=5e-2, grad_norm=0.5)}
 DENSE_MESH = (1, 4)  # 14b, 14c
-DENSE_MESH_STEPS = 3  # 14b: on 12b's B 8 x S 4,096 batch
+DENSE_MESH_STEPS = 2  # 14b: on 12b's B 8 x S 4,096 batch (3 before phases 15c-17)
 MOE_MESH_STEPS = 3  # 14c: on 12c's B 4 x S 2,048 batch, 12c's depth cut
 RECSYS_MESH = (1, 4)  # 14d
 RECSYS_STEPS = 3
@@ -4698,8 +4719,7 @@ def recsys_bound(cfg, kind: str, rows: int) -> tuple[float, str]:
         nbytes = rows * F * (4 * D + 4 + 4) + 4 * dense + 4 * rows
         if kind == "train":
             nbytes += 4 * cfg.n_params * 2 * 3  # parameters and both moments, read and written
-    t_ops, t_bytes = flops / PEAK_OPS_PER_S, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return roofline.bound_ms(nbytes, flops, PEAK_F32_FLOPS)
 
 
 def _rel(a, b) -> float:
@@ -4764,6 +4784,9 @@ def recsys_14d(device, seed: int) -> dict:
                          f"{[h['loss'] for h in hist]}")
                 rows = prog.in_specs[2]["ids"].shape[0]
                 median = float(np.median([h["ms"] for h in hist[1:]]))
+                if mshape == (1, 1):
+                    note_dry("14d xdeepfm:train_batch (1, 1)", prog.fn, args, median,
+                             torch.cuda.max_memory_allocated(device), base, args_in_base=False)
                 r.update(hist=hist, median_ms=median, rows_per_s=rows / median * 1e3,
                          output=torch.tensor(hist[0]["loss"]))
                 kind = "train"
@@ -4914,6 +4937,65 @@ def train_mesh_phase(device, seed: int, dense_12b=None) -> dict:
 # phase 15: the GNN family on one card
 # ---------------------------------------------------------------------------
 
+# phase 16: the cells measured on the card whose dry run phase 16 holds against them
+DRY_CELLS: dict = {}
+# phase 16: a dry run's peak estimate within this factor of the measured footprint
+DRY_PEAK_RANGE = (0.5, 2.0)
+
+
+def _meta_like(x, memo=None, meta_mesh=None):
+    """``x`` with every tensor as a ``meta`` tensor of its shape, dtype and
+    strides, tensors that share a storage sharing one of its size; a
+    ``Sharded`` value laid out on ``meta_mesh`` (a mesh of ``meta`` devices
+    of its mesh's shape)."""
+    import torch
+
+    from repro_torch.dist.sharding import Sharded
+
+    import dataclasses
+
+    memo = {} if memo is None else memo
+    if isinstance(x, torch.Tensor):
+        s = x.untyped_storage()
+        if s._cdata not in memo:
+            memo[s._cdata] = torch.empty(s.nbytes(), dtype=torch.uint8, device="meta")
+        base = memo[s._cdata]
+        flat = base if x.dtype == torch.uint8 else base[: s.nbytes() - s.nbytes()
+                                                        % x.element_size()].view(x.dtype)
+        return flat.as_strided(x.shape, x.stride(), x.storage_offset())
+    if isinstance(x, Sharded):
+        return Sharded(tuple(_meta_like(t, memo) for t in x.parts), meta_mesh, x.spec)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):  # a K2Forest
+        return dataclasses.replace(x, **{f.name: _meta_like(getattr(x, f.name), memo, meta_mesh)
+                                         for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, dict):
+        return {k: _meta_like(v, memo, meta_mesh) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_meta_like(v, memo, meta_mesh) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_meta_like(v, memo, meta_mesh) for v in x)
+    return x
+
+
+def note_dry(label: str, fn, args, ms: float, peak: int, base: int, *, args_in_base: bool,
+             mesh_shape=None) -> None:
+    """Keep a cell measured on the card for phase 16: ``fn`` (built on a
+    mesh of ``meta`` devices of ``mesh_shape`` when given, ``fn(mesh)``),
+    ``meta`` copies of its arguments, its step ms and its memory:
+    ``peak`` (``max_memory_allocated``) and ``base``, the bytes allocated
+    before its inputs, or after them (``args_in_base``: its footprint then
+    adds its arguments' bytes)."""
+    from repro_torch.launch import dryrun
+
+    meta_mesh = None
+    if mesh_shape is not None:
+        meta_mesh = dryrun.meta_mesh(mesh_shape)
+        fn = fn(meta_mesh)
+    footprint = peak - base + (dryrun.storage_bytes(args) if args_in_base else 0)
+    DRY_CELLS[label] = dict(fn=fn, args=_meta_like(args, meta_mesh=meta_mesh), ms=ms,
+                            peak=peak, base=base, footprint=footprint)
+
+
 GNN_ARCHS = ("mace", "graphcast", "egnn", "equiformer-v2")
 GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
 # 15a, a smoke step on the card against the CPU: the card's segment sums add with atomics
@@ -4933,7 +5015,7 @@ GNN_MEMORY = 0.85
 GNN_PROBES = {"layers": ((1, 1.0), (2, 1.0)),
               "scale": ((1, 1 / 256), (2, 1 / 256), (1, 1 / 128))}
 # 15b: a cut cell's size also keeps its predicted step within this (the script's time limit)
-GNN_STEP_MS = 4000
+GNN_STEP_MS = 2500  # 4,000 before phases 15c-17
 GNN_EST_KINDS = {"full_graph_sm": None, "molecule": None, "minibatch_lg": "layers",
                  "ogb_products": "scale"}
 
@@ -4942,7 +5024,7 @@ def gnn_bound(flops: float, bf16: bool) -> tuple[float, str]:
     """Least time of a GNN training step: its model flops
     (``programs.gnn_flops``) at the card's rate for the products' dtype,
     989 TFLOP/s bf16 (GraphCast's processor) or 67 TFLOP/s f32."""
-    peak = PEAK_BF16_FLOPS if bf16 else PEAK_OPS_PER_S
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     return flops / peak * 1e3, "operations, bf16" if bf16 else "operations, f32"
 
 
@@ -5022,11 +5104,12 @@ def gnn_smoke_15a(device, seed: int) -> dict:
 
 
 def _gnn_run(prog, device, seed: int, graph=None, steps: int = GNN_STEPS,
-             profile: bool = False) -> dict:
+             profile: bool = False, note: str | None = None) -> dict:
     """``steps`` AdamW steps of a GNN program on one ``gnn_inputs`` batch
     from ``graph``: losses, step ms, the batch's nodes and edges (and the
     real ones: its masks), peak device memory; with ``profile`` one more
-    step under the profiler."""
+    step under the profiler; ``note``: kept for phase 16 under that
+    label."""
     import numpy as np
     import torch
 
@@ -5043,9 +5126,11 @@ def _gnn_run(prog, device, seed: int, graph=None, steps: int = GNN_STEPS,
             fail(f"{prog.name}: step {step + 1} gave loss {hist[-1]['loss']}, grad_norm "
                  f"{hist[-1]['grad_norm']}")
     peak = torch.cuda.max_memory_allocated(device)
+    median = float(np.median([h["ms"] for h in hist[1:]])) if steps > 1 else hist[0]["ms"]
+    if note is not None:
+        note_dry(note, prog.fn, (params, state, b), median, peak, base, args_in_base=False)
     prof = _profiled(lambda: prog.fn(params, state, b)) if profile else None
     n, e = b.node_feat.shape[0], b.edge_src.shape[0]
-    median = float(np.median([h["ms"] for h in hist[1:]])) if steps > 1 else hist[0]["ms"]
     return dict(hist=hist, median_ms=median, peak=peak, base=base, resident=resident, prof=prof,
                 n=n, e=e, real_n=int(b.node_mask.sum()), real_e=int(b.edge_mask.sum()),
                 nodes_per_s=n / median * 1e3, edges_per_s=e / median * 1e3)
@@ -5153,7 +5238,8 @@ def _gnn_cell(arch: str, shape: str, device, seed: int, graph, free: int) -> dic
     for attempt in range(4):
         try:
             p, g_ = at(L, s)
-            r = _gnn_run(p, device, seed, g_, profile=shape == "minibatch_lg")
+            r = _gnn_run(p, device, seed, g_, profile=shape == "minibatch_lg",
+                         note=f"15b {arch}:{shape}" if shape == "minibatch_lg" else None)
             break
         except torch.cuda.OutOfMemoryError:
             if kind is None or attempt == 3:
@@ -5170,10 +5256,11 @@ def _gnn_cell(arch: str, shape: str, device, seed: int, graph, free: int) -> dic
     return r
 
 
-def gnn_full_15b(device, seed: int, card: str) -> list:
+def gnn_full_15b(device, seed: int, card: str) -> tuple[list, object]:
     """Every arch x shape at the full config (16 cells), each shape's host
     graph built once and shared by the four archs (``ogb_products``' cut
-    graphs are each arch's own); prints each cell."""
+    graphs are each arch's own); prints each cell.  -> the rows and the
+    ``minibatch_lg`` host graph (15c samples it again)."""
     import torch
 
     from repro_torch.launch import programs
@@ -5211,9 +5298,181 @@ def gnn_full_15b(device, seed: int, card: str) -> list:
             if r["prof"] is not None:
                 print(_prof_line(f"15b {arch}:{shape} a step", r["prof"]), flush=True)
             rows.append(r)
-        if shape == "minibatch_lg":
-            del graphs[shape]  # ~1.5 GB on the host
-    return rows
+    return rows, graphs["minibatch_lg"]
+
+
+# 15c: the smoke programs on meshes of the card, each against the card's (1, 1) step and
+# the same mesh on the CPU (one cell an arch, the CPU tests' first shapes)
+GNN_MESHES = ((1, 4), (2, 2), (2, 4))
+GNN_MESH_CELLS = (("egnn", "minibatch_lg"), ("graphcast", "full_graph_sm"),
+                  ("mace", "molecule"), ("equiformer-v2", "ogb_products"))
+GNN_MESH_FULL = (2, 2)  # 15c: each arch's minibatch_lg cell at full width on this mesh
+# 15c: depth cuts on GNN_MESH_FULL: one EquiformerV2 layer's recompute peaks at ~60 GB on one
+# card (15b's probe) and the mesh adds a whole-graph copy of the states and their gradient
+# (one layer on (2, 2) peaked at 70.1 GB; two or three ran out of memory, my chip runs 1-3)
+GNN_MESH_DEPTH = {"equiformer-v2": 1}
+
+
+def gnn_mesh_15c(device, seed: int, rows: list, graph, card: str) -> dict:
+    """15c: each arch's smoke program on ``GNN_MESHES`` meshes of the card
+    against the card's (1, 1) step and against the mesh on the CPU, from
+    the same inputs, by 15a's bounds; then each arch's ``minibatch_lg``
+    cell at full width on ``GNN_MESH_FULL`` (at 15b's depth, or
+    ``GNN_MESH_DEPTH``'s), ``GNN_STEPS`` steps,
+    its ms a step beside 15b's (1, 1) and the bytes its halo gathers and
+    summed scatters move a step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.dist import collectives as col
+    from repro_torch.launch import programs
+    from repro_torch.tree import leaves, tree_map
+
+    cpu = torch.device("cpu")
+    out = {"smoke": {}, "full": {}}
+    for arch, shape in GNN_MESH_CELLS:
+        tol = GNN_SMOKE_TOL_OF.get(arch, GNN_SMOKE_TOL)
+        host = programs.build(arch, shape, _mesh_of(cpu, (1, 1)), smoke=True)
+        params, state, batch = programs.gnn_inputs(host, cpu, seed=seed)
+
+        def step(dev, mshape):
+            prog = programs.build(arch, shape, _mesh_of(dev, mshape), smoke=True)
+            p, st = (tree_map(lambda t: t.to(dev, copy=True), x) for x in (params, state))
+            b = batch.to(dev)
+            if prog.mesh is not None:
+                n, e = programs._gnn_padded(prog.mesh, b.node_feat.shape[0], b.edge_src.shape[0])
+                p, st, b = programs.gnn_place_on(prog.mesh, prog.in_shardings,
+                                                 (p, st, programs.gnn_pad(b, n, e)))
+            new, _, m = prog.fn(p, st, b)
+            return m, tree_map(lambda t: t.unshard(cpu) if hasattr(t, "unshard") else t.cpu(),
+                               new)
+
+        one, one_p = step(device, (1, 1))
+        for mshape in GNN_MESHES:
+            got, got_p = step(device, mshape)
+            on_cpu, cpu_p = step(cpu, mshape)
+            errs = {"(1, 1)": _gnn_step_errs(got, one, got_p, one_p),
+                    "cpu": _gnn_step_errs(got, on_cpu, got_p, cpu_p)}
+            for against, e in errs.items():
+                if not (e["loss"] <= tol["loss"] and e["grad_norm"] <= tol["grad_norm"]
+                        and e["params_lr"] <= 2.02):
+                    fail(f"15c {arch}:{shape} on {mshape} against {against}: {e} (tol {tol}, "
+                         f"parameters 2.02 lr)")
+            out["smoke"][arch, mshape] = errs
+            print(f"15c {arch}:{shape} smoke on {mshape}: against the card's (1, 1) step "
+                  f"{ {k: float(f'{v:.3g}') for k, v in errs['(1, 1)'].items()} }, against the "
+                  f"mesh on the CPU { {k: float(f'{v:.3g}') for k, v in errs['cpu'].items()} } "
+                  f"(tol {tol}, parameters 2.02 lr)", flush=True)
+
+    single = {r["arch"]: r for r in rows if r["shape"] == "minibatch_lg"}
+    for arch in GNN_ARCHS:
+        spec = ARCHS[arch]
+        L = GNN_MESH_DEPTH.get(arch, single[arch]["cfg"].n_layers)
+        note = "" if L == spec.cfg.n_layers else f", depth cut to {L} of {spec.cfg.n_layers}"
+        cut = dataclasses.replace(spec, cfg=dataclasses.replace(spec.cfg, n_layers=L))
+        prog = programs.build_gnn(cut, spec.shape("minibatch_lg"), _mesh_of(device, GNN_MESH_FULL))
+        base = _peak_reset(device)
+        params, state, b = programs.gnn_inputs(prog, device, seed=seed, graph=graph)
+        hist, wire = [], []
+        for _ in range(GNN_STEPS):
+            col.reset_wire()
+            m, secs = _timed(lambda: prog.fn(params, state, b)[2])
+            wire.append(dict(col.GRAPH_WIRE))
+            hist.append(dict(loss=float(m["loss"]), ms=secs * 1e3))
+        peak = torch.cuda.max_memory_allocated(device)
+        if not all(np.isfinite([h["loss"] for h in hist])):
+            fail(f"15c {arch}:minibatch_lg on {GNN_MESH_FULL}: losses {hist}")
+        median = float(np.median([h["ms"] for h in hist[1:]]))
+        r = dict(median_ms=median, single_ms=single[arch]["median_ms"], wire=wire[-1],
+                 peak=peak, base=base, layers=L)
+        out["full"][arch] = r
+        del params, state, b
+        gc.collect()  # what the mesh step left in reference cycles
+        print(f"15c {arch}:minibatch_lg at full width on {GNN_MESH_FULL}{note}: "
+              f"{prog.in_specs[2].node_feat.shape[0]} nodes x "
+              f"{prog.in_specs[2].edge_src.shape[0]} edges, losses "
+              f"{[round(h['loss'], 4) for h in hist]}, step ms {[round(h['ms'], 2) for h in hist]}, "
+              f"median of steps 2-{GNN_STEPS} {median:.3f} ms against 15b's (1, 1) "
+              f"{single[arch]['median_ms']:.3f} ms ({single[arch]['cfg'].n_layers} layers); a step's "
+              f"halo {wire[-1]['halo']:.6g} bytes, summed scatter {wire[-1]['scatter']:.6g} bytes "
+              f"(ring bytes over the mesh's positions, both directions); peak device memory "
+              f"{peak} bytes ({base} before); {card}", flush=True)
+    return out
+
+
+def dryrun_phase(card: str) -> dict:
+    """Phase 16: the dry run (``launch/dryrun.py``) of each cell kept by
+    ``note_dry``, on ``meta`` copies of the inputs it was measured on:
+    flops (by dtype), bytes, the collectives' wire bytes, the three H100
+    roofline terms and the peak estimate, beside the measured ms and
+    memory; fails unless each estimate lies within ``DRY_PEAK_RANGE`` of
+    the measured footprint (``max_memory_allocated`` less the bytes held
+    before the cell's inputs)."""
+    from repro_torch.launch import dryrun, roofline
+
+    out = {}
+    for label, c in DRY_CELLS.items():
+        t0 = time.perf_counter()
+        got = dryrun.measure(c["fn"], c["args"])
+        r = roofline.analyze(label, "1x1", 1, got["cost"], got["wire"], 0.0, got["peak"])
+        ratio = got["peak"] / c["footprint"]
+        out[label] = dict(r.to_dict(), ratio=ratio, ms=c["ms"])
+        print(f"16 {label}: {got['cost'].flops:.6g} flops (bf16 products "
+              f"{got['cost'].flops_bf16:.6g}, f32 products {got['cost'].flops_f32:.6g}, other "
+              f"{got['cost'].flops_other:.6g}), {got['cost'].bytes_naive:.6g} bytes; analytic H100 "
+              f"SXM bounds: compute {r.t_compute * 1e3:.4f} ms, memory {r.t_memory * 1e3:.4f} ms, "
+              f"collective {r.t_collective * 1e3:.4f} ms ({r.bottleneck}); peak estimate "
+              f"{got['peak']} bytes against the measured footprint {c['footprint']} bytes "
+              f"(max_memory_allocated {c['peak']}, {c['base']} before; ratio {ratio:.3f}); "
+              f"measured {c['ms']:.3f} ms a step; dry run {time.perf_counter() - t0:.1f}s; {card}",
+              flush=True)
+        lo, hi = DRY_PEAK_RANGE
+        if not lo <= ratio <= hi:
+            fail(f"16 {label}: the peak estimate {got['peak']} bytes is {ratio:.3f} x the measured "
+                 f"{c['footprint']} (want {lo}-{hi})")
+    for name in ("10b", "12b", "14d", "15b"):
+        if not any(k.startswith(name) for k in out):
+            fail(f"16: no {name} cell was measured")
+    return out
+
+
+# phase 17: the examples on the card, each a process of its own (small sizes)
+EXAMPLES = {
+    "torch_quickstart": [],
+    "torch_serve_sparql": ["--fast"],
+    "torch_train_lm": ["--steps", "20", "--ckpt-dir", "build/examples/torch_train_lm"],
+    "torch_gnn_molecules": ["--steps", "20", "--ckpt-dir", "build/examples/torch_gnn_molecules"],
+}
+
+
+def examples_phase(card: str) -> dict:
+    """Phase 17: the four ``examples/torch_*.py`` on the card at small sizes,
+    run side by side as processes; fails unless each exits 0."""
+    import shutil
+
+    shutil.rmtree(ROOT / "build" / "examples", ignore_errors=True)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(ROOT / "examples" / f"{name}.py"), *argv],
+                                    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+             for name, argv in EXAMPLES.items()}
+    out = {}
+    for name, proc in procs.items():
+        try:
+            so, se = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            so, se = proc.communicate()
+        tail = so.strip().splitlines()[-2:]
+        out[name] = proc.returncode
+        print(f"17 {name} {' '.join(EXAMPLES[name])}: exit {proc.returncode}; {tail}", flush=True)
+        if proc.returncode != 0:
+            fail(f"17 {name} exited {proc.returncode}: {se[-2000:]}")
+    print(f"17 done in {time.perf_counter() - t0:.1f}s; {card}", flush=True)
+    return out
 
 
 def gnn_phase(device, seed: int) -> dict:
@@ -5242,8 +5501,14 @@ def gnn_phase(device, seed: int) -> dict:
 
     phase("15b. the GNN family at full width on one card, every arch x shape")
     t0 = time.perf_counter()
-    gnn_full_15b(device, seed, card)
+    rows, graph = gnn_full_15b(device, seed, card)
     print(f"15b done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    phase("15c. the GNN programs on meshes of the card")
+    t0 = time.perf_counter()
+    gnn_mesh_15c(device, seed, rows, graph, card)
+    del graph  # ~1.5 GB on the host
+    print(f"15c done in {time.perf_counter() - t0:.1f}s", flush=True)
     launched = {k: v - before[k] for k, v in ops.LAUNCHES.items() if v != before[k]}
     if launched:
         fail(f"phase 15 launched kernels of the k²-triples path: {launched}")
@@ -5525,6 +5790,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     gnn = gnn_phase(device, args.seed + 15)
+    phase("16. the dry run of the measured cells on the card's host")
+    t0 = time.perf_counter()
+    dryrun_phase(gpu_line())
+    print(f"16 done in {time.perf_counter() - t0:.1f}s", flush=True)
+    phase("17. the examples on the card")
+    examples_phase(gpu_line())
     for row in rows:
         name = row["name"]
         row["launches_by_path"].update(train=train["launches"][name], lm_mesh=lm_mesh[name],

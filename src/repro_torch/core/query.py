@@ -20,7 +20,9 @@ streaming hook — never grows and leaves the overflow bits to its caller.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Any
 
 import torch
@@ -55,6 +57,26 @@ class StaleEpoch(RuntimeError):
     propagate so the broker can refresh its base plan."""
 
 
+_META = threading.local()
+
+
+@contextlib.contextmanager
+def meta_devices():
+    """Within it, :func:`resolve_device` and the kernel wrappers also take
+    the ``meta`` device (tensors with shapes and no data): the dry run's
+    (``launch/dryrun.py``) and nothing else's."""
+    prev = getattr(_META, "on", False)
+    _META.on = True
+    try:
+        yield
+    finally:
+        _META.on = prev
+
+
+def meta_allowed() -> bool:
+    return getattr(_META, "on", False)
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; CUDA without a card raises.
 
@@ -70,7 +92,7 @@ def resolve_device(device) -> torch.device:
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type != "cpu" and not (dev.type == "meta" and meta_allowed()):
         raise ValueError(f"unsupported device {device!r} (want 'cuda' or 'cpu')")
     return dev
 

@@ -113,7 +113,9 @@ def _ints(values) -> ctypes.Array:
 
 
 def _check_tensors(device: torch.device, *, dtypes=(torch.int32,), **tensors) -> None:
-    if device.type not in ("cuda", "cpu"):
+    from repro_torch.core.query import meta_allowed
+
+    if device.type not in ("cuda", "cpu") and not (device.type == "meta" and meta_allowed()):
         raise ValueError(f"kernels run on a CUDA card or the CPU, not on {device}")
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
@@ -164,6 +166,16 @@ def _forest_args(meta: K2Meta, f):
 def _forest_tensors(f) -> dict:
     return dict(t_words=f.t_words, t_rank=f.t_rank, l_words=f.l_words,
                 ones_before=f.ones_before, level_start=f.level_start)
+
+
+def _on_meta(inputs, outputs):
+    """A wrapper's call on ``meta`` tensors (the dry run): its outputs'
+    static shapes, no launch; its bytes go to any flop count in progress
+    (an opaque kernel, as the reference counts a ``pallas_call``)."""
+    from repro_torch.launch import flopcount
+
+    flopcount.opaque(inputs, outputs)
+    return outputs
 
 
 def _outputs(dev: torch.device, shape: tuple):
@@ -227,6 +239,9 @@ def k2_check(meta: K2Meta, f, preds, rows, cols) -> torch.Tensor:
     _check_tensors(dev, preds=preds, rows=rows, cols=cols, **_forest_tensors(f))
     q = _check_lanes(preds, rows, cols)
     _check_forest(meta, f)
+    if dev.type == "meta":
+        return _on_meta((preds, rows, cols, _forest_tensors(f)),
+                        torch.empty(q, dtype=torch.bool, device=dev))
     if dev.type == "cpu":
         return ref.k2_check_ref(
             meta, f.t_words, f.t_rank, f.l_words, f.ones_before,
@@ -257,6 +272,8 @@ def k2_scan(meta: K2Meta, f, preds, keys, axes, *, cap: int):
     _check_forest(meta, f)
     if cap < 1:
         raise ValueError(f"cap must be >= 1, got {cap}")
+    if dev.type == "meta":
+        return _on_meta((preds, keys, axes, _forest_tensors(f)), _outputs(dev, (q, cap)))
     if dev.type == "cpu":
         return ref.k2_scan_ref(
             meta, f.t_words, f.t_rank, f.l_words, f.ones_before,
@@ -284,6 +301,9 @@ def pred_gather_dac(pmeta, index, rows, *, cap: int):
         raise ValueError(f"cap must be >= 1, got {cap}")
     if pmeta.layout != "dac":
         raise ValueError(f"index layout is {pmeta.layout!r}, not 'dac'")
+    if dev.type == "meta":
+        return _on_meta((rows, index.offsets, index.words, index.degs, index.flags, index.frank),
+                        _outputs(dev, (q, cap)))
     if dev.type == "cpu":
         return ref.pred_gather_dac_ref(
             rows, index.offsets, index.words, index.degs, index.flags,
@@ -322,6 +342,8 @@ def pred_gather(pmeta, index, rows, *, cap: int):
         raise ValueError(f"bytes_per_pred must be 1, 2 or 4, got {pmeta.bytes_per_pred}")
     if index.offsets.dim() != 1 or index.offsets.shape[0] < 2 or index.words.dim() != 1:
         raise ValueError("offsets must be 1-D CSR pointers of >= 2 entries, words 1-D")
+    if dev.type == "meta":
+        return _on_meta((rows, index.offsets, index.words), _outputs(dev, (q, cap)))
     if dev.type == "cpu":
         return ref.pred_gather_ref(
             rows, index.offsets, index.words,
@@ -346,6 +368,10 @@ def k2_range(meta: K2Meta, f, preds, *, cap: int):
     _check_forest(meta, f)
     if cap < 1:
         raise ValueError(f"cap must be >= 1, got {cap}")
+    if dev.type == "meta":
+        return _on_meta((preds, _forest_tensors(f)),
+                        (torch.empty((q, cap), dtype=torch.int32, device=dev),
+                         *_outputs(dev, (q, cap))))
     if dev.type == "cpu":
         return ref.k2_range_ref(
             meta, f.t_words, f.t_rank, f.l_words, f.ones_before,
@@ -378,6 +404,9 @@ def k2_scan_rebind(meta: K2Meta, f, preds1, keys1, axes1, preds2, axes2, *,
     _check_forest(meta, f)
     if cap_x < 1 or cap_y < 1:
         raise ValueError(f"cap_x and cap_y must be >= 1, got {cap_x}, {cap_y}")
+    if dev.type == "meta":
+        return _on_meta((preds1, keys1, axes1, preds2, axes2, _forest_tensors(f)),
+                        _outputs(dev, (q, cap_x)) + _outputs(dev, (q, cap_x, cap_y)))
     if dev.type == "cpu":
         return ref.k2_scan_rebind_ref(
             meta, f.t_words, f.t_rank, f.l_words, f.ones_before,
@@ -416,6 +445,8 @@ def popcount(words) -> torch.Tensor:
         raise ValueError(f"lane dim must be a multiple of {LANES}, got {n}")
     if m % POPCOUNT_ROWS:
         raise ValueError(f"rows {m} not divisible by {POPCOUNT_ROWS}")
+    if dev.type == "meta":
+        return _on_meta(words, torch.empty((m, n), dtype=torch.int32, device=dev))
     if dev.type == "cpu":
         return ref.popcount_ref(words)
     if words.data_ptr() % 16:
@@ -440,6 +471,8 @@ def sorted_intersect_mask(a_ids, b_ids) -> torch.Tensor:
         raise ValueError(f"{ca} A lanes do not split into blocks of {block}")
     if cb < 1:
         raise ValueError("b_ids is empty")
+    if dev.type == "meta":
+        return _on_meta((a_ids, b_ids), torch.empty(ca, dtype=torch.bool, device=dev))
     if dev.type == "cpu":
         return ref.sorted_intersect_mask_ref(a_ids, b_ids)
     out = torch.empty(ca, dtype=torch.bool, device=dev)
@@ -510,6 +543,8 @@ def block_spmm(mask, a, x, *, block_m: int = 128, block_k: int = 128,
                          f"(M, K, D) = ({m}, {k}, {d})")
     if tuple(mask.shape) != (m // block_m, k // block_k):
         raise ValueError(f"mask has shape {tuple(mask.shape)}, want {(m // block_m, k // block_k)}")
+    if dev.type == "meta":
+        return _on_meta((mask, a, x), torch.empty((m, d), dtype=torch.float32, device=dev))
     if dev.type == "cpu":
         return ref.block_spmm_ref(mask, a, x, block_m, block_k)
     if k == 0:

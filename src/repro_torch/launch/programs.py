@@ -30,11 +30,12 @@ shapes and dtypes (uint32 words as int32): nothing is allocated.
   ``ctr_batch``, placed on the program's mesh.
 
 * gnn (EGNN, MACE, GraphCast, EquiformerV2): each graph shape a
-  training step ``fn(params, opt_state, batch)`` of AdamW on one device,
-  the batch a ``GraphBatch``; ``gnn_inputs(program, device)`` makes
-  seeded parameters, state and the shape's graph (a full random graph, a
-  15-10 fanout sample, or batched molecules).  A mesh of several devices
-  is refused (ROADMAP Queue 1 item 3b).
+  training step ``fn(params, opt_state, batch)`` of AdamW, the batch a
+  ``GraphBatch``, on one device or a mesh (the JAX package's layout: node
+  and edge arrays over the data axes, parameters and state replicated;
+  ``models/gnn/common.py``); ``gnn_inputs(program, device)`` makes seeded
+  parameters, state and the shape's graph (a full random graph, a 15-10
+  fanout sample, or batched molecules), padded and placed on the mesh.
 
 ``program.fn(*inputs(...))`` runs the cell: size bytes or memory from
 what the inputs hold, not from ``in_specs``.
@@ -471,6 +472,33 @@ def gnn_flops(pspecs: dict, n: int, e: int) -> float:
     return 3.0 * 2.0 * (e * per_edge + n * per_node)
 
 
+def _gnn_layout(in_specs, mesh: Mesh) -> tuple:
+    """The JAX package's ``in_shardings`` of a GNN program's ``in_specs``:
+    parameters and state replicated, every node and edge array over the
+    data axes, ``graph_y`` replicated."""
+    pspecs, ospecs, gb = in_specs
+    dp = meshlib.dp_axes(mesh)
+    data = dp if len(dp) > 1 else (dp[0] if dp else None)
+
+    def rep(t):
+        return (None,) * t.dim()
+
+    def split(f, t):
+        return rep(t) if f == "graph_y" else (data,) + (None,) * (t.dim() - 1)
+
+    return (tree_map(rep, pspecs), tree_map(rep, ospecs),
+            gnn_common.GraphBatch(*(split(f, t) for f, t in zip(gb._fields, gb))))
+
+
+def _gnn_padded(mesh: Mesh | None, n: int, e: int) -> tuple[int, int]:
+    """Nodes padded to the data slices, edges to data x model (the JAX
+    package's rule)."""
+    if mesh is None:
+        return n, e
+    dp = mesh.size(meshlib.dp_axes(mesh))
+    return _pad_to(n, dp), _pad_to(e, dp * mesh.shape[MODEL_AXIS])
+
+
 def build_gnn(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *,
               smoke: bool = False) -> Program:
     """One AdamW step of a GNN arch on a graph shape: ``fn(params,
@@ -480,17 +508,22 @@ def build_gnn(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, 
     ``in_dim`` its feature width where the arch has one, ``edge_chunks=128``
     at >= 10 M edges, remat off for ``ogb_products`` (full configs).
     ``in_specs`` are the batch's padded sizes; the program runs a batch of
-    any size (``gnn_inputs``' cut graphs).  On one device only: a mesh of
-    several is refused (the node and edge arrays over the data axes are
-    ROADMAP Queue 1 item 3b)."""
+    any size (``gnn_inputs``' cut graphs).  On a mesh of several devices
+    the nodes pad to the data slices and the edges to data x model, and
+    the arguments are laid out by ``program.in_shardings`` (the JAX
+    package's; tensors split as they come, ``Sharded`` ones checked); the
+    parameters and state come back as the ``Sharded`` trees, the metrics
+    on the lead device."""
     name = f"{arch.arch_id}:{shape.shape_id}"
     if mesh is None:
         meshlib.make_mesh((1, 1), ("data", MODEL_AXIS))  # the current card, or raise
     elif len(mesh.devices) > 1:
-        raise ValueError(f"{name}: the GNN programs run on one device, not a {mesh.sizes} mesh "
-                         "(ROADMAP Queue 1 item 3b: node and edge arrays over the data axes)")
+        _check_axes(name, mesh)
+    else:
+        mesh = None
     mod = GNN_MODULES[arch.arch_id]
     n, e, d_feat, n_classes, n_graphs = _gnn_sizes(shape, smoke)
+    n, e = _gnn_padded(mesh, n, e)
     cfg = arch.smoke_cfg if smoke else arch.cfg
     cfg = dataclasses.replace(cfg, out_dim=n_classes or 1, **(
         {"in_dim": d_feat} if hasattr(cfg, "in_dim") else {}))
@@ -511,9 +544,46 @@ def build_gnn(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, 
         labels=meta(n, dtype=i32), graph_ids=meta(n, dtype=i32), graph_y=meta(n_graphs),
     )
     opt = _opt(arch)
-    return Program(name=name, fn=make_train_step(partial(mod.loss_fn, cfg), opt),
-                   in_specs=(pspecs, opt.init(pspecs), gb), model_flops=gnn_flops(pspecs, n, e),
-                   cfg=cfg, opt=opt)
+    step = make_train_step(partial(mod.loss_fn, cfg), opt)
+    in_specs = (pspecs, opt.init(pspecs), gb)
+    flops = gnn_flops(pspecs, n, e)
+    if mesh is None:
+        return Program(name=name, fn=step, in_specs=in_specs, model_flops=flops, cfg=cfg, opt=opt)
+    specs = _gnn_layout(in_specs, mesh)
+
+    def fn(params, opt_state, batch):
+        return step(*gnn_place_on(mesh, specs, (params, opt_state, batch)))
+
+    return Program(name=name, fn=fn, in_specs=in_specs, model_flops=flops, cfg=cfg, opt=opt,
+                   mesh=mesh, in_shardings=specs)
+
+
+def gnn_place_on(mesh: Mesh, specs, args) -> tuple:
+    """A GNN program's (params, state, batch) on ``mesh`` by ``specs``
+    (``in_shardings``): tensors split (views on their own device),
+    ``Sharded`` ones checked; a batch's node and edge counts must divide
+    (``gnn_pad``)."""
+    params, state, batch = args
+    return (_place(params, mesh, specs[0]), _place(state, mesh, specs[1]),
+            gnn_common.GraphBatch(*(_placed(x, mesh, sp) for x, sp in zip(batch, specs[2]))))
+
+
+def gnn_pad(batch: gnn_common.GraphBatch, n: int, e: int) -> gnn_common.GraphBatch:
+    """``batch`` (tensors or numpy) padded to ``n`` nodes and ``e`` edges:
+    masked nodes (label -1, graph 0) and masked edges at node 0."""
+    def pad(x, to, fill=0):
+        x = torch.as_tensor(x)
+        if x.shape[0] == to:
+            return x
+        if x.shape[0] > to:
+            raise ValueError(f"a batch of {x.shape[0]} rows padded to {to}")
+        return torch.cat([x, x.new_full((to - x.shape[0], *x.shape[1:]), fill)])
+
+    nodes = ("node_feat", "positions", "species", "node_mask", "graph_ids")
+    edges = ("edge_src", "edge_dst", "edge_feat", "edge_mask")
+    return batch._replace(**{f: pad(getattr(batch, f), n) for f in nodes},
+                          **{f: pad(getattr(batch, f), e) for f in edges},
+                          labels=pad(batch.labels, n, -1), graph_y=torch.as_tensor(batch.graph_y))
 
 
 def gnn_graph(program: Program, *, seed: int = 0, n_nodes: int | None = None,
@@ -575,12 +645,17 @@ def gnn_batch(program: Program, graph: gdata.HostGraph | None, *, seed: int = 0
 
 
 def gnn_inputs(program: Program, device="cuda", *, seed: int = 0, n_nodes: int | None = None,
-               n_edges: int | None = None, graph: gdata.HostGraph | None = None) -> tuple:
+               n_edges: int | None = None, graph: gdata.HostGraph | None = None,
+               mesh: Mesh | None = None) -> tuple:
     """The concrete arguments of a GNN program on ``device``: parameters
     from the arch's ``init`` with a generator on ``device`` seeded
     ``seed``, AdamW's state, and the shape's batch (``gnn_batch``) from
     ``graph`` or, by default, ``gnn_graph(program, seed=seed, n_nodes=,
-    n_edges=)`` (pass a graph built once to share it between programs)."""
+    n_edges=)`` (pass a graph built once to share it between programs).
+    On ``mesh`` (default the program's own; one device: none) the batch is
+    padded as the JAX package pads (``gnn_pad``: nodes to the data slices,
+    edges to data x model) and everything is placed by the program's
+    layout (views where the mesh names ``device``)."""
     dev = resolve_device(device)
     arch_id = program.name.split(":")[0]
     if arch_id not in GNN_MODULES:
@@ -590,7 +665,13 @@ def gnn_inputs(program: Program, device="cuda", *, seed: int = 0, n_nodes: int |
     params = GNN_MODULES[arch_id].init(program.cfg, torch.Generator(device=dev).manual_seed(seed),
                                        device=dev)
     batch = gnn_batch(program, graph, seed=seed).to(dev)
-    return params, program.opt.init(params), batch
+    args = (params, program.opt.init(params), batch)
+    mesh = program.mesh if mesh is None else mesh
+    if mesh is None or len(mesh.devices) == 1:
+        return args
+    n, e = _gnn_padded(mesh, batch.node_feat.shape[0], batch.edge_src.shape[0])
+    return gnn_place_on(mesh, _gnn_layout(program.in_specs, mesh),
+                        (params, args[1], gnn_pad(batch, n, e)))
 
 
 # ---------------------------------------------------------------------------

@@ -64,38 +64,54 @@ def params_from_arrays(cfg: EGNNCfg, tree, device="cuda") -> dict:
     return C.params_from_arrays(param_specs(cfg), tree, device)
 
 
-def forward(cfg: EGNNCfg, params, g: C.GraphBatch) -> torch.Tensor:
-    n = g.node_feat.shape[0]
-    h = C.mlp_apply(params["embed"], g.node_feat)
-    x = g.positions
+def forward(cfg: EGNNCfg, params, g: C.GraphBatch):
+    """Per-node outputs [N, out_dim]: a tensor for a batch on one device, a
+    tuple of node blocks (one a position) for a batch on a mesh
+    (:func:`common.view`)."""
+    G = C.view(g)
+    P = G.params(params)
+    d = cfg.d_hidden
+    h = G.map(lambda p, nf: C.mlp_apply(p["embed"], nf), P, G.node("node_feat"))
+    x = G.node("positions")
+    edges = (G.edge("edge_src"), G.edge("edge_dst"), G.edge("edge_feat"), G.edge("edge_mask"))
 
-    def one_layer(lp, h, x):
-        hs = h.index_select(0, g.edge_src)
-        hd = h.index_select(0, g.edge_dst)
-        xs = x.index_select(0, g.edge_src)
-        xd = x.index_select(0, g.edge_dst)
+    def edge_part(lp, hf, xf, src, dst, ef, em):
+        """An edge share's message, and with coordinates its update and
+        degree columns, masked: [E, d (+ 3 + 1)]."""
+        hs = hf.index_select(0, src)
+        hd = hf.index_select(0, dst)
+        xs = xf.index_select(0, src)
+        xd = xf.index_select(0, dst)
         d2 = torch.sum((xd - xs) ** 2, dim=-1, keepdim=True)
         feats = [hd, hs, d2]
         if cfg.edge_dim:
-            feats.append(g.edge_feat)
+            feats.append(ef)
         m = C.mlp_apply(lp["phi_e"], torch.cat(feats, dim=-1), final_act=True)
-        m = m * g.edge_mask[:, None].to(m.dtype)
+        m = m * em[:, None].to(m.dtype)
+        cols = [m]
         if cfg.update_coords:
             w = C.mlp_apply(lp["phi_x"], m)  # [E, 1]
-            dx = C.scatter_edges((xd - xs) * w, g.edge_dst, n, g.edge_mask)
-            deg = C.scatter_edges(x.new_ones((m.shape[0], 1)), g.edge_dst, n, g.edge_mask)
-            x = x + dx / torch.clamp(deg, min=1.0)
-        agg = C.scatter_edges(m, g.edge_dst, n, g.edge_mask)
-        h = h + C.mlp_apply(lp["phi_h"], torch.cat([h, agg], dim=-1))
+            cols += [(xd - xs) * w, xf.new_ones((m.shape[0], 1))]
+        return torch.cat(cols, dim=-1) * em[:, None].to(m.dtype)
+
+    def node_part(lp, h, x, agg):
+        if cfg.update_coords:
+            x = x + agg[:, d:d + 3] / torch.clamp(agg[:, d + 3:], min=1.0)
+        h = h + C.mlp_apply(lp["phi_h"], torch.cat([h, agg[:, :d]], dim=-1))
         return h, x
 
-    for lp in params["layers"]:
-        h, x = C.remat(cfg.remat, one_layer, lp, h, x)
-    return C.mlp_apply(params["readout"], h)
+    def one_layer(lp, h, x):
+        vals = G.map(edge_part, lp, G.halo(h), G.halo(x), *edges)
+        return G.unzip(G.map(node_part, lp, h, x, G.scatter(vals)), 2)
+
+    for i in range(cfg.n_layers):
+        h, x = G.remat(cfg.remat, one_layer, G.sub(P, lambda p: p["layers"][i]), h, x)
+    return G.map(lambda p, h: C.mlp_apply(p["readout"], h), P, h)
 
 
 def loss_fn(cfg: EGNNCfg, params, g: C.GraphBatch) -> torch.Tensor:
     out = forward(cfg, params, g)
+    G = C.view(g)
     if cfg.out_dim == 1:  # graph-level energy regression
-        return C.graph_regression_loss(out, g)
-    return C.node_class_loss(out, g.labels, g.node_mask)
+        return G.graph_regression_loss(out)
+    return G.node_class_loss(out, G.node("labels"), G.node("node_mask"))

@@ -17,7 +17,12 @@ linear layer coupling only (+m, −m) pairs, and restricting to m ≤ m_max
 With ``edge_chunks > 1`` the attention runs over edge chunks with an
 online softmax, as a :class:`torch.autograd.Function` (the reference's
 custom VJP): its forward keeps only node-sized statistics, its backward
-recomputes each chunk's messages.  Assigned config: n_layers=12,
+recomputes each chunk's messages.  On a mesh (``common.OnMesh``) each
+position runs the sweep over its edge share into whole-graph running
+(max, sum, acc) statistics (:class:`_ChunkedPartial`), which are combined
+over the mesh: ``m = pmax(m_s)``, ``l = Σ l_s·exp(m_s − m)``, ``acc = Σ
+acc_s·exp(m_s − m)`` summed into the node blocks; the one-chunk softmax
+takes the global segment max the same way.  Assigned config: n_layers=12,
 d_hidden=128, l_max=6, m_max=2, n_heads=8.
 """
 
@@ -170,8 +175,10 @@ def _edge_messages(cfg, lp, xs, xd, R_c, rbf_c, em_c):
     return y @ R_c, logits
 
 
-def _agg_fwd(cfg, lp, X, chunks, N):
-    """Forward chunk sweep with online softmax. Returns (agg, m, l)."""
+def _agg_sweep(cfg, lp, X, chunks, N):
+    """Forward chunk sweep with online softmax.  Returns (acc, m, l): the
+    messages weighted by ``exp(logit - m)`` summed into every node, the
+    running max and the weights' sum."""
     Cn, dim = cfg.d_hidden, so3.irrep_dim(cfg.l_max)
     m = X.new_full((N,), NEG)
     l = X.new_zeros((N,))
@@ -185,8 +192,37 @@ def _agg_fwd(cfg, lp, X, chunks, N):
         l = l * corr + C.segment_sum(a, dst_c, N)
         acc.mul_(corr[:, None, None]).index_add_(0, dst_c, msg * a[:, None, None])
         m = m_new
-    agg = acc.div_(torch.clamp(l, min=1e-9)[:, None, None])
-    return agg, m, l
+    return acc, m, l
+
+
+def _agg_fwd(cfg, lp, X, chunks, N):
+    """Forward chunk sweep with online softmax. Returns (agg, m, l)."""
+    acc, m, l = _agg_sweep(cfg, lp, X, chunks, N)
+    return acc.div_(torch.clamp(l, min=1e-9)[:, None, None]), m, l
+
+
+def _agg_bwd(cfg, paths, chunks, X, m, dacc, dl, lp_leaves):
+    """(dX, d leaves) of ``acc`` and ``l`` of :func:`_agg_sweep` (``m`` a
+    constant) for their cotangents ``dacc`` [N, C, dim] and ``dl`` [N]:
+    each chunk's messages recomputed and pulled through."""
+    dX = torch.zeros_like(X)
+    dlp = [torch.zeros_like(t) for t in lp_leaves]
+    for src_c, dst_c, R_c, rbf_c, em_c in zip(*chunks):
+        with torch.enable_grad():
+            xs = X.index_select(0, src_c).requires_grad_()
+            xd = X.index_select(0, dst_c).requires_grad_()
+            leaves_ = [t.detach().requires_grad_() for t in lp_leaves]
+            msg, logits = _edge_messages(cfg, build(zip(paths, leaves_)), xs, xd,
+                                         R_c, rbf_c, em_c)
+            a = torch.exp(logits - m.index_select(0, dst_c)) * em_c
+            grads = torch.autograd.grad(
+                (msg * a[:, None, None], a), [xs, xd, *leaves_],
+                (dacc.index_select(0, dst_c), dl.index_select(0, dst_c)), allow_unused=True)
+        dX.index_add_(0, src_c, grads[0]).index_add_(0, dst_c, grads[1])
+        for d, g in zip(dlp, grads[2:]):
+            if g is not None:
+                d.add_(g)
+    return dX, dlp
 
 
 class _ChunkedAgg(torch.autograd.Function):
@@ -221,23 +257,31 @@ class _ChunkedAgg(torch.autograd.Function):
         linv = 1.0 / torch.clamp(l, min=1e-9)
         dacc = dagg * linv[:, None, None]
         dl = -torch.sum(dagg * agg, dim=(1, 2)) * linv
-        dX = torch.zeros_like(X)
-        dlp = [torch.zeros_like(t) for t in lp_leaves]
-        for src_c, dst_c, R_c, rbf_c, em_c in zip(*ctx.chunks):
-            with torch.enable_grad():
-                xs = X.index_select(0, src_c).requires_grad_()
-                xd = X.index_select(0, dst_c).requires_grad_()
-                leaves_ = [t.detach().requires_grad_() for t in lp_leaves]
-                msg, logits = _edge_messages(ctx.cfg, build(zip(ctx.paths, leaves_)), xs, xd,
-                                             R_c, rbf_c, em_c)
-                a = torch.exp(logits - m.index_select(0, dst_c)) * em_c
-                grads = torch.autograd.grad(
-                    (msg * a[:, None, None], a), [xs, xd, *leaves_],
-                    (dacc.index_select(0, dst_c), dl.index_select(0, dst_c)), allow_unused=True)
-            dX.index_add_(0, src_c, grads[0]).index_add_(0, dst_c, grads[1])
-            for d, g in zip(dlp, grads[2:]):
-                if g is not None:
-                    d.add_(g)
+        dX, dlp = _agg_bwd(ctx.cfg, ctx.paths, ctx.chunks, X, m, dacc, dl, lp_leaves)
+        return (None, None, None, None, dX, *dlp)
+
+
+class _ChunkedPartial(torch.autograd.Function):
+    """One mesh position's sweep over its edge share: the unnormalised
+    (acc [N, C, dim], l [N], m [N]) of :func:`_agg_sweep`, every node of the
+    graph; ``m`` has no gradient (the softmax's shift), the backward
+    recomputes each chunk (:func:`_agg_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, cfg, N, paths, chunks, X, *lp_leaves):
+        acc, m, l = _agg_sweep(cfg, build(zip(paths, lp_leaves)), X, chunks, N)
+        ctx.cfg, ctx.paths, ctx.chunks = cfg, paths, chunks
+        ctx.save_for_backward(X, m, *lp_leaves)
+        ctx.mark_non_differentiable(m)
+        return acc, l, m
+
+    @staticmethod
+    def backward(ctx, dacc, dl, _dm):
+        X, m, *lp_leaves = ctx.saved_tensors
+        N = X.shape[0]
+        dacc = dacc if dacc is not None else X.new_zeros((N, *X.shape[1:]))
+        dl = dl if dl is not None else X.new_zeros((N,))
+        dX, dlp = _agg_bwd(ctx.cfg, ctx.paths, ctx.chunks, X, m, dacc, dl, lp_leaves)
         return (None, None, None, None, dX, *dlp)
 
 
@@ -246,67 +290,113 @@ def _chunked_agg(cfg, lp, X, chunks, N):
     return _ChunkedAgg.apply(cfg, N, paths, chunks, X, *lp_leaves)
 
 
-def _dense_agg(cfg, lp, X, g: C.GraphBatch, R, rbf, emask, N):
-    """The one-chunk attention: softmax over each destination's edges."""
-    msg, logits = _edge_messages(cfg, lp, X.index_select(0, g.edge_src),
-                                 X.index_select(0, g.edge_dst), R, rbf, emask)
-    lmax = C.segment_max(logits, g.edge_dst, N)
-    a = torch.exp(logits - lmax.index_select(0, g.edge_dst)) * emask
-    den = C.segment_sum(a, g.edge_dst, N)
-    return C.segment_sum(msg * a[:, None, None], g.edge_dst, N) / torch.clamp(
-        den, min=1e-9)[:, None, None]
+def _dense_agg(G, cfg, lp, Xf, geo, N):
+    """The one-chunk attention: softmax over each destination's edges, the
+    segment max taken over the whole graph (``G.pmax``)."""
+    src, dst, R, rbf, emask = geo
+    msg, logits = G.unzip(G.map(
+        lambda lp, Xf, src, dst, R, rbf, em: _edge_messages(
+            cfg, lp, Xf.index_select(0, src), Xf.index_select(0, dst), R, rbf, em),
+        lp, Xf, src, dst, R, rbf, emask), 2)
+    lmax = G.pmax(G.map(lambda lg, dst: C.segment_max(lg, dst, N), logits, dst))
+
+    def weigh(msg, lg, lmax, dst, em):
+        a = torch.exp(lg - lmax.index_select(0, dst)) * em
+        return msg * a[:, None, None], a
+
+    num, a = G.unzip(G.map(weigh, msg, logits, lmax, dst, emask), 2)
+    den = G.scatter(a)
+    return G.map(lambda n, d: n / torch.clamp(d, min=1e-9)[:, None, None], G.scatter(num), den)
 
 
-def forward(cfg: EquiformerV2Cfg, params, g: C.GraphBatch) -> torch.Tensor:
-    N = g.node_feat.shape[0]
+def _mesh_chunked_agg(G, cfg, lp, Xf, chunks, N):
+    """The chunked attention on a mesh: each position's running statistics
+    (:class:`_ChunkedPartial`) combined over the mesh into node blocks."""
+    def sweep(lp, Xf, ch):
+        paths, lp_leaves = zip(*leaves(lp))
+        return _ChunkedPartial.apply(cfg, N, paths, ch, Xf, *lp_leaves)
+
+    acc, l, m_s = G.unzip(G.map(sweep, lp, Xf, chunks), 3)
+    m = G.pmax(m_s)
+    w = G.map(lambda ms, mm: torch.exp(ms - mm), m_s, m)
+    acc = G.reduce(G.map(lambda a, w: a * w[:, None, None], acc, w))
+    l = G.reduce(G.map(lambda l, w: l * w, l, w))
+    return G.map(lambda a, l: a / torch.clamp(l, min=1e-9)[:, None, None], acc, l)
+
+
+def forward(cfg: EquiformerV2Cfg, params, g: C.GraphBatch):
+    """Per-node outputs [N, out_dim]: a tensor for a batch on one device, a
+    tuple of node blocks on a mesh (:func:`common.view`)."""
+    G = C.view(g)
+    P = G.params(params)
+    N = G.n
     Cn, L = cfg.d_hidden, cfg.l_max
     dim = so3.irrep_dim(L)
-    E = g.edge_src.shape[0]
 
-    rel = g.positions.index_select(0, g.edge_dst) - g.positions.index_select(0, g.edge_src)
-    r = torch.sqrt(torch.sum(rel**2, dim=-1) + 1e-9)
-    rbf = C.bessel_rbf(r, cfg.n_rbf, cfg.r_cut)
-    emask = g.edge_mask.float()
-    R = edge_rotation(cfg, rel)  # once for every layer
+    def geometry(pos, src, dst, em):
+        rel = pos.index_select(0, dst) - pos.index_select(0, src)
+        r = torch.sqrt(torch.sum(rel**2, dim=-1) + 1e-9)
+        # the rotation once for every layer
+        return C.bessel_rbf(r, cfg.n_rbf, cfg.r_cut), em.float(), edge_rotation(cfg, rel)
 
-    h0 = params["species_embed"].index_select(0, g.species)
-    X = torch.cat([h0[..., None], h0.new_zeros((N, Cn, dim - 1))], dim=-1)
+    src, dst = G.edge("edge_src"), G.edge("edge_dst")
+    rbf, emask, R = G.unzip(G.map(geometry, G.halo(G.node("positions")), src, dst,
+                                  G.edge("edge_mask")), 3)
+
+    def embed(p, sp):
+        h0 = p["species_embed"].index_select(0, sp)
+        return torch.cat([h0[..., None], h0.new_zeros((sp.shape[0], Cn, dim - 1))], dim=-1)
+
+    X = G.map(embed, P, G.node("species"))
 
     nc = max(1, cfg.edge_chunks)
-    if nc > 1:  # pad + block the edge arrays once (padding: node 0, mask 0)
-        pad = (-E) % nc
-
+    if nc > 1 and not isinstance(G, C.Local):
+        # a position's edge share in chunks of the one-device size (as many
+        # chunk passes in all as on one device)
+        nc = max(1, -(-nc // len(G.mesh.devices)))
+        chunked = True
+    else:
+        chunked = nc > 1
+    if chunked:  # pad + block the edge arrays once (padding: node 0, mask 0)
         def blocks(t):  # padded edges: node 0, mask 0, a zero rotation
+            pad = (-t.shape[0]) % nc
             t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 1) + (0, pad))
             return t.reshape(nc, -1, *t.shape[1:]).unbind(0)
 
-        chunks = tuple(blocks(t) for t in (g.edge_src, g.edge_dst, R, rbf, emask))
+        chunks = G.map(lambda *ts: tuple(blocks(t) for t in ts), src, dst, R, rbf, emask)
     gate_width = [2 * l + 1 for l in range(L + 1)]
 
-    def one_layer(lp, X):
-        if nc == 1:
-            agg = _dense_agg(cfg, lp, X, g, R, rbf, emask, N)
-        else:
-            agg = _chunked_agg(cfg, lp, X, chunks, N)
-
+    def node_part(lp, X, agg):
         X = X + (agg.transpose(1, 2) @ lp["out_proj"]).transpose(1, 2)
 
         # S2-gated FFN: per-degree scalar gates from the invariant channel
         inv_n = X[:, :, 0]
-        gates = torch.sigmoid(C.mlp_apply(lp["ffn_gate"], inv_n).reshape(N, Cn, L + 1))
-        scale = gates.repeat_interleave(torch.as_tensor(gate_width, device=X.device), dim=2)
+        gates = torch.sigmoid(C.mlp_apply(lp["ffn_gate"], inv_n).reshape(-1, Cn, L + 1))
+        scale = gates.repeat_interleave(torch.as_tensor(gate_width, device=X.device), dim=2,
+                                        output_size=dim)
         X = X * scale
         return torch.cat([X[:, :, :1] + C.mlp_apply(lp["ffn_l0"], inv_n)[..., None],
                           X[:, :, 1:]], dim=-1)
 
-    for lp in params["layers"]:
-        X = C.remat(cfg.remat, one_layer, lp, X)
+    def one_layer(lp, X):
+        Xf = G.halo(X)
+        if not chunked:
+            agg = _dense_agg(G, cfg, lp, Xf, (src, dst, R, rbf, emask), N)
+        elif isinstance(G, C.Local):
+            agg = _chunked_agg(cfg, lp, Xf, chunks, N)
+        else:
+            agg = _mesh_chunked_agg(G, cfg, lp, Xf, chunks, N)
+        return G.map(node_part, lp, X, agg)
 
-    return C.mlp_apply(params["readout"], X[:, :, 0])
+    for i in range(cfg.n_layers):
+        X = G.remat(cfg.remat, one_layer, G.sub(P, lambda p: p["layers"][i]), X)
+
+    return G.map(lambda p, X: C.mlp_apply(p["readout"], X[:, :, 0]), P, X)
 
 
 def loss_fn(cfg: EquiformerV2Cfg, params, g: C.GraphBatch) -> torch.Tensor:
     out = forward(cfg, params, g)
+    G = C.view(g)
     if cfg.out_dim == 1:
-        return C.graph_regression_loss(out, g)
-    return C.node_class_loss(out, g.labels, g.node_mask)
+        return G.graph_regression_loss(out)
+    return G.node_class_loss(out, G.node("labels"), G.node("node_mask"))

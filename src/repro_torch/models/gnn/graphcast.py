@@ -71,32 +71,52 @@ def params_from_arrays(cfg: GraphCastCfg, tree, device="cuda") -> dict:
 
 
 def encode(cfg: GraphCastCfg, params, g: C.GraphBatch):
-    """The bf16 node and edge states (h [N, d], e [E, d]) the processor starts from."""
-    h = C.mlp_apply(params["node_enc"], g.node_feat).to(torch.bfloat16)
-    ef = g.edge_feat if cfg.edge_dim else h.new_ones((g.edge_src.shape[0], 1))
-    e = C.mlp_apply(params["edge_enc"], ef).to(torch.bfloat16)
+    """The bf16 node and edge states (h [N, d], e [E, d]) the processor
+    starts from (on a mesh: node blocks and edge shares, a tuple each)."""
+    G = C.view(g)
+    P = G.params(params)
+    h = G.map(lambda p, nf: C.mlp_apply(p["node_enc"], nf).to(torch.bfloat16), P,
+              G.node("node_feat"))
+
+    def edges(p, ef, src):
+        ef = ef if cfg.edge_dim else ef.new_ones((src.shape[0], 1))
+        return C.mlp_apply(p["edge_enc"], ef).to(torch.bfloat16)
+
+    e = G.map(edges, P, G.edge("edge_feat"), G.edge("edge_src"))
     return h, e
 
 
-def layer(lp, g: C.GraphBatch, h: torch.Tensor, e: torch.Tensor):
-    """One processor block: (h, e) -> (h', e')."""
-    hs = h.index_select(0, g.edge_src)
-    hd = h.index_select(0, g.edge_dst)
-    e = e + C.mlp_apply(lp["edge_mlp"], torch.cat([e, hs, hd], dim=-1))
-    agg = C.scatter_edges(e, g.edge_dst, h.shape[0], g.edge_mask)
-    h = h + C.mlp_apply(lp["node_mlp"], torch.cat([h, agg], dim=-1))
+def layer(lp, g: C.GraphBatch, h, e, G=None):
+    """One processor block: (h, e) -> (h', e') (on a mesh the tuples of
+    :func:`encode`, ``lp`` a tree a position)."""
+    G = C.view(g) if G is None else G
+
+    def edge_part(lp, e, hf, src, dst, em):
+        hs = hf.index_select(0, src)
+        hd = hf.index_select(0, dst)
+        e = e + C.mlp_apply(lp["edge_mlp"], torch.cat([e, hs, hd], dim=-1))
+        return e, e * em[..., None].to(e.dtype)
+
+    e, vals = G.unzip(G.map(edge_part, lp, e, G.halo(h), G.edge("edge_src"), G.edge("edge_dst"),
+                            G.edge("edge_mask")), 2)
+    agg = G.scatter(vals)
+    h = G.map(lambda lp, h, a: h + C.mlp_apply(lp["node_mlp"], torch.cat([h, a], dim=-1)),
+              lp, h, agg)
     return h, e
 
 
-def forward(cfg: GraphCastCfg, params, g: C.GraphBatch) -> torch.Tensor:
+def forward(cfg: GraphCastCfg, params, g: C.GraphBatch):
+    G = C.view(g)
+    P = G.params(params)
     h, e = encode(cfg, params, g)
-    for lp in params["layers"]:
-        h, e = C.remat(cfg.remat, layer, lp, g, h, e)
-    return C.mlp_apply(params["node_dec"], h.float())
+    for i in range(cfg.n_layers):
+        h, e = G.remat(cfg.remat, layer, G.sub(P, lambda p: p["layers"][i]), g, h, e, G)
+    return G.map(lambda p, h: C.mlp_apply(p["node_dec"], h.float()), P, h)
 
 
 def loss_fn(cfg: GraphCastCfg, params, g: C.GraphBatch) -> torch.Tensor:
     out = forward(cfg, params, g)
+    G = C.view(g)
     if g.labels is not None and cfg.out_dim > 1:
-        return C.node_class_loss(out, g.labels, g.node_mask)
-    return C.graph_regression_loss(out, g)
+        return G.node_class_loss(out, G.node("labels"), G.node("node_mask"))
+    return G.graph_regression_loss(out)

@@ -136,10 +136,16 @@ def _mix(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _species_groups(species: torch.Tensor, n_species: int):
     """(order, inverse, counts): nodes sorted by species (stable), the
-    permutation back, and the nodes a species (a host list)."""
+    permutation back, and the nodes a species (a host list).  A ``meta``
+    tensor has no values: its nodes count as split evenly over the species
+    (the products' shapes sum to the same flops)."""
     sp = species.long()
     order = torch.argsort(sp, stable=True)
-    counts = torch.bincount(sp, minlength=n_species).tolist()
+    if sp.is_meta:
+        n = sp.shape[0]
+        counts = [n // n_species + (s < n % n_species) for s in range(n_species)]
+    else:
+        counts = torch.bincount(sp, minlength=n_species).tolist()
     return order, torch.argsort(order), counts
 
 
@@ -162,29 +168,39 @@ def _add(blocks: list, l: int, t: torch.Tensor) -> None:
     blocks[l] = t if blocks[l] is None else blocks[l] + t
 
 
-def forward(cfg: MACECfg, params, g: C.GraphBatch) -> torch.Tensor:
-    N = g.node_feat.shape[0]
+def forward(cfg: MACECfg, params, g: C.GraphBatch):
+    """Site energies [N, out_dim]: a tensor for a batch on one device, a
+    tuple of node blocks on a mesh (:func:`common.view`)."""
+    G = C.view(g)
+    P = G.params(params)
     Cn, L = cfg.d_hidden, cfg.l_max
     dim = so3.irrep_dim(L)
-    dev = g.positions.device
+    N = G.n
 
-    rel = g.positions.index_select(0, g.edge_dst) - g.positions.index_select(0, g.edge_src)
-    r = torch.sqrt(torch.sum(rel**2, dim=-1) + 1e-9)
-    Y = so3.real_sph_harm(rel, L)  # [E, dim]
-    rbf = C.bessel_rbf(r, cfg.n_rbf, cfg.r_cut)  # [E, n_rbf]
-    emask = g.edge_mask.float()
-    groups = _species_groups(g.species, cfg.n_species)
+    def geometry(pos, src, dst, em):
+        rel = pos.index_select(0, dst) - pos.index_select(0, src)
+        r = torch.sqrt(torch.sum(rel**2, dim=-1) + 1e-9)
+        Y = so3.real_sph_harm(rel, L)  # [E, dim]
+        return Y, C.bessel_rbf(r, cfg.n_rbf, cfg.r_cut), em.float()  # [E, n_rbf]
 
-    # node irreps: X[N, C, dim], l=0 slot from species embedding
-    h0 = params["species_embed"].index_select(0, g.species)  # [N, C]
-    X = torch.cat([h0[..., None], h0.new_zeros((N, Cn, dim - 1))], dim=-1)
+    src, dst = G.edge("edge_src"), G.edge("edge_dst")
+    Y, rbf, emask = G.unzip(G.map(geometry, G.halo(G.node("positions")), src, dst,
+                                  G.edge("edge_mask")), 3)
+    groups = G.map(lambda sp: _species_groups(sp, cfg.n_species), G.node("species"))
 
-    site_e = X.new_zeros((N, cfg.out_dim))
+    def embed(p, sp):  # node irreps: X[N, C, dim], l=0 slot from species embedding
+        h0 = p["species_embed"].index_select(0, sp)  # [N, C]
+        X = torch.cat([h0[..., None], h0.new_zeros((sp.shape[0], Cn, dim - 1))], dim=-1)
+        return X, X.new_zeros((sp.shape[0], cfg.out_dim))
+
+    X, site_e = G.unzip(G.map(embed, P, G.node("species")), 2)
     pathsA = a_paths(L)
 
-    def one_layer(lp, X, site_e):
+    def a_partial(lp, Xf, Y, rbf, emask, src, dst):
+        """The A-basis summed over an edge share into every node [N, C, dim]."""
+        dev = Xf.device
         Rw = C.mlp_apply(lp["radial"], rbf).reshape(-1, len(pathsA), Cn)  # [E, nA, C]
-        Xs = X.index_select(0, g.edge_src)  # [E, C, dim]
+        Xs = Xf.index_select(0, src)  # [E, C, dim]
         A = [None] * (L + 1)
         for pi, (l1, l2, l3) in enumerate(pathsA):
             cg = so3.cg_tensor(l1, l2, l3, dev)
@@ -193,9 +209,11 @@ def forward(cfg: MACECfg, params, g: C.GraphBatch) -> torch.Tensor:
             t = torch.einsum("abc,ea->ebc", cg, Y[:, _sl(l1)])
             contrib = torch.bmm(Xs[:, :, _sl(l2)], t)  # [E, C, 2l3+1]
             contrib = contrib * (Rw[:, pi, :] * emask[:, None])[:, :, None]
-            _add(A, l3, C.segment_sum(contrib, g.edge_dst, N))
-        A = _blocks_sum(A, L, X)
+            _add(A, l3, C.segment_sum(contrib, dst, N))
+        return _blocks_sum(A, L, Xf)
 
+    def node_part(lp, A, X, site_e, groups):
+        dev = X.device
         # B-basis: correlation 1..3 with per-path channel mixing
         msg = list(_mix(A, lp["w_b1"]).split([2 * l + 1 for l in range(L + 1)], dim=-1))
         prods = {}  # (la, lb, lab): the correlation-2 product a chain starts from
@@ -217,14 +235,19 @@ def forward(cfg: MACECfg, params, g: C.GraphBatch) -> torch.Tensor:
         site_e = site_e + C.mlp_apply(lp["readout"], X[:, :, 0])
         return X, site_e
 
-    for lp in params["layers"]:
-        X, site_e = C.remat(cfg.remat, one_layer, lp, X, site_e)
+    def one_layer(lp, X, site_e):
+        A = G.reduce(G.map(a_partial, lp, G.halo(X), Y, rbf, emask, src, dst))
+        return G.unzip(G.map(node_part, lp, A, X, site_e, groups), 2)
+
+    for i in range(cfg.n_layers):
+        X, site_e = G.remat(cfg.remat, one_layer, G.sub(P, lambda p: p["layers"][i]), X, site_e)
 
     return site_e
 
 
 def loss_fn(cfg: MACECfg, params, g: C.GraphBatch) -> torch.Tensor:
     out = forward(cfg, params, g)
+    G = C.view(g)
     if cfg.out_dim == 1:
-        return C.graph_regression_loss(out, g)
-    return C.node_class_loss(out, g.labels, g.node_mask)
+        return G.graph_regression_loss(out)
+    return G.node_class_loss(out, G.node("labels"), G.node("node_mask"))

@@ -314,13 +314,18 @@ def loss_on(cfg: XDeepFMCfg, params, batch, *, mesh) -> torch.Tensor:
 
 def retrieval_on(cfg: XDeepFMCfg, params, user_ids: Sharded, cand_ids: Sharded, *,
                  mesh) -> torch.Tensor:
-    """:func:`retrieval_score` on ``mesh``: the user (replicated) and each
-    position's candidates (split over the data axes) looked up in the row
-    blocks; the scores [N] on the mesh's lead device."""
-    u = _rows_of(params["tables"], _pp(lambda i: i[None], mesh, user_ids.parts), mesh, _by_field)
+    """:func:`retrieval_score` on ``mesh``: the user (replicated) looked up
+    in the row blocks; field 0's table gathered whole over the axes its rows
+    split over, and each position's candidates (split over the data axes)
+    taken from it (a data slice's model shards share the gather and the
+    scores on one device); the scores [N] on the mesh's lead device."""
+    tables = params["tables"]
+    u = _rows_of(tables, _pp(lambda i: i[None], mesh, user_ids.parts), mesh, _by_field)
     u = _pp(lambda e: e.reshape(-1, cfg.embed_dim).mean(dim=0), mesh, u)
-    cand = _rows_of(params["tables"], cand_ids.parts, mesh, lambda t, i: t[0][i])
-    return torch.cat(_once_a_slice(_pp(lambda c, u: c @ u, mesh, cand, u), mesh))
+    items = col.all_gather(_pp(lambda t: t[0], mesh, tables.parts), mesh,
+                           axes_of(tables.spec[1]), 0)
+    scores = _pp(lambda t, i, u: t[i.long()] @ u, mesh, items, cand_ids.parts, u)
+    return torch.cat(_once_a_slice(scores, mesh))
 
 
 def flops_forward(cfg: XDeepFMCfg, batch: int) -> float:

@@ -17,7 +17,7 @@
   GraphCast (bf16 states) within its measured whole-model bounds;
 * ``gnn_inputs`` / ``gnn_graph`` / ``gnn_batch``: seeded, the molecule
   batch padded with masked edges at node 0, cut graphs, and the refusals
-  (a mesh of several devices names ROADMAP Queue 1 item 3b);
+  (a mesh's axes; the mesh programs are ``tests/test_torch_gnn_mesh.py``'s);
 * ``python -m repro_torch.launch.train --arch <gnn arch> --smoke --device
   cpu`` trains each of the four archs.
 """
@@ -223,8 +223,10 @@ def test_gnn_inputs_and_refusals():
     with pytest.raises(ValueError, match="not a recsys program"):
         programs.recsys_inputs(mol, "cpu")
     for arch in GNN_ARCHS:
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3b"):
-            programs.build(arch, "full_graph_sm", _mesh((2, 1)), smoke=True)
+        assert programs.build(arch, "full_graph_sm", _mesh((2, 1)), smoke=True).mesh is not None
+        with pytest.raises(ValueError, match="has a 'model' axis"):
+            programs.build(arch, "full_graph_sm", meshlib.make_mesh(
+                (2, 1), ("data", "expert"), ["cpu"] * 2), smoke=True)
     assert programs.build("equiformer-v2", "minibatch_lg", mesh).cfg.edge_chunks == 1
     assert programs.build("equiformer-v2", "ogb_products", mesh).cfg.edge_chunks == 128
 

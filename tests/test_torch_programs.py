@@ -112,10 +112,9 @@ def test_build_refuses_an_unported_family(monkeypatch):
     assert all(jspec.family in PORTED for jspec in JARCHS.values())  # no family left unported
     gnn = [a for a, jspec in JARCHS.items() if jspec.family == "gnn"]
     assert gnn == ["mace", "graphcast", "egnn", "equiformer-v2"]
-    for arch_id in gnn:  # one device only: a mesh of several is the next item
+    for arch_id in gnn:  # a mesh of several devices too (tests/test_torch_gnn_mesh.py)
         shape = JARCHS[arch_id].shapes[0].shape_id
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3b"):
-            programs.build(arch_id, shape, _mesh((1, 2)), smoke=True)
+        assert programs.build(arch_id, shape, _mesh((1, 2)), smoke=True).mesh.sizes == (1, 2)
         assert programs.build(arch_id, shape, mesh, smoke=True).mesh is None
     with pytest.raises(KeyError):
         programs.build("gcn-cora", "full_graph_sm", mesh)
