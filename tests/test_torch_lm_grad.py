@@ -18,6 +18,12 @@ the same numpy inputs:
   parameters and optimizer state.
 
 Tolerances (measured on this CPU in brackets):
+* flash outputs: each side the f32 online softmax rounded once to bf16,
+  so each within half a bf16 step + eps of the float64 attention, eps the
+  f32 error bound of ``flash_float64``, and the two within a step + 2·eps;
+  the loss, a sum of n f32 products, within the probabilistic bound
+  (λ·√n + 1)·u·Σ|terms| of the float64 sum of its side's output (not a
+  bound relative to the loss: Σ|terms| is ~670 times the loss);
 * flash gradients (bf16): relative L2 1e-3 a gradient [≤ 1.5e-4; most
   cases bit-equal];
 * loss 1e-4 relative [≤ 1.1e-5]; gradients relative L2 3e-2 a leaf [≤
@@ -56,6 +62,8 @@ from repro_torch.models import layers as L, transformer as tf
 from repro_torch.train.trainer import value_and_grad
 from repro_torch.tree import leaves
 
+from lm_float64 import LAMBDA, U_F32
+
 LM_ARCHS = ("tinyllama-1.1b", "gemma2-27b", "command-r-plus-104b", "olmoe-1b-7b",
             "kimi-k2-1t-a32b")
 FLASH_TOL = 1e-3
@@ -82,6 +90,57 @@ def rel_l2(got, want) -> float:
 # the flash backward
 # ---------------------------------------------------------------------------
 
+def bf16_step(y) -> np.ndarray:
+    """The bf16 spacing (8 significand bits) at magnitudes ``y``."""
+    return np.exp2(np.floor(np.log2(np.maximum(y, 2.0 ** -126))) - 7)
+
+
+def sum_bound(terms) -> float:
+    """How far an f32 sum of the f32 products ``terms`` (given exactly)
+    may lie from their exact sum, in any order: one rounding a product and
+    the probabilistic bound λ·√n·u·Σ|x_i| of an n-term sum (Higham & Mary,
+    SIAM J. Sci. Comput. 41(5), 2019), λ = ``LAMBDA``."""
+    terms = np.asarray(terms, np.float64).ravel()
+    return (LAMBDA * np.sqrt(terms.size) + 1) * U_F32 * float(np.abs(terms).sum())
+
+
+def flash_float64(q, k, v, *, causal, window, attn_softcap, chunk_q, chunk_kv):
+    """Attention of the bf16-rounded ``q``, ``k``, ``v`` in float64 (plain
+    softmax) [B, Sq, H, dh], and an elementwise bound ``eps`` on how far the
+    f32 online softmax of either side lies from it, to first order in u =
+    2^-24: a score's error ``(dh + 8)·u·Σ_d|q_d k_d|/√dh`` (the dot, the
+    scale, the softcap's divide, tanh within 4 ulps, multiply), each
+    probability's relative error ρ_j that plus ``u·(|s_j| + 3·max|s|) + (5 +
+    6·n_kv)·u`` (the shift by the running max, exp within 4 ulps, the n_kv
+    chunks' rescales), and ``eps = Σ_j p_j ρ_j |v_j - o| + (n + 2·n_kv + 2)·u
+    ·Σ_j p_j |v_j|`` (the n-key sums of p and p·v, the rescales, the
+    divide)."""
+    u = U_F32
+    q, k, v = (torch.from_numpy(a).bfloat16().double() for a in (q, k, v))
+    B, Sq, H, dh = q.shape
+    Skv, Kv = k.shape[1:3]
+    k, v = k.repeat_interleave(H // Kv, 2), v.repeat_interleave(H // Kv, 2)
+    scale = 1 / np.sqrt(dh)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    a = torch.einsum("bqhd,bkhd->bhqk", q.abs(), k.abs()) * scale
+    if attn_softcap is not None:
+        s = attn_softcap * torch.tanh(s / attn_softcap)
+    qp, kp = torch.arange(Sq)[:, None], torch.arange(Skv)[None]
+    mask = kp < Skv
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    p = torch.softmax(torch.where(mask, s, -torch.inf), dim=-1)
+    o = torch.einsum("bhqk,bkhd->bhqd", p, v)
+    n_kv = -(-Skv // min(chunk_kv, Skv))
+    rho = ((dh + 8) * a + s.abs() + 3 * s.abs().amax() + 5 + 6 * n_kv) * u
+    vt = v.permute(0, 2, 1, 3)  # [B, H, Skv, dh]
+    eps = torch.einsum("bhqk,bhqkd->bhqd", p * rho, (vt[:, :, None] - o[:, :, :, None]).abs())
+    eps = eps + (mask.sum(-1, keepdim=True) + 2 * n_kv + 2) * u * (p @ vt.abs())
+    return (o.permute(0, 2, 1, 3).numpy(), eps.permute(0, 2, 1, 3).numpy())
+
+
 FLASH_CASES = [
     # (B, Sq, Skv, H, Kv, dh, causal, window, softcap, chunk_q, chunk_kv)
     (2, 37, 37, 4, 2, 8, True, None, None, 8, 16),  # causal, GQA, short last chunks
@@ -94,20 +153,28 @@ FLASH_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
-def test_flash_gradients_like_jax(case):
+def flash_inputs(case):
+    """A ``FLASH_CASES`` case's keywords, f32 q, k, v and the loss's weights."""
     B, Sq, Skv, H, Kv, dh, causal, window, cap, cq, ckv = case
     kw = dict(causal=causal, window=window, attn_softcap=cap, chunk_q=cq, chunk_kv=ckv)
     rng = np.random.default_rng(Sq + Skv + H)
     q, k, v = (rng.standard_normal(s).astype(np.float32)
                for s in ((B, Sq, H, dh), (B, Skv, Kv, dh), (B, Skv, Kv, dh)))
-    w = rng.standard_normal((B, Sq, H, dh)).astype(np.float32)  # the loss's weights
+    return kw, q, k, v, rng.standard_normal((B, Sq, H, dh)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_gradients_like_jax(case):
+    B, Sq, Skv, H = case[:4]
+    kw, q, k, v, w = flash_inputs(case)
 
     def jloss(q, k, v):
-        return jnp.sum(jL.chunked_attention(q, k, v, **kw).astype(jnp.float32) * w)
+        out = jL.chunked_attention(q, k, v, **kw)
+        return jnp.sum(out.astype(jnp.float32) * w), out
 
     jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
-    jval, jgrads = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2)))(jq, jk, jv)
+    (jval, jout), jgrads = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True))(
+        jq, jk, jv)
     tq, tk, tv = (torch.from_numpy(a).bfloat16().requires_grad_() for a in (q, k, v))
     sizes = []
 
@@ -123,10 +190,45 @@ def test_flash_gradients_like_jax(case):
     assert max(sizes) < B * H * Sq * Skv // 2  # no probabilities stored
     loss = (out.float() * torch.from_numpy(w)).sum()
     loss.backward()
-    np.testing.assert_allclose(float(loss.detach()), float(jval), rtol=1e-5)
+    # Each output is the f32 flash rounded once to bf16: within one bf16 step of the other
+    # side's (+ 2·eps, eps ``flash_float64``'s f32 bound); the loss a sum of n f32 terms in
+    # another order, so within ``sum_bound`` of either side plus what the outputs' steps move it
+    # (measured on an AMD EPYC host: 1 output of 4,224 a step apart, at 0.26 of its bound; the
+    # loss at 3.7e-6 of its bound).
+    o64, eps = flash_float64(q, k, v, **kw)
+    got, want = f32(out).astype(np.float64), f32(jout).astype(np.float64)
+    assert np.all(np.abs(got - want) <= bf16_step(np.abs(o64) + eps) + 2 * eps)
+    slack = np.sum((bf16_step(np.abs(o64) + eps) + 2 * eps) * np.abs(w))
+    bound = slack + sum_bound(got * w) + sum_bound(want * w)
+    assert abs(float(loss.detach()) - float(jval)) <= bound
     for name, t, j in zip("qkv", (tq, tk, tv), jgrads):
         assert t.grad.dtype == torch.bfloat16, name
         assert rel_l2(t.grad, j) <= FLASH_TOL, (name, rel_l2(t.grad, j))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_like_float64(case):
+    """The port's and the JAX package's flash outputs each within half a bf16
+    step + eps of the float64 attention (``flash_float64``), and each
+    side's f32 loss within ``sum_bound`` of the float64 sum of its own
+    output's terms (measured on an AMD EPYC host: outputs within 0.9983 of
+    their bound, their f32 values before the rounding within 0.18 of eps;
+    losses within 8.6e-4 of theirs)."""
+    kw, q, k, v, w = flash_inputs(case)
+    o64, eps = flash_float64(q, k, v, **kw)
+
+    def jfn(q, k, v):
+        out = jL.chunked_attention(q, k, v, **kw)
+        return out, jnp.sum(out.astype(jnp.float32) * w)
+
+    jout, jval = jax.jit(jfn)(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)))
+    with torch.no_grad():
+        out = L.chunked_attention(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)), **kw)
+        loss = (out.float() * torch.from_numpy(w)).sum()
+    for got, val in ((f32(out), loss), (f32(jout), jval)):
+        got = got.astype(np.float64)
+        assert np.all(np.abs(got - o64) <= bf16_step(np.abs(o64) + eps) / 2 + eps)
+        assert abs(float(val) - float(np.sum(got * w))) <= sum_bound(got * w)
 
 
 # ---------------------------------------------------------------------------
