@@ -4216,6 +4216,22 @@ def _mesh_of(device, shape, spread: bool = False):
     return meshlib.make_mesh(shape, ("data", "model"), None if spread else [device] * n)
 
 
+def layout_of(prog, B: int, S: int) -> str:
+    """The residual stream's layout of an LM program on a mesh at B x S:
+    S split over the rules' ``"seq_sp"`` axes (the sequence-parallel
+    layout) or whole (S does not divide, the rule is None, a decode
+    step's one token)."""
+    from repro_torch.dist.sharding import axes_of
+    from repro_torch.models import transformer_mesh as tmesh
+
+    if prog.mesh is None:
+        return "one device"
+    axes = axes_of(tmesh.seq_entry(prog.mesh, (B, S, prog.cfg.d_model), prog.rules))
+    if not axes:
+        return "layout: residual whole"
+    return f"layout: seq_sp, S / {prog.mesh.size(axes)} a position over {', '.join(axes)}"
+
+
 def _unsharded(x):
     from repro_torch.dist.sharding import Sharded
 
@@ -4270,9 +4286,11 @@ def mesh_smoke_13a(device, seed: int) -> dict:
             if single.cfg.moe and shape == "prefill_32k":
                 got = _serve_out(programs.build(arch, shape, _mesh_of(device, (1, 4)), smoke=True),
                                  args)
+            B, S = (args[1].shape if shape == "prefill_32k" else (args[2].shape[0], 1))
             out[f"{arch}:{shape}"] = dict(
                 single=_mesh_held(got, _serve_out(single, args), f"13a {arch}:{shape} (1, 1)"),
-                cpu=cpu_held, moe_prefill=bool(single.cfg.moe) and shape == "prefill_32k")
+                cpu=cpu_held, moe_prefill=bool(single.cfg.moe) and shape == "prefill_32k",
+                layout=layout_of(card, B, S))
     return out
 
 
@@ -4325,7 +4343,8 @@ def moe_mesh_13b(device, seed: int, spread: bool = False) -> dict:
         if not torch.isfinite(logits).all() or tuple(logits.shape) != (B, cfg.vocab):
             fail(f"13b {shape}: logits of shape {tuple(logits.shape)}")
         out[shape] = dict(seconds=secs, tokens_per_s=B * S / secs, peak=peak, base=base,
-                          kept=kept, dropped_share=1 - kept / pairs, logits=logits, grown=grown)
+                          kept=kept, dropped_share=1 - kept / pairs, logits=logits, grown=grown,
+                          layout=layout_of(prog, B, S))
     for shape in MESH_MOE:
         r = out[shape]
         r["vs_single"] = float((r["logits"] - out[(1, 1)]["logits"]).norm()
@@ -4393,7 +4412,8 @@ def decode_mesh_13cd(device, seed: int, shape: str, batch, spread: bool = False)
     params, cache, new, lengths = programs.lm_inputs(single, device, seed=seed, batch=batch)
     b, ctx = cache["k"].shape[1], cache["k"].shape[2]
     out = dict(B=b, ctx=ctx, base=base, grown=_placed_bytes(prog, params),
-               bound=lm_bound(cfg, params["embed"].element_size(), B=b, S=1, ctx=ctx))
+               bound=lm_bound(cfg, params["embed"].element_size(), B=b, S=1, ctx=ctx),
+               layout=layout_of(prog, b, 1))
     if out["grown"] and not spread:
         fail(f"13 {shape}: placing the parameters on the mesh allocated {out['grown']} bytes")
     for name, p in (("single", single), ("mesh", prog)):
@@ -4434,7 +4454,8 @@ def mesh_phase(device, seed: int, spread: bool = False) -> dict:
     t0 = time.perf_counter()
     for cell, r in mesh_smoke_13a(device, seed).items():
         moe = " (against (1, 1) on (1, 4))" if r["moe_prefill"] else ""
-        print(f"13a {cell} on {MESH_SMOKE}{moe}: against the card's (1, 1) logits relative L2 "
+        print(f"13a {cell} on {MESH_SMOKE} ({r['layout']}){moe}: against the card's (1, 1) "
+              f"logits relative L2 "
               f"{r['single']['logits']:.3g}, k / v {r['single']['layer']:.3g}; against a "
               f"{MESH_SMOKE} mesh of cpu logits {r['cpu']['logits']:.3g}, k / v "
               f"{r['cpu']['layer']:.3g} (tol {MESH_TOL})", flush=True)
@@ -4449,7 +4470,8 @@ def mesh_phase(device, seed: int, spread: bool = False) -> dict:
         extra = "" if shape == (1, 1) else (f", logits relative L2 to (1, 1) {r['vs_single']:.3g} "
                                             "(not held: random weights grow a rounding through "
                                             "16 layers)")
-        print(f"13b {shape} prefill B = {MOE_PREFILL[0]} x S = {MOE_PREFILL[1]}: "
+        print(f"13b {shape} ({r['layout']}) prefill B = {MOE_PREFILL[0]} x S = "
+              f"{MOE_PREFILL[1]}: "
               f"{r['seconds']:.4f}s, {r['tokens_per_s']:.1f} tokens/s, peak {r['peak']} bytes "
               f"on the lead ({r['base']} resident before; {r['grown']} bytes added placing "
               f"the parameters), pairs kept {r['kept']}, dropped share "
@@ -4469,7 +4491,8 @@ def mesh_phase(device, seed: int, spread: bool = False) -> dict:
         for name in ("single", "mesh"):
             r = d[name]
             where = (1, 1) if name == "single" else MESH_DECODE
-            print(f"{label} {shape} {where}, B = {d['B']}, {d['ctx']} slots: median "
+            lay = "one device" if name == "single" else d["layout"]
+            print(f"{label} {shape} {where} ({lay}), B = {d['B']}, {d['ctx']} slots: median "
                   f"{r['median_ms']:.3f} ms a step over {len(r['ms'])} (min {min(r['ms']):.3f}, "
                   f"max {max(r['ms']):.3f}), peak {r['peak']} bytes ({d['base']} before); bound "
                   f"{d['bound'][0]:.4f} ms ({d['bound'][1]}); {card}", flush=True)
@@ -4629,8 +4652,11 @@ def train_mesh_14a(device, seed: int) -> dict:
                     a, b = got[0][step][key], want[0][step][key]
                     if not abs(a / b - 1) <= tol:
                         fail(f"{where} step {step + 1}: {key} {a} against {b} (tol {tol})")
+        B, S = base[2]["tokens"].shape
         out[arch] = dict(err=errs, optimizer=spec.optimizer, moe=moe, label=label,
-                         losses={k: [h["loss"] for h in v[0]] for k, v in runs.items()})
+                         losses={k: [h["loss"] for h in v[0]] for k, v in runs.items()},
+                         layout=layout_of(programs.build(arch, "train_4k", spread, smoke=True),
+                                          B, S))
     return out
 
 
@@ -4671,7 +4697,7 @@ def dense_mesh_14b(device, seed: int) -> dict:
         fail(f"14b: the loss did not fall over {DENSE_MESH_STEPS} steps: "
              f"{[h['loss'] for h in r['hist']]}")
     r.update(bound=train_bound(prog.cfg, r["elt"], r["state_bytes"], B=B, S=S),
-             layers=prog.cfg.n_layers, n_params=prog.cfg.n_params)
+             layers=prog.cfg.n_layers, n_params=prog.cfg.n_params, layout=layout_of(prog, B, S))
     return r
 
 
@@ -4697,7 +4723,8 @@ def moe_mesh_14c(device, seed: int) -> dict:
         fail(f"14c: the loss did not fall over {MOE_MESH_STEPS} steps: "
              f"{[h['loss'] for h in r['hist']]}")
     r.update(layers=prog.cfg.n_layers, n_params=prog.cfg.n_params,
-             bound=train_bound(prog.cfg, r["elt"], r["state_bytes"], B=B, S=S))
+             bound=train_bound(prog.cfg, r["elt"], r["state_bytes"], B=B, S=S),
+             layout=layout_of(prog, B, S))
     return r
 
 
@@ -4863,7 +4890,8 @@ def train_mesh_phase(device, seed: int, dense_12b=None) -> dict:
     for arch, r in train_mesh_14a(device, seed).items():
         e = r["err"]
         extra = " (layout on (1, 4): an MoE's capacity is a data slice's)" if r["moe"] else ""
-        print(f"14a {arch} ({r['optimizer']}), {TRAIN_MESH_STEPS} steps of B 2 x S 64, step 1 "
+        print(f"14a {arch} ({r['optimizer']}; {r['layout']}), {TRAIN_MESH_STEPS} steps of "
+              f"B 2 x S 64, step 1 "
               f"relative (loss, grad_norm, state, parameters): card mesh against cpu mesh "
               f"{_errs(e['cpu'])}; distinct devices ({r['label']}) against the card mesh "
               f"{_errs(e['distinct'])}; card mesh against the card's (1, 1){extra} "
@@ -4879,7 +4907,7 @@ def train_mesh_phase(device, seed: int, dense_12b=None) -> dict:
     print(f"14b batch cut to B = {d['B']} x S = {d['S']} (from 256 x 4,096), {d['layers']} "
           f"layers ({d['n_params']} parameters), f32 AdamW, {DENSE_MESH_STEPS} steps on one "
           f"TokenStream batch", flush=True)
-    print(_train_line(f"14b {DENSE_MESH}", d, card), flush=True)
+    print(_train_line(f"14b {DENSE_MESH} ({d['layout']})", d, card), flush=True)
     print(_prof_line(f"14b a {DENSE_MESH} step", d["prof"]), flush=True)
     if dense_12b is not None:
         print(f"14b beside 12b's (1, 1) step in this run: {d['median_ms']:.1f} against "
@@ -4896,7 +4924,7 @@ def train_mesh_phase(device, seed: int, dense_12b=None) -> dict:
     print(f"14c depth cut to {m['layers']} of 16 layers ({m['n_params']} parameters), batch cut "
           f"to B = {m['B']} x S = {m['S']}, f32 AdamW, {MOE_MESH_STEPS} steps on one batch; the "
           f"router's gradient norm at step 1 {m['first']:.4g}", flush=True)
-    print(_train_line(f"14c {DENSE_MESH}", m, card), flush=True)
+    print(_train_line(f"14c {DENSE_MESH} ({m['layout']})", m, card), flush=True)
     print(_prof_line(f"14c a {DENSE_MESH} step", m["prof"]), flush=True)
     print(f"14c done in {time.perf_counter() - t0:.1f}s", flush=True)
     mid = dict(ops.LAUNCHES)
@@ -5417,26 +5445,69 @@ def dryrun_phase(card: str) -> dict:
     for label, c in DRY_CELLS.items():
         t0 = time.perf_counter()
         got = dryrun.measure(c["fn"], c["args"])
-        r = roofline.analyze(label, "1x1", 1, got["cost"], got["wire"], 0.0, got["peak"])
-        ratio = got["peak"] / c["footprint"]
+        # the footprint is the whole mesh's on one card: the dry run's whole-mesh peak
+        r = roofline.analyze(label, "1x1", 1, got["cost"], got["wire"], 0.0, got["mesh_peak"])
+        ratio = got["mesh_peak"] / c["footprint"]
         out[label] = dict(r.to_dict(), ratio=ratio, ms=c["ms"])
         print(f"16 {label}: {got['cost'].flops:.6g} flops (bf16 products "
               f"{got['cost'].flops_bf16:.6g}, f32 products {got['cost'].flops_f32:.6g}, other "
               f"{got['cost'].flops_other:.6g}), {got['cost'].bytes_naive:.6g} bytes; analytic H100 "
               f"SXM bounds: compute {r.t_compute * 1e3:.4f} ms, memory {r.t_memory * 1e3:.4f} ms, "
               f"collective {r.t_collective * 1e3:.4f} ms ({r.bottleneck}); peak estimate "
-              f"{got['peak']} bytes against the measured footprint {c['footprint']} bytes "
+              f"{got['mesh_peak']} bytes against the measured footprint {c['footprint']} bytes "
               f"(max_memory_allocated {c['peak']}, {c['base']} before; ratio {ratio:.3f}); "
               f"measured {c['ms']:.3f} ms a step; dry run {time.perf_counter() - t0:.1f}s; {card}",
               flush=True)
         lo, hi = DRY_PEAK_RANGE
         if not lo <= ratio <= hi:
-            fail(f"16 {label}: the peak estimate {got['peak']} bytes is {ratio:.3f} x the measured "
+            fail(f"16 {label}: the peak estimate {got['mesh_peak']} bytes is {ratio:.3f} x the "
+                 f"measured "
                  f"{c['footprint']} (want {lo}-{hi})")
     for name in ("10b", "12b", "14d", "15b"):
         if not any(k.startswith(name) for k in out):
             fail(f"16: no {name} cell was measured")
+    out["seq_sp"] = dry_layouts(card)
     return out
+
+
+DRY_LAYOUT_CELL = ("tinyllama-1.1b", "train_4k", (2, 4))  # 16: the full config, both layouts
+
+
+def dry_layouts(card: str) -> dict:
+    """16: the dry run of ``DRY_LAYOUT_CELL`` at its full config under the
+    sequence-parallel residual stream and with it whole (``"seq_sp"`` ->
+    None): per-device and whole-mesh peaks, the collective term; fails
+    unless ``seq_sp``'s per-device peak is the lower."""
+    import multiprocessing as mp
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.launch import dryrun
+
+    arch, shape, ms = DRY_LAYOUT_CELL
+    layouts = (("seq_sp", None), ("whole", {"seq_sp": None}))
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            len(layouts), mp_context=mp.get_context("spawn")) as pool:  # both at once
+        got = pool.map(dryrun._run_one, [(arch, shape, ms, tmp, True, False, rules)
+                                         for _, rules in layouts])
+        recs = {name: rec for (name, _), rec in zip(layouts, got)}
+    for name, rec in recs.items():
+        if not rec["ok"]:
+            fail(f"16 {arch}:{shape} {ms} {name}: {rec.get('error')}")
+        rec["seconds"] = rec["t_build_s"] + rec["t_run_s"]
+    sp, whole = recs["seq_sp"], recs["whole"]
+    print(f"16 {arch}:{shape} full config on a {ms} meta mesh, per-device peak (the largest "
+          f"position's, as the JAX record's): seq_sp {sp['peak_mem_bytes']} bytes, residual whole "
+          f"{whole['peak_mem_bytes']} bytes ({whole['peak_mem_bytes'] - sp['peak_mem_bytes']} "
+          f"lower under seq_sp); the whole mesh's {sp['mesh_peak_mem_bytes']} / "
+          f"{whole['mesh_peak_mem_bytes']}; collective term {sp['t_collective'] * 1e3:.2f} / "
+          f"{whole['t_collective'] * 1e3:.2f} ms (analytic H100 SXM); dry runs "
+          f"{sp['seconds']:.1f} / {whole['seconds']:.1f} s; {card}", flush=True)
+    if not sp["peak_mem_bytes"] < whole["peak_mem_bytes"]:
+        fail(f"16 {arch}:{shape} {ms}: the per-device peak under seq_sp "
+             f"({sp['peak_mem_bytes']}) is not below the whole residual's "
+             f"({whole['peak_mem_bytes']})")
+    return recs
 
 
 # phase 17: the examples on the card, each a process of its own (small sizes)

@@ -11,11 +11,15 @@ devices repeat it runs once and every position gets the same tensor.
 Positions whose inputs are the same objects compute once: :func:`per_position`
 calls its function once a (device, inputs) and :func:`reduce_over` once a
 (device, group entries), so a replicated value on a repeated device is
-computed, stored and reduced once, not once a position.
+computed, stored and reduced once, not once a position.  While such a call
+runs, :func:`served` names the positions it serves (every position that
+takes its result), so the dry run (``launch/dryrun.py``) can count what it
+stores for each of them, as distinct cards would hold it.
 
-The graph collectives (:func:`halo_gather`, :func:`summed_scatter`) are
-autograd functions with the SPMD backward of their kind: a gather's is a
-reduce-scatter of the gradients, a reduce-scatter's an all-gather.
+The graph collectives (:func:`halo_gather`, :func:`summed_scatter`) and
+:func:`reduce_scatter` are autograd functions with the SPMD backward of
+their kind: a gather's is a reduce-scatter of the gradients, a
+reduce-scatter's an all-gather.
 
 Every collective over a group of ``g > 1`` positions adds, for each position
 of the group, the bytes a ring algorithm would send to :data:`WIRE` (the
@@ -53,6 +57,31 @@ def _collective():
 
 def in_collective() -> bool:
     return getattr(_REGION, "on", False)
+
+
+_SERVING = threading.local()
+
+
+class _Serving:
+    """Within it, :func:`served` is ``positions``."""
+
+    __slots__ = ("positions", "prev")
+
+    def __init__(self, positions: tuple):
+        self.positions = positions
+
+    def __enter__(self):
+        self.prev = getattr(_SERVING, "at", None)
+        _SERVING.at = self.positions
+
+    def __exit__(self, *exc):
+        _SERVING.at = self.prev
+
+
+def served() -> tuple | None:
+    """The mesh positions the running :func:`per_position` call or
+    collective combine serves (in order), None outside one."""
+    return getattr(_SERVING, "at", None)
 
 
 # wire bytes a kind of collective has moved, summed over mesh positions; and the part of
@@ -125,16 +154,20 @@ def _to(v, dev):
 def per_position(fn: Callable, mesh, *args: Sequence) -> tuple:
     """``fn(*entries)`` for each position, ``args`` being per-position
     sequences; positions on one device whose entries are the same objects
-    (or equal plain values) share one call and its result."""
-    memo: dict = {}
-    out = []
+    (or equal plain values) share one call and its result, the call made
+    while :func:`served` names them."""
+    calls: dict = {}
+    keys = []
     for pos, dev in enumerate(mesh.devices):
         vals = [a[pos] for a in args]
         key = (dev, tuple(_key(v) for v in vals))
-        if key not in memo:
-            memo[key] = fn(*vals)
-        out.append(memo[key])
-    return tuple(out)
+        calls.setdefault(key, (vals, []))[1].append(pos)
+        keys.append(key)
+    done = {}
+    for key, (vals, positions) in calls.items():
+        with _Serving(tuple(positions)):
+            done[key] = fn(*vals)
+    return tuple(done[k] for k in keys)
 
 
 def _count_backward(res, kind: str, g: int) -> None:
@@ -157,13 +190,10 @@ def reduce_over(parts: Sequence, mesh, axes, combine: Callable, kind: str = "all
     out: list = [None] * len(parts)
     memo: dict = {}
     copies: dict = {}
-    for grp in groups(mesh, axes):
-        lead = mesh.devices[grp[0]]
-        vals = [parts[p] for p in grp]
-        key = (lead, tuple(_key(v) for v in vals))
+    for grp, key, lead, served_by in _grouped(parts, mesh, axes):
         if key not in memo:
-            with _collective():
-                memo[key] = combine([_to(v, lead) for v in vals])
+            with _collective(), _Serving(served_by):
+                memo[key] = combine([_to(parts[p], lead) for p in grp])
             if kind == "all-gather":
                 _count_backward(memo[key], "reduce-scatter", len(grp))
         res = memo[key]
@@ -174,9 +204,24 @@ def reduce_over(parts: Sequence, mesh, axes, combine: Callable, kind: str = "all
                 out[p] = res
             else:
                 if (key, dev) not in copies:
-                    copies[key, dev] = _to(res, dev)
+                    with _Serving(tuple(q for q in served_by if mesh.devices[q] == dev)):
+                        copies[key, dev] = _to(res, dev)
                 out[p] = copies[key, dev]
     return tuple(out)
+
+
+def _grouped(parts: Sequence, mesh, axes) -> list[tuple]:
+    """(group, key, lead device, positions served) of each group over
+    ``axes``: groups whose entries are the same objects on the same lead
+    share a key, and the positions served by it are every such group's."""
+    out = []
+    served_by: dict = {}
+    for grp in groups(mesh, axes):
+        lead = mesh.devices[grp[0]]
+        key = (lead, tuple(_key(parts[p]) for p in grp))
+        served_by.setdefault(key, []).extend(grp)
+        out.append((grp, key, lead))
+    return [(grp, key, lead, tuple(sorted(served_by[key]))) for grp, key, lead in out]
 
 
 def sum_in_order(vals):
@@ -208,8 +253,80 @@ def pmax(parts: Sequence, mesh, axes) -> tuple:
 
 
 def all_gather(parts: Sequence, mesh, axes, dim: int) -> tuple:
-    """Concatenation along ``dim`` over ``axes``, in block order."""
+    """Concatenation along ``dim`` over ``axes``, in block order.  Its
+    backward (autograd's, through the one concatenation a group) gives each
+    entry its block of the gathered value's gradient, summed over every
+    position that took it."""
     return reduce_over(parts, mesh, axes, lambda vals: torch.cat(vals, dim=dim), "all-gather")
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """A group's entries summed in order on ``lead`` (:func:`sum_in_order`)
+    and split along ``dim`` into one block an entry; block ``b`` delivered
+    to each device of ``targets``' ``(b, device)`` as a storage of its own
+    (a view would keep the whole sum alive), made while :func:`served`
+    names ``at[i]``, the positions that take target ``i`` (the sum: all of
+    them).  Backward: the blocks' gradients concatenated on ``lead`` (an
+    all-gather) and given to every entry."""
+
+    @staticmethod
+    def forward(ctx, dim, lead, targets, at, *entries):
+        with _collective(), _Serving(tuple(sorted(q for ps in at for q in ps))):
+            total = sum_in_order([_to(e, lead) for e in entries])
+        blocks = total.chunk(len(entries), dim)
+        ctx.dim, ctx.lead, ctx.targets = dim, lead, targets
+        ctx.block_shapes = [b.shape for b in blocks]
+        ctx.part = [(e.device, e.dtype) for e in entries]
+        out = []
+        for (b, dev), positions in zip(targets, at):
+            with _Serving(positions):
+                out.append(blocks[b].clone() if dev == lead else blocks[b].to(dev))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        by_block: dict = {}
+        for (b, _), g in zip(ctx.targets, grads):
+            if g is not None:
+                by_block.setdefault(b, []).append(g.to(ctx.lead))
+        ref = next(g for gs in by_block.values() for g in gs)
+        with _collective():
+            full = torch.cat([sum_in_order(by_block[b]) if len(by_block.get(b, ())) > 1
+                              else by_block[b][0] if b in by_block else ref.new_zeros(shape)
+                              for b, shape in enumerate(ctx.block_shapes)], ctx.dim)
+        count_wire("all-gather", _nbytes(full), len(ctx.part))
+        made: dict = {}
+        out = []
+        for dev, dt in ctx.part:
+            if (dev, dt) not in made:
+                made[dev, dt] = full.to(device=dev, dtype=dt)
+            out.append(made[dev, dt])
+        return (None, None, None, None, *out)
+
+
+def reduce_scatter(parts: Sequence, mesh, axes, dim: int) -> tuple:
+    """Each group's entries over ``axes`` summed (:func:`sum_in_order` on
+    the group's lead device, as :func:`psum`) and each position given its
+    block of the sum along ``dim`` over ``axes``, in block order: a storage
+    of its own a (device, block).  The backward all-gathers the blocks'
+    gradients to every entry.  No axes: ``parts`` unchanged."""
+    axes = tuple(axes)
+    if not axes or mesh.size(axes) == 1:
+        return tuple(parts)
+    out: list = [None] * len(parts)
+    memo: dict = {}
+    for grp, key, lead, served_by in _grouped(parts, mesh, axes):
+        if key not in memo:
+            at: dict = {}
+            for q in served_by:
+                at.setdefault((block_index(mesh, q, axes), mesh.devices[q]), []).append(q)
+            res = _ReduceScatter.apply(dim, lead, tuple(at), tuple(map(tuple, at.values())),
+                                       *(parts[p] for p in grp))
+            memo[key] = dict(zip(at, res))
+        count_wire("reduce-scatter", _nbytes(parts[grp[0]]), len(grp))
+        for p in grp:
+            out[p] = memo[key][block_index(mesh, p, axes), mesh.devices[p]]
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,7 @@ import torch
 DEFAULT_RULES: dict[str, object] = {
     # activations
     "batch": ("pod", "data"),
-    "seq_sp": "model",  # sequence-parallel residual stream (kept whole here)
+    "seq_sp": "model",  # sequence-parallel residual stream (models/transformer_mesh.py)
     "kv_seq": None,
     # LM params
     "vocab": "model",

@@ -277,32 +277,50 @@ def shard_params(params: tfm.Params, mesh: Mesh, rules: dict | None = None) -> d
                     params, tfm.param_axes(params))
 
 
-def _place_args(cfg: tfm.TransformerCfg, mesh: Mesh, rules: dict, args, opt=None) -> tuple:
+def _place_args(cfg: tfm.TransformerCfg, mesh: Mesh, rules: dict, args, opt=None,
+                memo: dict | None = None) -> tuple:
     """An LM program's arguments on ``mesh`` by the specs of their own
     shapes: tensors split (views on their own device), ``Sharded`` ones
-    checked."""
+    checked.  ``memo``: the specs already made, by (B, S) (making them
+    makes ``meta`` optimizer state)."""
     kind = "train" if opt is not None else ("prefill" if len(args) == 2 else "decode")
     if kind == "train":
         B, S = args[2]["tokens"].shape
     else:
         B, S = args[1].shape if kind == "prefill" else args[1]["k"].shape[1:3]
-    specs = _mesh_specs(cfg, kind, mesh, rules, B, S, opt)
-    return tuple(_place(a, mesh, sp) for a, sp in zip(args, specs))
+    memo = {} if memo is None else memo
+    if (B, S) not in memo:
+        memo[B, S] = _mesh_specs(cfg, kind, mesh, rules, B, S, opt)
+    return tuple(_place(a, mesh, sp) for a, sp in zip(args, memo[B, S]))
 
 
 def _mesh_fn(cfg: tfm.TransformerCfg, kind: str, mesh: Mesh, rules: dict,
-             opt: optim.Optimizer | None) -> Callable:
+             opt: optim.Optimizer | None, memo: dict) -> Callable:
     """The program function on ``mesh``: its arguments placed by
-    :func:`_place_args`."""
+    :func:`_place_args` (``memo`` its specs by (B, S))."""
     if kind == "train":
-        run = make_train_step(partial(tmesh.loss_fn, cfg, mesh=mesh), opt)
+        run = make_train_step(partial(tmesh.loss_fn, cfg, mesh=mesh, rules=rules), opt)
     else:
         step = partial(tmesh.prefill, rules=rules) if kind == "prefill" else tmesh.decode_step
         run = partial(step, cfg, mesh=mesh)
 
     def fn(*args):
-        return run(*_place_args(cfg, mesh, rules, args, opt))
+        return run(*_place_args(cfg, mesh, rules, args, opt, memo))
     return fn
+
+
+def place(program: Program, args) -> tuple:
+    """``args`` of a program placed on its mesh once, as its ``fn`` would
+    place them on every call (an LM's by :func:`lm_place`, a GNN's by
+    :func:`gnn_place_on`, a recsys one's by ``in_shardings``); a
+    one-device program's as they are."""
+    if program.mesh is None:
+        return tuple(args)
+    if isinstance(program.cfg, tfm.TransformerCfg):
+        return lm_place(program, args)
+    if isinstance(args[-1], gnn_common.GraphBatch):
+        return gnn_place_on(program.mesh, program.in_shardings, args)
+    return tuple(_place(a, program.mesh, sp) for a, sp in zip(args, program.in_shardings))
 
 
 def lm_place(program: Program, args) -> tuple:
@@ -314,7 +332,7 @@ def lm_place(program: Program, args) -> tuple:
 
 
 def build_lm(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *,
-             smoke: bool = False) -> Program:
+             smoke: bool = False, rules: dict | None = None) -> Program:
     """``train_4k``: ``fn(params, opt_state, {"tokens", "labels"} int32[B,
     S])`` -> (params, opt_state, {"loss", "grad_norm"}), one step of the
     arch's optimizer (``program.opt``), the parameters and state updated
@@ -330,7 +348,9 @@ def build_lm(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *
     come, ``Sharded`` ones taken as they are); logits come back [B, V] on
     the mesh's lead device, the cache as ``Sharded`` blocks, a train
     step's loss and ``grad_norm`` on the lead device, its parameters and
-    state as the ``Sharded`` trees it was given, updated in place."""
+    state as the ``Sharded`` trees it was given, updated in place.
+    ``rules`` amend the shape's sharding rules (``{"seq_sp": None}``: the
+    residual stream whole in each data slice)."""
     cfg: tfm.TransformerCfg = arch.smoke_cfg if smoke else arch.cfg
     B, S = _lm_dims(shape, smoke)
     pspecs = tfm.param_specs(cfg, _param_dtype(arch))
@@ -348,11 +368,12 @@ def build_lm(arch: cb.ArchSpec, shape: cb.ShapeSpec, mesh: Mesh | None = None, *
         meshlib.make_mesh((1, 1), ("data", MODEL_AXIS))  # the current card, or raise
     elif len(mesh.devices) > 1:
         _check_lm_mesh(cfg, shape, mesh, B)
-        rules = dict(shape.rules_override)
+        rules = {**shape.rules_override, **(rules or {})}
+        specs = {(B, S): _mesh_specs(cfg, kind, mesh, rules, B, S, opt)}
         return Program(
-            name=name, fn=_mesh_fn(cfg, kind, mesh, rules, opt), in_specs=in_specs,
+            name=name, fn=_mesh_fn(cfg, kind, mesh, rules, opt, specs), in_specs=in_specs,
             model_flops=flops, cfg=cfg, opt=opt, mesh=mesh, rules=rules,
-            in_shardings=_mesh_specs(cfg, kind, mesh, rules, B, S, opt),
+            in_shardings=specs[B, S],
         )
     if kind == "train":
         fn = make_train_step(lambda p, b: tfm.loss_fn(cfg, p, b), opt)
@@ -800,16 +821,18 @@ def recsys_inputs(program: Program, device="cuda", *, seed: int = 0,
 
 
 def build(arch_id: str, shape_id: str, mesh: Mesh | None = None, *,
-          smoke: bool = False) -> Program:
+          smoke: bool = False, rules: dict | None = None) -> Program:
     """The program of one cell.  ``mesh`` defaults to :func:`default_mesh`
     for the engine and to the current card for an LM, GNN or recsys
-    program."""
+    program; ``rules`` amend an LM program's sharding rules."""
     arch = cb.get(arch_id)
     shape = arch.shape(shape_id)
     if shape.skip:
         raise ValueError(f"{arch_id}:{shape_id} skipped: {shape.skip}")
+    if rules and arch.family != "lm":
+        raise ValueError(f"{arch_id}: sharding rules are an LM program's option")
     if arch.family == "lm":
-        return build_lm(arch, shape, mesh, smoke=smoke)
+        return build_lm(arch, shape, mesh, smoke=smoke, rules=rules)
     if arch.family == "recsys":
         return build_recsys(arch, shape, mesh, smoke=smoke)
     if arch.family == "gnn":

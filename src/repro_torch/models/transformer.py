@@ -356,14 +356,14 @@ def moe_ffn(cfg: TransformerCfg, lp: dict[str, torch.Tensor], x: torch.Tensor) -
     return _moe_expert_compute(lp, x, idx, wslot, valid, m.n_experts, C, tab)
 
 
-def moe_shmap_parts(cfg: TransformerCfg, router, we1, we3, we2, x2, mesh, e_axes) -> tuple:
+def moe_shmap_partials(cfg: TransformerCfg, router, we1, we3, we2, x2, mesh, e_axes) -> tuple:
     """The expert-parallel MoE over per-position values (``dist``'s
-    layout): ``x2`` each position's tokens [T_p, D] (bf16), ``router`` its
-    router, ``we1`` / ``we3`` / ``we2`` its experts ``e0 .. e0 + E_loc - 1``,
-    ``e0`` its block over ``e_axes`` times ``E_loc``.  Each position routes
-    its own T_p tokens (capacity from T_p) to its local experts, foreign
-    experts sorted to the tail, runs them and combines; a sum over
-    ``e_axes`` gives each position its tokens' output [T_p, D]."""
+    layout) before its sum: ``x2`` each position's tokens [T_p, D] (bf16),
+    ``router`` its router, ``we1`` / ``we3`` / ``we2`` its experts ``e0 ..
+    e0 + E_loc - 1``, ``e0`` its block over ``e_axes`` times ``E_loc``.
+    Each position routes its own T_p tokens (capacity from T_p) to its
+    local experts, foreign experts sorted to the tail, runs them and
+    combines; -> each position's share [T_p, D] of its tokens' output."""
     m = cfg.moe
     E_loc = we1[0].shape[0]
     e0s = [block_index(mesh, p, e_axes) * E_loc for p in range(len(mesh.devices))]
@@ -375,7 +375,14 @@ def moe_shmap_parts(cfg: TransformerCfg, router, we1, we3, we2, x2, mesh, e_axes
         return _moe_expert_compute({"we1": w1, "we3": w3, "we2": w2}, x, idx, wslot, valid,
                                    E_loc, C, tab)
 
-    return col.psum(col.per_position(local, mesh, x2, gates, we1, we3, we2, e0s), mesh, e_axes)
+    return col.per_position(local, mesh, x2, gates, we1, we3, we2, e0s)
+
+
+def moe_shmap_parts(cfg: TransformerCfg, router, we1, we3, we2, x2, mesh, e_axes) -> tuple:
+    """:func:`moe_shmap_partials` summed over ``e_axes``: each position's
+    tokens' output [T_p, D]."""
+    return col.psum(moe_shmap_partials(cfg, router, we1, we3, we2, x2, mesh, e_axes), mesh,
+                    e_axes)
 
 
 def moe_ffn_shmap(cfg: TransformerCfg, lp, x3: torch.Tensor, *, mesh, dp_axes,

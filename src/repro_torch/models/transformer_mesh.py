@@ -11,9 +11,17 @@ position (``dist.collectives``).  The values are those of the
 single-device functions in ``transformer.py`` up to the order of sums;
 the layout is the reference's:
 
-* the batch rows split over the data axes, the residual stream whole in
-  each data slice (the reference's sequence-parallel ``"seq_sp"``
-  constraint moves layout, not values);
+* the batch rows split over the data axes; the residual stream [B, S, D]
+  laid out as the reference's sequence-parallel constraint lays it out,
+  ``spec_for(("batch", "seq_sp", None))`` under the program's rules: where
+  that splits S over some axes (``"seq_sp"`` -> ``"model"`` by default),
+  each position holds its S block [B_p, S/m, D] (the norms run on the
+  block, the block is all-gathered over S before the q / k / v, w1 / w3 and
+  expert products, and the sums after wo, w2 and the experts are
+  reduce-scatters); where it does not (S does not divide, the rule is None,
+  decode's S = 1), the block is all of S.  The values are the whole
+  residual's bit for bit (the norms are per token and each element's sum is
+  the same ordered ``sum_in_order``);
 * ``heads`` (wq, wo), ``kv_heads`` (wk, wv), ``ffn`` (w1, w3, w2),
   ``experts`` (we1, we3, we2) and ``vocab`` (embed, unembed) split over
   the model axis where they divide, each position computing its share;
@@ -93,6 +101,31 @@ def _layer(params, i: int) -> dict[str, tuple]:
     return {k: _index(v.parts, i) for k, v in params["layers"].items()}
 
 
+def seq_entry(mesh, shape, rules):
+    """The spec entry of the residual stream's S: the reference's
+    constraint ``spec_for(("batch", "seq_sp", None), (B, S, D))`` under
+    ``rules`` (None: S whole)."""
+    return shd.spec_for(mesh, ("batch", "seq_sp", None), shape, rules)[1]
+
+
+def _block(parts, mesh, axes, dim: int = 1) -> tuple:
+    """Each position's block over ``axes`` along ``dim`` of its whole
+    value, a storage of its own; no axes: ``parts``."""
+    if not axes or mesh.size(axes) == 1:
+        return tuple(parts)
+    n = parts[0].shape[dim] // mesh.size(axes)
+    return _pp(lambda t, s0: t.narrow(dim, s0, n).clone(), mesh, parts, _starts(mesh, axes, n))
+
+
+def _scatter(parts, mesh, sum_axes, seq_axes) -> tuple:
+    """Partials [B_p, S, D] summed over ``sum_axes``, each position given
+    its S block over ``seq_axes``: a reduce-scatter where the two are the
+    same axes, else a sum and a block."""
+    if sum_axes == seq_axes:
+        return col.reduce_scatter(parts, mesh, seq_axes, 1)
+    return _block(col.psum(parts, mesh, sum_axes), mesh, seq_axes)
+
+
 def _embed(table: Sharded, tokens, mesh) -> tuple:
     """Rows of ``tokens`` (any shape, each position its own) in bf16: a
     masked take from each position's vocab block, summed over the vocab
@@ -136,40 +169,53 @@ def _kv_select(h0: int, n: int, G: int, k0: int, n_kv: int):
 
 
 def _ffn(cfg, lp, h2, mesh, ax, route_axes=None) -> tuple:
-    """The FFN of each position's tokens ``h2`` [..., D]; its partial sums
-    over the model axis.  MoE: each position routes its own tokens
-    (``moe_ffn_shmap``), or with ``route_axes`` every data slice's tokens
-    gathered over those axes (the global routing of a decode step)."""
+    """The FFN of each position's tokens ``h2`` [B_p, S, D] (all of S),
+    summed over the model axis, each position given its S block over
+    ``ax["seq"]``.  MoE: each position routes its data slice's tokens
+    (``moe_ffn_shmap``), or with ``route_axes`` (decode: S whole) every
+    data slice's tokens gathered over those axes (the global routing of a
+    decode step)."""
     if not cfg.moe:
         part = _pp(L.swiglu, mesh, h2, lp["w1"], lp["w3"], lp["w2"])
-        return col.psum(part, mesh, ax["ffn"])
+        return _scatter(part, mesh, ax["ffn"], ax["seq"])
     D = cfg.d_model
     x2 = _pp(lambda x: x.reshape(-1, D), mesh, h2)
     if route_axes:
         n = x2[0].shape[0]
         x2 = col.all_gather(x2, mesh, route_axes, 0)
-    out = tfm.moe_shmap_parts(cfg, lp["router"], lp["we1"], lp["we3"], lp["we2"], x2, mesh,
-                              ax["experts"])
-    if route_axes:
+        out = tfm.moe_shmap_parts(cfg, lp["router"], lp["we1"], lp["we3"], lp["we2"], x2, mesh,
+                                  ax["experts"])
         out = _pp(lambda o, r0: o[r0:r0 + n], mesh, out, _starts(mesh, route_axes, n))
-    return _pp(lambda o, x: o.reshape(x.shape), mesh, out, h2)
+        return _pp(lambda o, x: o.reshape(x.shape), mesh, out, h2)
+    part = tfm.moe_shmap_partials(cfg, lp["router"], lp["we1"], lp["we3"], lp["we2"], x2, mesh,
+                                  ax["experts"])
+    part = _pp(lambda o, x: o.reshape(x.shape), mesh, part, h2)
+    return _scatter(part, mesh, ax["experts"], ax["seq"])
 
 
 def _residual(cfg, lp, x, h, attn, mesh, ax, route_axes=None) -> tuple:
-    """The block's output from its input ``x``, its normed input ``h`` and
-    the attention output, as ``transformer._layer`` / ``_ffn_residual``."""
+    """The block's output (each position's S block) from its input block
+    ``x``, its normed input ``h`` gathered over S and the attention
+    output's block, as ``transformer._layer`` / ``_ffn_residual``."""
     if cfg.parallel_residual:
         f = _ffn(cfg, lp, h, mesh, ax, route_axes)
         return _pp(lambda x, a, f: x + a + f, mesh, x, attn, f)
     res = _pp(lambda x, a: x + a, mesh, x, attn)
     h2 = _pp(lambda x, a, n: L.rms_norm(x.float() + a.float(), n).to(x.dtype), mesh, x, attn,
              lp["ffn_norm"])
-    return _pp(lambda r, f: r + f, mesh, res, _ffn(cfg, lp, h2, mesh, ax, route_axes))
+    f = _ffn(cfg, lp, col.all_gather(h2, mesh, ax["seq"], 1), mesh, ax, route_axes)
+    return _pp(lambda r, f: r + f, mesh, res, f)
+
+
+def _normed(x, scale, mesh, ax) -> tuple:
+    """RMS norm of each position's block ``x``, gathered over S."""
+    return col.all_gather(_pp(L.rms_norm, mesh, x, scale), mesh, ax["seq"], 1)
 
 
 def _attention(cfg, lp, h, positions, is_local: bool, mesh, ax):
-    """Full-sequence attention of each position's query heads; -> (the
-    output summed over the heads axes, each position's (k, v) of its kv
+    """Full-sequence attention of each position's query heads over ``h``
+    (all of S); -> (the output summed over the heads axes, each position
+    given its S block over ``ax["seq"]``, each position's (k, v) of its kv
     heads)."""
     H, Kv, dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
     G, H_p, Kv_p = H // Kv, H // mesh.size(ax["heads"]), Kv // mesh.size(ax["kv"])
@@ -186,7 +232,7 @@ def _attention(cfg, lp, h, positions, is_local: bool, mesh, ax):
 
     part = _pp(heads, mesh, h, lp["wq"], lp["wo"], kv, positions, _starts(mesh, ax["heads"], H_p),
                _starts(mesh, ax["kv"], Kv_p))
-    return col.psum(part, mesh, ax["heads"]), kv
+    return _scatter(part, mesh, ax["heads"], ax["seq"]), kv
 
 
 def _cache_axes(cache: Sharded, batch_entry) -> dict[str, tuple]:
@@ -198,15 +244,23 @@ def _cache_axes(cache: Sharded, batch_entry) -> dict[str, tuple]:
     return {"seq": axes_of(s[2]), "kv": axes_of(s[3])}
 
 
-def _hidden(cfg, params, tokens: Sharded, mesh, cache=None) -> tuple:
-    """The layers over each position's prompt rows; -> the last layer's
-    output a position, writing each layer's k / v into ``cache`` (a
-    ``{"k", "v"}`` of :class:`Sharded` [L, B, S, Kv, dh]) when given."""
-    ax = _axes(params)
+def _mesh_axes(cfg, params, tokens: Sharded, mesh, rules) -> dict[str, tuple]:
+    """:func:`_axes` and ``"seq"``, the axes the residual's S splits over."""
     if tokens.spec[1] is not None:
-        raise ValueError(f"tokens split over the sequence ({tokens.spec}): prefill keeps it whole")
+        raise ValueError(f"tokens split over the sequence ({tokens.spec}): the programs take "
+                         f"them whole")
+    return {**_axes(params), "seq": axes_of(seq_entry(mesh, (*tokens.shape, cfg.d_model),
+                                                        rules))}
+
+
+def _hidden(cfg, params, tokens: Sharded, mesh, cache=None, rules=None) -> tuple:
+    """The layers over each position's prompt rows; -> the last layer's
+    output a position (its S block under ``rules``' ``"seq_sp"``), writing
+    each layer's k / v into ``cache`` (a ``{"k", "v"}`` of :class:`Sharded`
+    [L, B, S, Kv, dh]) when given."""
+    ax = _mesh_axes(cfg, params, tokens, mesh, rules)
     B, S = tokens.shape
-    x = _embed(params["embed"], tokens.parts, mesh)
+    x = _block(_embed(params["embed"], tokens.parts, mesh), mesh, ax["seq"])
     positions = _pp(lambda t: torch.arange(S, dtype=torch.int32, device=t.device)
                     .expand(t.shape[0], S), mesh, tokens.parts)
     if cache is not None:
@@ -215,7 +269,7 @@ def _hidden(cfg, params, tokens: Sharded, mesh, cache=None) -> tuple:
         s0s, c0s = _starts(mesh, cax["seq"], S_c), _starts(mesh, cax["kv"], Kv_c)
     for i, is_local in enumerate(tfm.local_flags(cfg)):
         lp = _layer(params, i)
-        h = _pp(L.rms_norm, mesh, x, lp["attn_norm"])
+        h = _normed(x, lp["attn_norm"], mesh, ax)
         attn, kv = _attention(cfg, lp, h, positions, is_local, mesh, ax)
         if cache is not None:
             k0s = _starts(mesh, ax["kv"], cfg.n_kv_heads // mesh.size(ax["kv"]))
@@ -230,12 +284,14 @@ def _hidden(cfg, params, tokens: Sharded, mesh, cache=None) -> tuple:
 
 
 @torch.no_grad()
-def forward(cfg, params, tokens: Sharded, *, mesh) -> Sharded:
+def forward(cfg, params, tokens: Sharded, *, mesh, rules=None) -> Sharded:
     """Token ids [B, S] (batch split over the data axes) -> final hidden
-    states [B, S, D] (bf16), split as the tokens."""
-    x = _hidden(cfg, params, tokens, mesh)
+    states [B, S, D] (bf16), the batch split as the tokens', S as the
+    residual stream's under ``rules``."""
+    x = _hidden(cfg, params, tokens, mesh, rules=rules)
     x = _pp(L.rms_norm, mesh, x, params["final_norm"].parts)
-    return Sharded(x, mesh, (tokens.spec[0], None, None))
+    return Sharded(x, mesh, (tokens.spec[0], seq_entry(mesh, (*tokens.shape, cfg.d_model), rules),
+                             None))
 
 
 @torch.no_grad()
@@ -248,8 +304,11 @@ def prefill(cfg, params, tokens: Sharded, *, mesh, rules=None):
     shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
     spec = shd.spec_for(mesh, KV_AXES, shape, rules)
     cache = {k: shd.empty(shape, torch.bfloat16, mesh, spec) for k in ("k", "v")}
-    x = _hidden(cfg, params, tokens, mesh, cache)
-    h = _pp(lambda x, n: L.rms_norm(x[:, -1], n), mesh, x, params["final_norm"].parts)
+    x = _hidden(cfg, params, tokens, mesh, cache, rules)
+    # position S - 1 is the last row of the last S block: every block's last row gathered
+    last = col.all_gather(_pp(lambda x: x[:, -1:], mesh, x), mesh,
+                          axes_of(seq_entry(mesh, (B, S, cfg.d_model), rules)), 1)
+    h = _pp(lambda x, n: L.rms_norm(x[:, -1], n), mesh, last, params["final_norm"].parts)
     return _logits(cfg, params, h, mesh, tokens.spec[0]), cache
 
 
@@ -308,6 +367,7 @@ def decode_step(cfg, params, cache: dict, tokens_new: Sharded, lengths: Sharded,
     if cache["v"].spec != cache["k"].spec:
         raise ValueError(f"v split as {cache['v'].spec}, k as {cache['k'].spec}")
     route = axes_of(tokens_new.spec[0])
+    ax["seq"] = ()  # one token a row: the residual whole
     x = _embed(params["embed"], tokens_new.parts, mesh)
     pos = _pp(lambda n: n.to(torch.int32), mesh, lengths.parts)
     for i, is_local in enumerate(tfm.local_flags(cfg)):
@@ -328,29 +388,40 @@ def decode_step(cfg, params, cache: dict, tokens_new: Sharded, lengths: Sharded,
 def _layer_parts(params) -> list[dict[str, tuple]]:
     """Every layer's parameters a position, one ``unbind`` a distinct part
     of each stacked leaf: under autograd a part's gradient is one stack of
-    its layers' (not a full-size zero tensor a layer)."""
+    its layers' (not a full-size zero tensor a layer).  The norm scales in
+    f32 (:func:`_f32`)."""
     memo: dict = {}
 
-    def layers(part):
+    def layers(part, name):
         if id(part) not in memo:
-            memo[id(part)] = part.unbind(0)
+            memo[id(part)] = (part.float() if name in ("attn_norm", "ffn_norm") else part).unbind(0)
         return memo[id(part)]
 
-    stacked = {k: [layers(p) for p in v.parts] for k, v in params["layers"].items()}
+    stacked = {k: [layers(p, k) for p in v.parts] for k, v in params["layers"].items()}
     return [{k: tuple(ls[i] for ls in v) for k, v in stacked.items()}
             for i in range(len(next(iter(stacked.values()))[0]))]
 
 
+def _f32(parts, mesh) -> tuple:
+    """A norm scale's parts in f32, one conversion a distinct part (the
+    norm computes in f32): its gradient sums every S block's and data
+    slice's share in f32 and is rounded to a bf16 scale's dtype once, not
+    once a block."""
+    return _pp(lambda t: t.float(), mesh, parts)
+
+
 def _train_layer(cfg, lp, x, positions, is_local: bool, mesh, ax) -> tuple:
-    """One block's output a position; its k / v are not kept."""
-    h = _pp(L.rms_norm, mesh, x, lp["attn_norm"])
+    """One block's output a position (its S block); its k / v are not
+    kept."""
+    h = _normed(x, lp["attn_norm"], mesh, ax)
     attn, _ = _attention(cfg, lp, h, positions, is_local, mesh, ax)
     return _residual(cfg, lp, x, h, attn, mesh, ax)
 
 
 class _Remat(torch.autograd.Function):
     """``fn(*inputs)`` (distinct tensors in, distinct tensors out) kept as
-    its inputs only: the forward runs without a graph, the backward runs it
+    its inputs only (a mesh layer's: each position's residual block, the
+    positions and the weights): the forward runs without a graph, the backward runs it
     again and differentiates it.  One autograd node for the whole mesh
     layer, so its recomputation runs once, in whichever device's backward
     thread reaches it (``torch.utils.checkpoint``'s per-tensor unpack hooks
@@ -397,9 +468,9 @@ def _rematerialised(cfg, lp, x, positions, is_local: bool, mesh, ax) -> tuple:
 
 
 def _logit_blocks(cfg, params, h, mesh) -> tuple[tuple, tuple, int]:
-    """Each position's f32 logits of its rows ``h`` [B_p, S, D] over its
-    vocab block (the final softcap applied), the vocab axes and the block
-    size."""
+    """Each position's f32 logits of its rows ``h`` [B_p, S, D] (all of S)
+    over its vocab block (the final softcap applied), the vocab axes and
+    the block size."""
     if cfg.tie_embeddings:
         w, entry = _pp(lambda t: t.T, mesh, params["embed"].parts), params["embed"].spec[0]
     else:
@@ -409,26 +480,24 @@ def _logit_blocks(cfg, params, h, mesh) -> tuple[tuple, tuple, int]:
     return logits, axes_of(entry), w[0].shape[1]
 
 
-def loss_fn(cfg, params, batch: dict, *, mesh) -> torch.Tensor:
+def loss_fn(cfg, params, batch: dict, *, mesh, rules=None) -> torch.Tensor:
     """Next-token cross-entropy over labels >= 0 on ``mesh`` (see the
-    module docstring), differentiable in every part of ``params``;
-    ``batch`` holds ``tokens`` and ``labels`` int[B, S] :class:`Sharded`
-    over the data axes.  Returns the f32 scalar on the mesh's lead
-    device."""
+    module docstring; the residual stream laid out under ``rules``),
+    differentiable in every part of ``params``; ``batch`` holds ``tokens``
+    and ``labels`` int[B, S] :class:`Sharded` over the data axes.  Returns
+    the f32 scalar on the mesh's lead device."""
     tokens, labels = batch["tokens"], batch["labels"]
     if labels.spec != tokens.spec:
         raise ValueError(f"labels split as {labels.spec}, tokens as {tokens.spec}")
-    if tokens.spec[1] is not None:
-        raise ValueError(f"tokens split over the sequence ({tokens.spec})")
-    ax = _axes(params)
+    ax = _mesh_axes(cfg, params, tokens, mesh, rules)
     B, S = tokens.shape
-    x = _embed(params["embed"], tokens.parts, mesh)
+    x = _block(_embed(params["embed"], tokens.parts, mesh), mesh, ax["seq"])
     positions = _pp(lambda t: torch.arange(S, dtype=torch.int32, device=t.device)
                     .expand(t.shape[0], S), mesh, tokens.parts)
     layer = _rematerialised if cfg.remat and torch.is_grad_enabled() else _train_layer
     for lp, is_local in zip(_layer_parts(params), tfm.local_flags(cfg)):
         x = layer(cfg, lp, x, positions, is_local, mesh, ax)
-    h = _pp(L.rms_norm, mesh, x, params["final_norm"].parts)
+    h = _normed(x, _f32(params["final_norm"].parts, mesh), mesh, ax)
     logits, vax, V_loc = _logit_blocks(cfg, params, h, mesh)
     lmax = col.pmax(_pp(lambda l: l.detach().amax(dim=-1, keepdim=True), mesh, logits), mesh, vax)
     sums = col.psum(_pp(lambda l, m: torch.sum(torch.exp(l - m), dim=-1), mesh, logits, lmax),

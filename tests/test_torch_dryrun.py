@@ -12,9 +12,18 @@ package's ``repro.launch`` modules of the same names:
   a mesh that is this file's ``__main__`` with eight host devices; the
   engine's Pallas kernels are opaque there as the port's are here);
 * the roofline terms of a hand-built count;
-* a record's keys against the JAX record's (less the XLA-only ones).
+* a record's keys against the JAX record's (less the XLA-only ones);
+* the memory keys per device, as the JAX record's: a hand-built mesh
+  function's bytes a position against the analytic ones; on (1, 1) every
+  smoke cell's per-device peak equal to the whole mesh's, on (2, 4) at
+  most it; and the LM programs' sequence-parallel residual stream
+  (``seq_sp``) below the whole residual's per-device peak, a training
+  forward's by the analytic bytes of the rematerialised layers' saved
+  residual blocks.
 """
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -61,7 +70,11 @@ import torch  # noqa: E402
 from torch.utils.checkpoint import checkpoint  # noqa: E402
 
 from repro.launch import flopcount as jfc, roofline as jroofline  # noqa: E402
+from repro_torch.configs import base as cb  # noqa: E402
+from repro_torch.dist import collectives as col, sharding as shd  # noqa: E402
 from repro_torch.launch import dryrun, flopcount, programs, roofline  # noqa: E402
+from repro_torch.models import transformer_mesh as tmesh  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -224,6 +237,10 @@ def test_dry_run_of_every_smoke_cell(tmp_path, jax_counts):
             assert rec["ok"], (arch, shape, ms, rec.get("error"), rec.get("traceback"))
             assert rec["peak_mem_bytes"] >= rec["arg_bytes"] > 0
             assert rec["mesh"] == f"{ms[0]}x{ms[1]}" and rec["chips"] == ms[0] * ms[1]
+            if ms == (1, 1):  # one device: the per-device record is the whole mesh's
+                assert rec["peak_mem_bytes"] == rec["mesh_peak_mem_bytes"], (arch, shape)
+            else:
+                assert rec["peak_mem_bytes"] <= rec["mesh_peak_mem_bytes"], (arch, shape)
             got[f"{arch}:{shape}:{ms[0]}x{ms[1]}"] = rec["flops"]
     want = jax_counts()
     assert set(got) == set(want)
@@ -239,3 +256,85 @@ def test_dry_run_command_line(tmp_path):
     assert rc == 0 and (tmp_path / "xdeepfm__serve_p99__2x4__smoke.json").exists()
     assert dryrun.main(["--arch", "xdeepfm", "--shape", "no_such_shape", "--smoke", "--mesh",
                         "1x1", "--out", str(tmp_path)]) == 1
+
+
+def test_per_position_bytes_of_a_hand_built_mesh_function():
+    """A (2, 4) ``meta`` mesh: a value split over ``model`` (four 1 KiB
+    blocks, each held by its two data positions) and a replicated one (2
+    KiB, held by all eight), each distinct part a storage of its own.  The
+    function doubles the split one (a call a block, serving its two
+    positions), adds one to the replicated one (one call serving all) and
+    makes 512 B outside any position (the lead's).  A position holds 3 KiB
+    of arguments and 3 KiB of outputs, the lead 512 B more; the whole mesh
+    6 KiB of arguments and 6.5 KiB of outputs."""
+    mesh = dryrun.meta_mesh((2, 4))
+    split = shd.map_distinct(torch.clone, shd.shard(torch.empty(4, 256, device="meta"), mesh,
+                                                    ("model", None)))
+    rep = shd.map_distinct(torch.clone, shd.shard(torch.empty(512, device="meta"), mesh, (None,)))
+
+    def fn(split, rep):
+        a = col.per_position(lambda t: t * 2, mesh, split.parts)
+        r = col.per_position(lambda t: t + 1, mesh, rep.parts)
+        return a, r, torch.ones(128, device="meta")
+
+    got = dryrun.measure(fn, (split, rep), mesh)
+    assert got["arg_at"] == [3072] * 8
+    assert got["out_at"] == [3584] + [3072] * 7
+    assert got["peak_at"] == [6656] + [6144] * 7
+    assert (got["peak"], got["arg_bytes"], got["out_bytes"]) == (6656, 3072, 3584)
+    assert got["mesh_peak"] == 4 * 1024 + 2048 + 4 * 1024 + 2048 + 512
+    one = dryrun.measure(fn, (split, rep))  # no mesh: every storage on one position
+    assert one["peak"] == one["mesh_peak"] == got["mesh_peak"]
+
+
+@contextlib.contextmanager
+def _layers(arch, n):
+    """While active, ``arch``'s smoke config has ``n`` layers."""
+    spec = cb.ARCHS[arch]
+    cb.ARCHS[arch] = dataclasses.replace(spec, smoke_cfg=dataclasses.replace(spec.smoke_cfg,
+                                                                             n_layers=n))
+    try:
+        yield cb.ARCHS[arch].smoke_cfg
+    finally:
+        cb.ARCHS[arch] = spec
+
+
+WHOLE = {"seq_sp": None}
+
+
+def test_seq_sp_lowers_the_per_device_peak(tmp_path):
+    """tinyllama ``train_4k`` smoke on (2, 4): the per-device peak under
+    ``seq_sp`` below the whole residual's (the same arguments, the whole
+    mesh's peak no higher).  The training forward (the loss with the
+    parameters requiring gradients: every rematerialised layer's input kept)
+    at 2 and at 6 layers: the per-device peak grows a layer by one saved
+    residual, [B_p, S, D] bf16 whole or a [B_p, S/4, D] block, so the
+    layouts' difference grows by 4 · (1 - 1/4) · B_p · S · D · 2 bytes
+    (within 25%)."""
+    arch, ms = "tinyllama-1.1b", (2, 4)
+    recs = {name: dryrun.run_cell(arch, "train_4k", ms, str(tmp_path), smoke=True,
+                                  verbose=False, rules=rules)
+            for name, rules in (("seq_sp", None), ("whole", WHOLE))}
+    sp, whole = recs["seq_sp"], recs["whole"]
+    assert sp["ok"] and whole["ok"] and whole["rules"] == WHOLE
+    assert sp["peak_mem_bytes"] < whole["peak_mem_bytes"]
+    assert sp["arg_bytes"] == whole["arg_bytes"]
+    assert sp["mesh_peak_mem_bytes"] <= 1.01 * whole["mesh_peak_mem_bytes"]
+
+    def forward_peak(n_layers, rules):
+        with _layers(arch, n_layers) as cfg:
+            mesh = dryrun.meta_mesh(ms)
+            prog = programs.build(arch, "train_4k", mesh, smoke=True, rules=rules)
+            p, _, b = dryrun.program_args(prog, mesh)
+            p = tree_map(lambda s: shd.map_distinct(lambda t: t.requires_grad_(), s), p)
+            got = dryrun.measure(lambda p, b: tmesh.loss_fn(cfg, p, b, mesh=mesh, rules=rules),
+                                 (p, b), mesh)
+        return got["peak"], cfg
+
+    gap = {}
+    for n in (2, 6):
+        (a, cfg), (b, _) = forward_peak(n, None), forward_peak(n, WHOLE)
+        gap[n] = b - a
+    B, S = 2, 64  # the smoke programs' batch
+    want = 4 * (1 - 1 / ms[1]) * (B // ms[0]) * S * cfg.d_model * 2
+    assert 0.75 * want <= gap[6] - gap[2] <= 1.25 * want, (gap, want)

@@ -1741,6 +1741,32 @@ def test_gradient_combine_over_distinct_devices(cuda):
                                    atol=1e-6)
 
 
+def test_reduce_scatter_and_all_gather_over_distinct_devices(cuda):
+    """The sequence-parallel collectives on distinct devices, in f32: an
+    all-gather over ``model`` of each position's block, a product, a
+    reduce-scatter back to the blocks; the values and the blocks'
+    gradients equal a (2, 4) mesh of the card's within 1e-5, and each
+    position's block lies on its own device, a storage of its own."""
+    from repro_torch.dist import collectives as col
+
+    rng = np.random.default_rng(3)
+    xs = [torch.from_numpy(rng.standard_normal((2, 4, 6)).astype(np.float32)) for _ in range(8)]
+    w = torch.from_numpy(rng.standard_normal((6, 6)).astype(np.float32))
+    out = []
+    for devices in ([cuda] * 8, _distinct_devices((2, 4), cuda)):
+        mesh = _mesh((2, 4), devices)
+        parts = tuple(x.to(d).requires_grad_() for x, d in zip(xs, mesh.devices))
+        full = col.all_gather(parts, mesh, ("model",), 1)
+        y = col.reduce_scatter(col.per_position(lambda h: torch.tanh(h @ w.to(h.device)), mesh,
+                                                full), mesh, ("model",), 1)
+        assert all(t.device == d and t.shape == (2, 4, 6) for t, d in zip(y, mesh.devices))
+        assert len({t.untyped_storage().data_ptr() for t in y}) == 8
+        col.sum_in_order([(t ** 2).sum().to(mesh.lead) for t in y]).backward()
+        out.append(([t.detach().cpu() for t in y], [p.grad.cpu() for p in parts]))
+    for a, b in zip(out[0][0] + out[0][1], out[1][0] + out[1][1]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-5, atol=1e-5)
+
+
 def test_xdeepfm_full_serve_bulk_within_memory(cuda):
     """``xdeepfm:serve_bulk`` at the full config (B = 262,144; 39 x 10^6
     rows x 10) on the card: finite logits, and the peak within 8 GiB of the

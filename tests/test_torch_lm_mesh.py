@@ -364,10 +364,11 @@ def test_prefill_cache_blocks_and_long_context_layout():
     k = cache["k"]
     assert k.spec == (None, "data", None, "model", None) and k.shape == (4, 2, 64, 4, 8)
     assert len({id(p) for p in k.parts}) == 8 and logits.shape == (2, 128)
-    # forward: the final hidden states, split as the tokens, against the single device's
+    # forward: the final hidden states, the batch split as the tokens' and S over the model
+    # axis (the sequence-parallel residual stream), against the single device's
     h = tmesh.forward(prog.cfg, params, toks, mesh=mesh)
     want = tfm.forward(prog.cfg, tree_map(lambda t: t.unshard(), params), toks.unshard())
-    assert h.spec == ("data", None, None) and h.dtype == torch.bfloat16
+    assert h.spec == ("data", "model", None) and h.dtype == torch.bfloat16
     assert rel_l2(h.unshard().float().numpy(), want.float().numpy()) <= DEPTH_TOL["cache"]
     long = programs.build("tinyllama-1.1b", "long_500k", mesh, smoke=True)
     _, c, t, ln = programs.lm_inputs(long, "cpu", seed=4)
