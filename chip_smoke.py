@@ -270,10 +270,13 @@ Phases (any failure exits non-zero before the result line):
    measured above at the same shapes (10b ``serve_64k`` (1, 1), 12b, 14d
    ``train_batch`` (1, 1), the four 15b ``minibatch_lg`` cells), on
    ``meta`` copies of their inputs: flops by dtype, bytes, the three H100
-   SXM roofline terms (``launch/roofline.py``, analytic bounds) and the
-   peak estimate beside the measured ms and ``max_memory_allocated``;
-   fails unless each estimate lies within 0.5x-2x of the measured
-   footprint.
+   SXM roofline terms (``launch/roofline.py``, analytic bounds), the wire
+   bytes by kind and the peak estimate beside the measured ms and
+   ``max_memory_allocated``; fails unless each estimate lies within
+   0.5x-2x of the measured footprint.  Then the full ``tinyllama-1.1b``
+   ``train_4k`` on a (2, 4) ``meta`` mesh under ``seq_sp`` and with the
+   residual whole: fails unless ``seq_sp``'s per-device peak is the lower
+   and the two collective terms lie within 10% of each other.
 17. the four ``examples/torch_*.py`` on the card at small sizes, side by
    side as processes: each must exit 0.
    Then the ``{"kernels": [...]}`` line (``launches_by_path`` gains
@@ -5434,8 +5437,8 @@ def gnn_mesh_15c(device, seed: int, rows: list, graph, card: str) -> dict:
 def dryrun_phase(card: str) -> dict:
     """Phase 16: the dry run (``launch/dryrun.py``) of each cell kept by
     ``note_dry``, on ``meta`` copies of the inputs it was measured on:
-    flops (by dtype), bytes, the collectives' wire bytes, the three H100
-    roofline terms and the peak estimate, beside the measured ms and
+    flops (by dtype), bytes, the collectives' wire bytes by kind, the three
+    H100 roofline terms and the peak estimate, beside the measured ms and
     memory; fails unless each estimate lies within ``DRY_PEAK_RANGE`` of
     the measured footprint (``max_memory_allocated`` less the bytes held
     before the cell's inputs)."""
@@ -5453,7 +5456,8 @@ def dryrun_phase(card: str) -> dict:
               f"{got['cost'].flops_bf16:.6g}, f32 products {got['cost'].flops_f32:.6g}, other "
               f"{got['cost'].flops_other:.6g}), {got['cost'].bytes_naive:.6g} bytes; analytic H100 "
               f"SXM bounds: compute {r.t_compute * 1e3:.4f} ms, memory {r.t_memory * 1e3:.4f} ms, "
-              f"collective {r.t_collective * 1e3:.4f} ms ({r.bottleneck}); peak estimate "
+              f"collective {r.t_collective * 1e3:.4f} ms ({r.bottleneck}); wire bytes "
+              f"{_wire_text(r.coll_detail)}; peak estimate "
               f"{got['mesh_peak']} bytes against the measured footprint {c['footprint']} bytes "
               f"(max_memory_allocated {c['peak']}, {c['base']} before; ratio {ratio:.3f}); "
               f"measured {c['ms']:.3f} ms a step; dry run {time.perf_counter() - t0:.1f}s; {card}",
@@ -5471,13 +5475,23 @@ def dryrun_phase(card: str) -> dict:
 
 
 DRY_LAYOUT_CELL = ("tinyllama-1.1b", "train_4k", (2, 4))  # 16: the full config, both layouts
+# 16: the largest share by which the two layouts' collective terms may differ (ring bytes are
+# equal but for seq_sp's embedding all-gather)
+DRY_LAYOUT_COLLECTIVE_GAP = 0.10
+
+
+def _wire_text(detail: dict) -> str:
+    """A record's ``coll_detail`` (bytes a device by kind) as text."""
+    return ", ".join(f"{k} {v:.6g}" for k, v in detail.items())
 
 
 def dry_layouts(card: str) -> dict:
     """16: the dry run of ``DRY_LAYOUT_CELL`` at its full config under the
     sequence-parallel residual stream and with it whole (``"seq_sp"`` ->
-    None): per-device and whole-mesh peaks, the collective term; fails
-    unless ``seq_sp``'s per-device peak is the lower."""
+    None): per-device and whole-mesh peaks, the collective term and the
+    wire bytes by kind; fails unless ``seq_sp``'s per-device peak is the
+    lower and the two collective terms lie within
+    ``DRY_LAYOUT_COLLECTIVE_GAP`` of each other."""
     import multiprocessing as mp
     import tempfile
     from concurrent.futures import ProcessPoolExecutor
@@ -5501,12 +5515,18 @@ def dry_layouts(card: str) -> dict:
           f"{whole['peak_mem_bytes']} bytes ({whole['peak_mem_bytes'] - sp['peak_mem_bytes']} "
           f"lower under seq_sp); the whole mesh's {sp['mesh_peak_mem_bytes']} / "
           f"{whole['mesh_peak_mem_bytes']}; collective term {sp['t_collective'] * 1e3:.2f} / "
-          f"{whole['t_collective'] * 1e3:.2f} ms (analytic H100 SXM); dry runs "
-          f"{sp['seconds']:.1f} / {whole['seconds']:.1f} s; {card}", flush=True)
+          f"{whole['t_collective'] * 1e3:.2f} ms (analytic H100 SXM); wire bytes a device "
+          f"seq_sp {_wire_text(sp['coll_detail'])} / whole {_wire_text(whole['coll_detail'])}; "
+          f"dry runs {sp['seconds']:.1f} / {whole['seconds']:.1f} s; {card}", flush=True)
     if not sp["peak_mem_bytes"] < whole["peak_mem_bytes"]:
         fail(f"16 {arch}:{shape} {ms}: the per-device peak under seq_sp "
              f"({sp['peak_mem_bytes']}) is not below the whole residual's "
              f"({whole['peak_mem_bytes']})")
+    gap = abs(sp["t_collective"] / whole["t_collective"] - 1)
+    if not gap <= DRY_LAYOUT_COLLECTIVE_GAP:
+        fail(f"16 {arch}:{shape} {ms}: the collective terms differ by {gap:.3f} "
+             f"(seq_sp {sp['t_collective']}, whole {whole['t_collective']} s; want at most "
+             f"{DRY_LAYOUT_COLLECTIVE_GAP})")
     return recs
 
 

@@ -26,13 +26,36 @@ of the group, the bytes a ring algorithm would send to :data:`WIRE` (the
 JAX package's factors: all-reduce ``2(g-1)/g``, all-gather and
 reduce-scatter ``(g-1)/g`` of the full tensor), whether the positions share
 a device or not: what the layout would move between distinct cards.  A
-gather's backward adds its reduce-scatter when it runs.
+gather's backward adds its reduce-scatter when it runs, once a group (groups
+whose entries are the same objects share one call, not one count).
+
+The rule of the count: every sum that joins values computed at different
+mesh positions counts as the collective distinct cards would run for it,
+wherever the sum is made: by a function here, by autograd adding up the
+gradient of one tensor that several positions read, or by the trainer
+adding a replicated parameter's gradients over its holders
+(``train/trainer.py``).  The implicit sums are counted, never made anew:
+:func:`replicated` (a value equal over a group that the group's positions
+then read differently: Megatron's copy to the model-parallel region, whose
+backward is an all-reduce of the gradient) and :func:`split` (each position
+taking its block of such a value, whose backward assembles the whole
+gradient: an all-gather) pass their tensors through unchanged and count
+from a gradient hook when the gradient arrives; :func:`count_over` counts a
+sum the caller makes itself (a loss summed over the data slices, a norm's
+partial sums of squares).  A value that positions only read alike (the same
+work at each, as a norm of the whole residual) needs no sum and counts none.
+Under a layer recomputed in the backward (``transformer_mesh._Remat``) the
+recomputation counts its forward collectives again, as the JAX HLO's
+recompute runs them, and the hooks count the backward once: they are set
+only where a gradient will flow, so in the recomputation, not in the
+forward without a graph.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
+import collections
 import contextlib
 import threading
 
@@ -88,6 +111,7 @@ def served() -> tuple | None:
 # them the graph collectives moved, by collective, both directions
 WIRE: dict[str, float] = {"all-reduce": 0.0, "all-gather": 0.0, "reduce-scatter": 0.0}
 GRAPH_WIRE: dict[str, float] = {"halo": 0.0, "scatter": 0.0}
+_WIRE_LOCK = threading.Lock()
 _FACTOR = {"all-reduce": lambda g: 2.0 * (g - 1) / g, "all-gather": lambda g: (g - 1) / g,
            "reduce-scatter": lambda g: (g - 1) / g}
 
@@ -117,9 +141,17 @@ def count_wire(kind: str, full_bytes: float, g: int, graph: str | None = None) -
     it belongs to, for :data:`GRAPH_WIRE`)."""
     if g > 1:
         nbytes = full_bytes * _FACTOR[kind](g) * g
-        WIRE[kind] += nbytes
-        if graph is not None:
-            GRAPH_WIRE[graph] += nbytes
+        with _WIRE_LOCK:  # backward hooks run on each device's autograd thread
+            WIRE[kind] += nbytes
+            if graph is not None:
+                GRAPH_WIRE[graph] += nbytes
+
+
+def count_over(kind: str, nbytes: float, mesh, axes) -> None:
+    """A ``kind`` collective of ``nbytes`` in every group over ``axes``
+    (a sum the caller makes itself, e.g. on one device)."""
+    for grp in groups(mesh, axes):
+        count_wire(kind, nbytes, len(grp))
 
 
 def groups(mesh, axes) -> list[tuple[int, ...]]:
@@ -171,10 +203,44 @@ def per_position(fn: Callable, mesh, *args: Sequence) -> tuple:
 
 
 def _count_backward(res, kind: str, g: int) -> None:
-    """Count ``kind`` again when the gradient of ``res`` arrives (a
-    gather's backward is a reduce-scatter of the same bytes)."""
+    """Count ``kind`` over ``g`` positions when the gradient of ``res``
+    arrives (a gather's backward is a reduce-scatter of the same bytes);
+    nothing where no gradient will flow."""
     if isinstance(res, torch.Tensor) and res.requires_grad:
         res.register_hook(lambda grad: count_wire(kind, _nbytes(grad), g))
+
+
+def _marked(parts: Sequence, mesh, axes, kind: str) -> None:
+    """One ``kind`` counted a group over ``axes`` when the gradient of the
+    group's first entry arrives."""
+    for grp in groups(mesh, axes):
+        _count_backward(parts[grp[0]], kind, len(grp))
+
+
+def replicated(parts: Sequence, mesh, axes) -> tuple:
+    """``parts``, equal within each group over ``axes``, handed to work that
+    differs by position over those axes (a product with a weight split over
+    them): the same tensors, and the gradient's sum over the group, which
+    autograd makes where the positions share the tensor, counted as the
+    all-reduce it would be on distinct cards.  No axes: ``parts``."""
+    axes = tuple(axes)
+    if axes and mesh.size(axes) > 1:
+        _marked(parts, mesh, axes, "all-reduce")
+    return tuple(parts)
+
+
+def split(parts: Sequence, mesh, axes, dim: int) -> tuple:
+    """Each position's block over ``axes`` along ``dim`` of its whole value
+    (equal within each group over ``axes``), a storage of its own; the
+    backward assembles the whole value's gradient from the blocks, counted
+    as the all-gather it would be on distinct cards.  No axes: ``parts``."""
+    axes = tuple(axes)
+    if not axes or mesh.size(axes) == 1:
+        return tuple(parts)
+    _marked(parts, mesh, axes, "all-gather")
+    n = parts[0].shape[dim] // mesh.size(axes)
+    starts = [block_index(mesh, p, axes) * n for p in range(len(mesh.devices))]
+    return per_position(lambda t, s0: t.narrow(dim, s0, n).clone(), mesh, parts, starts)
 
 
 def reduce_over(parts: Sequence, mesh, axes, combine: Callable, kind: str = "all-reduce"
@@ -194,10 +260,10 @@ def reduce_over(parts: Sequence, mesh, axes, combine: Callable, kind: str = "all
         if key not in memo:
             with _collective(), _Serving(served_by):
                 memo[key] = combine([_to(parts[p], lead) for p in grp])
-            if kind == "all-gather":
-                _count_backward(memo[key], "reduce-scatter", len(grp))
         res = memo[key]
         count_wire(kind, _nbytes(res), len(grp))
+        if kind == "all-gather":
+            _count_backward(res, "reduce-scatter", len(grp))
         for p in grp:
             dev = mesh.devices[p]
             if dev == lead:
@@ -267,14 +333,15 @@ class _ReduceScatter(torch.autograd.Function):
     (a view would keep the whole sum alive), made while :func:`served`
     names ``at[i]``, the positions that take target ``i`` (the sum: all of
     them).  Backward: the blocks' gradients concatenated on ``lead`` (an
-    all-gather) and given to every entry."""
+    all-gather, counted for each of the ``times`` groups the call serves)
+    and given to every entry."""
 
     @staticmethod
-    def forward(ctx, dim, lead, targets, at, *entries):
+    def forward(ctx, dim, lead, targets, at, times, *entries):
         with _collective(), _Serving(tuple(sorted(q for ps in at for q in ps))):
             total = sum_in_order([_to(e, lead) for e in entries])
         blocks = total.chunk(len(entries), dim)
-        ctx.dim, ctx.lead, ctx.targets = dim, lead, targets
+        ctx.dim, ctx.lead, ctx.targets, ctx.times = dim, lead, targets, times
         ctx.block_shapes = [b.shape for b in blocks]
         ctx.part = [(e.device, e.dtype) for e in entries]
         out = []
@@ -294,14 +361,14 @@ class _ReduceScatter(torch.autograd.Function):
             full = torch.cat([sum_in_order(by_block[b]) if len(by_block.get(b, ())) > 1
                               else by_block[b][0] if b in by_block else ref.new_zeros(shape)
                               for b, shape in enumerate(ctx.block_shapes)], ctx.dim)
-        count_wire("all-gather", _nbytes(full), len(ctx.part))
+        count_wire("all-gather", _nbytes(full) * ctx.times, len(ctx.part))
         made: dict = {}
         out = []
         for dev, dt in ctx.part:
             if (dev, dt) not in made:
                 made[dev, dt] = full.to(device=dev, dtype=dt)
             out.append(made[dev, dt])
-        return (None, None, None, None, *out)
+        return (None, None, None, None, None, *out)
 
 
 def reduce_scatter(parts: Sequence, mesh, axes, dim: int) -> tuple:
@@ -315,13 +382,15 @@ def reduce_scatter(parts: Sequence, mesh, axes, dim: int) -> tuple:
         return tuple(parts)
     out: list = [None] * len(parts)
     memo: dict = {}
-    for grp, key, lead, served_by in _grouped(parts, mesh, axes):
+    grouped = _grouped(parts, mesh, axes)
+    times = collections.Counter(key for _, key, _, _ in grouped)
+    for grp, key, lead, served_by in grouped:
         if key not in memo:
             at: dict = {}
             for q in served_by:
                 at.setdefault((block_index(mesh, q, axes), mesh.devices[q]), []).append(q)
             res = _ReduceScatter.apply(dim, lead, tuple(at), tuple(map(tuple, at.values())),
-                                       *(parts[p] for p in grp))
+                                       times[key], *(parts[p] for p in grp))
             memo[key] = dict(zip(at, res))
         count_wire("reduce-scatter", _nbytes(parts[grp[0]]), len(grp))
         for p in grp:
@@ -337,15 +406,16 @@ def reduce_scatter(parts: Sequence, mesh, axes, dim: int) -> tuple:
 class _Gather(torch.autograd.Function):
     """A group's entries concatenated along ``dim`` on ``lead``, one copy a
     further device of ``devs``; backward: the copies' gradients summed on
-    ``lead`` and split back to the entries (a reduce-scatter)."""
+    ``lead`` and split back to the entries (a reduce-scatter).  Both
+    counted for each of the ``times`` groups the call serves."""
 
     @staticmethod
-    def forward(ctx, dim, lead, devs, *entries):
+    def forward(ctx, dim, lead, devs, times, *entries):
         full = torch.cat([e.to(lead) for e in entries], dim)
-        ctx.dim, ctx.lead = dim, lead
+        ctx.dim, ctx.lead, ctx.times = dim, lead, times
         ctx.sizes = [e.shape[dim] for e in entries]
         ctx.entry_devs = [e.device for e in entries]
-        count_wire("all-gather", _nbytes(full), len(entries), "halo")
+        count_wire("all-gather", _nbytes(full) * times, len(entries), "halo")
         return tuple(full if d == lead else full.to(d) for d in devs)
 
     @staticmethod
@@ -353,9 +423,9 @@ class _Gather(torch.autograd.Function):
         got = [g.to(ctx.lead) for g in grads if g is not None]
         with _collective():
             total = sum_in_order(got) if len(got) > 1 else got[0]
-        count_wire("reduce-scatter", _nbytes(total), len(ctx.sizes), "halo")
+        count_wire("reduce-scatter", _nbytes(total) * ctx.times, len(ctx.sizes), "halo")
         pieces = total.split(ctx.sizes, ctx.dim)
-        return (None, None, None, *(p.to(d) for p, d in zip(pieces, ctx.entry_devs)))
+        return (None, None, None, None, *(p.to(d) for p, d in zip(pieces, ctx.entry_devs)))
 
 
 def halo_gather(parts: Sequence, mesh, axes, dim: int = 0) -> tuple:
@@ -369,12 +439,15 @@ def halo_gather(parts: Sequence, mesh, axes, dim: int = 0) -> tuple:
         return tuple(parts)
     out: list = [None] * len(parts)
     memo: dict = {}
+    keyed = []
     for grp in groups(mesh, axes):
         devs = tuple(dict.fromkeys(mesh.devices[p] for p in grp))
-        entries = [parts[p] for p in grp]
-        key = (devs, tuple(_key(v) for v in entries))
+        keyed.append((grp, devs, (devs, tuple(_key(parts[p]) for p in grp))))
+    times = collections.Counter(key for _, _, key in keyed)
+    for grp, devs, key in keyed:
         if key not in memo:
-            memo[key] = dict(zip(devs, _Gather.apply(dim, devs[0], devs, *entries)))
+            memo[key] = dict(zip(devs, _Gather.apply(dim, devs[0], devs, times[key],
+                                                     *(parts[p] for p in grp))))
         for p in grp:
             out[p] = memo[key][mesh.devices[p]]
     return tuple(out)

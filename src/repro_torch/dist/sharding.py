@@ -25,6 +25,7 @@ one copy a (device, block) is shared by the positions that name it.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 
@@ -237,6 +238,12 @@ def holders(s: Sharded) -> dict[tuple, list[torch.Tensor]]:
     for pos, blk in enumerate(_blocks(s.mesh, s.spec)):
         out.setdefault(blk, {}).setdefault(id(s.parts[pos]), s.parts[pos])
     return {blk: list(ts.values()) for blk, ts in out.items()}
+
+
+def positions_holding(s: Sharded) -> dict[tuple, int]:
+    """{block coordinates: the number of mesh positions that hold that
+    block}, every position counted, on a repeated device too."""
+    return dict(collections.Counter(_blocks(s.mesh, s.spec)))
 
 
 def map_distinct(fn, s: Sharded) -> Sharded:

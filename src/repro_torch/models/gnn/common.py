@@ -354,7 +354,11 @@ class OnMesh:
         return self.map(lambda t, s: t.narrow(0, s, self.per), parts, self.share)
 
     def halo(self, x):
-        return col.halo_gather(x, self.mesh, self.dp)
+        """Node blocks gathered whole over the data axes: each model
+        position's edge share reads the gather, so a block's gradient is
+        also summed over the model axes (``collectives.replicated``)."""
+        rest = tuple(a for a in self.axes if a not in self.dp)
+        return col.halo_gather(col.replicated(x, self.mesh, rest), self.mesh, self.dp)
 
     def scatter(self, vals):
         """Masked edge values summed into their destinations over the mesh

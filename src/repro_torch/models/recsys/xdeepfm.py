@@ -27,7 +27,10 @@ axes): each model shard gathers the rows it holds and zeroes the rest,
 then a ``psum`` over ``model`` (one nonzero term a sum: exact); the dense
 part is replicated and runs a position, the batch split over the data
 axes; a loss or a logit is read once a data slice (its first model
-shard).
+shard).  The wire count (``dist.collectives``): the ``psum`` forward, the
+loss's sum over the data slices, and the trainer's sums of each leaf's
+gradient over its holders; the summed rows are read by the replicated dense
+part alike at every model position, so their gradient needs no sum.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.query import resolve_device
 from repro_torch.dist import collectives as col
 from repro_torch.dist.sharding import Sharded, axes_of, block_index
+from repro_torch.launch.mesh import dp_axes
 from repro_torch.models.gnn import common as C
 from repro_torch.tree import build, leaves
 
@@ -309,7 +313,10 @@ def loss_on(cfg: XDeepFMCfg, params, batch, *, mesh) -> torch.Tensor:
     ids, labels = batch["ids"], batch["labels"]
     logits = _logits_on(params, ids, mesh)
     sums = _pp(lambda z, y: _ctr_loss(z, y).sum(), mesh, logits, labels.parts)
-    return col.sum_in_order(_once_a_slice(sums, mesh)) / ids.shape[0]
+    total = col.sum_in_order(_once_a_slice(sums, mesh))
+    # the all-reduce over the data slices every position would run
+    col.count_over("all-reduce", total.numel() * total.element_size(), mesh, dp_axes(mesh))
+    return total / ids.shape[0]
 
 
 def retrieval_on(cfg: XDeepFMCfg, params, user_ids: Sharded, cand_ids: Sharded, *,

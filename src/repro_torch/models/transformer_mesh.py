@@ -40,6 +40,17 @@ the layout is the reference's:
   its position, attention partials (max, sum, weighted v) over each S
   block at absolute positions combined by log-sum-exp over the ``kv_seq``
   axes (``layers.decode_attention_partial``).
+
+Under autograd the wire count (``dist.collectives``) follows the rule of
+that module: a value every position of a model group holds alike (the
+whole residual's normed input, an S-gathered normed block, the final normed
+rows) read by products whose weights split over the group's axes has its
+gradient summed over the group (``collectives.replicated``: an all-reduce
+over the readers' axes that the S gather's reduce-scatter does not already
+cover), and a whole value cut into S blocks (the embedding rows, a sum that
+falls back to ``psum``) has its gradient assembled from them
+(``collectives.split``: an all-gather).  The sums themselves are autograd's,
+as before: no value changes.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ import torch
 
 from repro_torch.dist import collectives as col, sharding as shd
 from repro_torch.dist.sharding import Sharded, axes_of, block_index
+from repro_torch.launch.mesh import dp_axes
 from repro_torch.models import layers as L, transformer as tfm
 
 KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
@@ -108,22 +120,13 @@ def seq_entry(mesh, shape, rules):
     return shd.spec_for(mesh, ("batch", "seq_sp", None), shape, rules)[1]
 
 
-def _block(parts, mesh, axes, dim: int = 1) -> tuple:
-    """Each position's block over ``axes`` along ``dim`` of its whole
-    value, a storage of its own; no axes: ``parts``."""
-    if not axes or mesh.size(axes) == 1:
-        return tuple(parts)
-    n = parts[0].shape[dim] // mesh.size(axes)
-    return _pp(lambda t, s0: t.narrow(dim, s0, n).clone(), mesh, parts, _starts(mesh, axes, n))
-
-
 def _scatter(parts, mesh, sum_axes, seq_axes) -> tuple:
     """Partials [B_p, S, D] summed over ``sum_axes``, each position given
     its S block over ``seq_axes``: a reduce-scatter where the two are the
     same axes, else a sum and a block."""
     if sum_axes == seq_axes:
         return col.reduce_scatter(parts, mesh, seq_axes, 1)
-    return _block(col.psum(parts, mesh, sum_axes), mesh, seq_axes)
+    return col.split(col.psum(parts, mesh, sum_axes), mesh, seq_axes, 1)
 
 
 def _embed(table: Sharded, tokens, mesh) -> tuple:
@@ -146,10 +149,7 @@ def _logits(cfg, params, h, mesh, batch_entry) -> torch.Tensor:
     """f32 logits [B, V] on the lead device of final-normed ``h`` (each
     position's rows [B_p, D]): each vocab block's product, gathered, then
     the final softcap."""
-    if cfg.tie_embeddings:
-        w, entry = _pp(lambda t: t.T, mesh, params["embed"].parts), params["embed"].spec[0]
-    else:
-        w, entry = params["unembed"].parts, params["unembed"].spec[1]
+    w, entry = _vocab_weight(cfg, params, mesh)
     parts = _pp(lambda h, w: h.float() @ w.to(h.dtype).float(), mesh, h, w)
     return L.softcap(Sharded(parts, mesh, (batch_entry, entry)).unshard(), cfg.final_softcap)
 
@@ -203,13 +203,35 @@ def _residual(cfg, lp, x, h, attn, mesh, ax, route_axes=None) -> tuple:
     res = _pp(lambda x, a: x + a, mesh, x, attn)
     h2 = _pp(lambda x, a, n: L.rms_norm(x.float() + a.float(), n).to(x.dtype), mesh, x, attn,
              lp["ffn_norm"])
-    f = _ffn(cfg, lp, col.all_gather(h2, mesh, ax["seq"], 1), mesh, ax, route_axes)
+    f = _ffn(cfg, lp, _read_by(col.all_gather(h2, mesh, ax["seq"], 1), mesh, ax,
+                               _ffn_axes(cfg, ax)), mesh, ax, route_axes)
     return _pp(lambda r, f: r + f, mesh, res, f)
 
 
-def _normed(x, scale, mesh, ax) -> tuple:
-    """RMS norm of each position's block ``x``, gathered over S."""
-    return col.all_gather(_pp(L.rms_norm, mesh, x, scale), mesh, ax["seq"], 1)
+def _ffn_axes(cfg, ax) -> tuple:
+    """The axes the FFN's weights split over."""
+    return ax["experts"] if cfg.moe else ax["ffn"]
+
+
+def _attn_axes(cfg, ax) -> tuple:
+    """The axes the weights reading a block's normed input split over: the
+    attention's, and with a parallel residual the FFN's too."""
+    axes = ax["heads"] + ax["kv"] + (_ffn_axes(cfg, ax) if cfg.parallel_residual else ())
+    return tuple(dict.fromkeys(axes))
+
+
+def _read_by(h, mesh, ax, axes) -> tuple:
+    """``h`` (gathered over S) handed to products split over ``axes``: its
+    gradient summed over those of them the S gather's backward does not
+    sum (``collectives.replicated``)."""
+    return col.replicated(h, mesh, tuple(a for a in axes if a not in ax["seq"]))
+
+
+def _normed(x, scale, mesh, ax, readers) -> tuple:
+    """RMS norm of each position's block ``x``, gathered over S, read by
+    products split over ``readers``."""
+    return _read_by(col.all_gather(_pp(L.rms_norm, mesh, x, scale), mesh, ax["seq"], 1), mesh,
+                    ax, readers)
 
 
 def _attention(cfg, lp, h, positions, is_local: bool, mesh, ax):
@@ -260,7 +282,7 @@ def _hidden(cfg, params, tokens: Sharded, mesh, cache=None, rules=None) -> tuple
     [L, B, S, Kv, dh]) when given."""
     ax = _mesh_axes(cfg, params, tokens, mesh, rules)
     B, S = tokens.shape
-    x = _block(_embed(params["embed"], tokens.parts, mesh), mesh, ax["seq"])
+    x = col.split(_embed(params["embed"], tokens.parts, mesh), mesh, ax["seq"], 1)
     positions = _pp(lambda t: torch.arange(S, dtype=torch.int32, device=t.device)
                     .expand(t.shape[0], S), mesh, tokens.parts)
     if cache is not None:
@@ -269,7 +291,7 @@ def _hidden(cfg, params, tokens: Sharded, mesh, cache=None, rules=None) -> tuple
         s0s, c0s = _starts(mesh, cax["seq"], S_c), _starts(mesh, cax["kv"], Kv_c)
     for i, is_local in enumerate(tfm.local_flags(cfg)):
         lp = _layer(params, i)
-        h = _normed(x, lp["attn_norm"], mesh, ax)
+        h = _normed(x, lp["attn_norm"], mesh, ax, _attn_axes(cfg, ax))
         attn, kv = _attention(cfg, lp, h, positions, is_local, mesh, ax)
         if cache is not None:
             k0s = _starts(mesh, ax["kv"], cfg.n_kv_heads // mesh.size(ax["kv"]))
@@ -413,7 +435,7 @@ def _f32(parts, mesh) -> tuple:
 def _train_layer(cfg, lp, x, positions, is_local: bool, mesh, ax) -> tuple:
     """One block's output a position (its S block); its k / v are not
     kept."""
-    h = _normed(x, lp["attn_norm"], mesh, ax)
+    h = _normed(x, lp["attn_norm"], mesh, ax, _attn_axes(cfg, ax))
     attn, _ = _attention(cfg, lp, h, positions, is_local, mesh, ax)
     return _residual(cfg, lp, x, h, attn, mesh, ax)
 
@@ -467,14 +489,17 @@ def _rematerialised(cfg, lp, x, positions, is_local: bool, mesh, ax) -> tuple:
     return tuple(outs[i] for i in owner)
 
 
-def _logit_blocks(cfg, params, h, mesh) -> tuple[tuple, tuple, int]:
-    """Each position's f32 logits of its rows ``h`` [B_p, S, D] (all of S)
-    over its vocab block (the final softcap applied), the vocab axes and
-    the block size."""
+def _vocab_weight(cfg, params, mesh) -> tuple[tuple, object]:
+    """Each position's output projection [D, V_p] and its vocab spec entry."""
     if cfg.tie_embeddings:
-        w, entry = _pp(lambda t: t.T, mesh, params["embed"].parts), params["embed"].spec[0]
-    else:
-        w, entry = params["unembed"].parts, params["unembed"].spec[1]
+        return _pp(lambda t: t.T, mesh, params["embed"].parts), params["embed"].spec[0]
+    return params["unembed"].parts, params["unembed"].spec[1]
+
+
+def _logit_blocks(cfg, h, w, entry, mesh) -> tuple[tuple, tuple, int]:
+    """Each position's f32 logits of its rows ``h`` [B_p, S, D] (all of S)
+    over its vocab block of ``w`` (:func:`_vocab_weight`; the final softcap
+    applied), the vocab axes and the block size."""
     logits = _pp(lambda h, w: L.softcap(h.float() @ w.to(h.dtype).float(), cfg.final_softcap),
                  mesh, h, w)
     return logits, axes_of(entry), w[0].shape[1]
@@ -491,14 +516,15 @@ def loss_fn(cfg, params, batch: dict, *, mesh, rules=None) -> torch.Tensor:
         raise ValueError(f"labels split as {labels.spec}, tokens as {tokens.spec}")
     ax = _mesh_axes(cfg, params, tokens, mesh, rules)
     B, S = tokens.shape
-    x = _block(_embed(params["embed"], tokens.parts, mesh), mesh, ax["seq"])
+    x = col.split(_embed(params["embed"], tokens.parts, mesh), mesh, ax["seq"], 1)
     positions = _pp(lambda t: torch.arange(S, dtype=torch.int32, device=t.device)
                     .expand(t.shape[0], S), mesh, tokens.parts)
     layer = _rematerialised if cfg.remat and torch.is_grad_enabled() else _train_layer
     for lp, is_local in zip(_layer_parts(params), tfm.local_flags(cfg)):
         x = layer(cfg, lp, x, positions, is_local, mesh, ax)
-    h = _normed(x, _f32(params["final_norm"].parts, mesh), mesh, ax)
-    logits, vax, V_loc = _logit_blocks(cfg, params, h, mesh)
+    w, entry = _vocab_weight(cfg, params, mesh)
+    h = _normed(x, _f32(params["final_norm"].parts, mesh), mesh, ax, axes_of(entry))
+    logits, vax, V_loc = _logit_blocks(cfg, h, w, entry, mesh)
     lmax = col.pmax(_pp(lambda l: l.detach().amax(dim=-1, keepdim=True), mesh, logits), mesh, vax)
     sums = col.psum(_pp(lambda l, m: torch.sum(torch.exp(l - m), dim=-1), mesh, logits, lmax),
                     mesh, vax)
@@ -521,4 +547,6 @@ def loss_fn(cfg, params, batch: dict, *, mesh, rules=None) -> torch.Tensor:
     lead = mesh.lead
     loss = col.sum_in_order([total[p].to(lead) for p in firsts])
     n = col.sum_in_order([count[p].to(lead) for p in firsts])
+    for t in (loss, n):  # each the all-reduce over the data slices every position would run
+        col.count_over("all-reduce", t.numel() * t.element_size(), mesh, dp_axes(mesh))
     return loss / torch.clamp(n, min=1)

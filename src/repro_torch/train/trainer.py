@@ -10,7 +10,11 @@ program on several devices): each distinct tensor of a leaf is read
 through its own alias, and a block's gradient is the sum of its holders'
 (one a device: a copy on another device saw only the work done there,
 the positions on one device share one tensor and so one gradient);
-``grad_norm`` counts each block once.  The loop adds:
+``grad_norm`` counts each block once.  For the dry run's wire count
+(``dist.collectives``) the holders' sum counts as an all-reduce of the
+block's gradient over every position that holds the block, and
+``grad_norm``'s sum of a split leaf's per-block squares as an all-reduce
+of one f32 scalar over the axes that split it.  The loop adds:
 
   * **auto-resume**: ``try_resume`` collects torn writes and restores the
     newest readable checkpoint onto the parameters' devices;
@@ -60,14 +64,17 @@ def _combined(x, grad_of: dict):
     """The gradient of leaf ``x`` (an alias) from each input's: a
     :class:`Sharded` block's is the sum of its holders' in position order,
     on the first holder's device (bf16 summed in f32, rounded once), given
-    to every holder."""
+    to every holder; counted as the all-reduce over the positions that hold
+    the block."""
     if not isinstance(x, Sharded):
         return grad_of[id(x)]
     out = {}
-    for held in shd.holders(x).values():
+    n_pos = shd.positions_holding(x)
+    for blk, held in shd.holders(x).items():
         dev = held[0].device
         grads = [grad_of[id(t)].to(dev) for t in held]
         total = grads[0] if len(grads) == 1 else col.sum_in_order(grads)
+        col.count_wire("all-reduce", total.numel() * total.element_size(), n_pos[blk])
         for t in held:
             out[id(t)] = total if t.device == dev else total.to(t.device)
     return Sharded(tuple(out[id(t)] for t in x.parts), x.mesh, x.spec)
@@ -91,9 +98,11 @@ def value_and_grad(loss_fn: Callable, params, batch):
 
 def _squares(g, device) -> torch.Tensor:
     """The f32 sum of squares of a gradient leaf, each block of a
-    :class:`Sharded` once, on ``device``."""
+    :class:`Sharded` once, on ``device``: the blocks' partial sums counted
+    as an all-reduce of the scalar over the axes that split the leaf."""
     if not isinstance(g, Sharded):
         return torch.sum(g.float() ** 2)
+    col.count_over("all-reduce", 4, g.mesh, [a for e in g.spec for a in shd.axes_of(e)])
     return sum(torch.sum(held[0].float() ** 2).to(device) for held in shd.holders(g).values())
 
 

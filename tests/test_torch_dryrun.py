@@ -13,6 +13,12 @@ package's ``repro.launch`` modules of the same names:
   engine's Pallas kernels are opaque there as the port's are here);
 * the roofline terms of a hand-built count;
 * a record's keys against the JAX record's (less the XLA-only ones);
+* the wire count of a data-parallel training step on (2, 1) against the
+  JAX program's compiled HLO (``roofline.hlo_traffic``, compiled in the
+  (2, 4) subprocess on two of its devices): xDeepFM's all-reduce bytes
+  equal; tinyllama's differ by its stacked layers' gradients, which
+  ``hlo_traffic`` does not reach (their all-reduce sits in the backward
+  loop's body, whose header ``parse_hlo`` does not read);
 * the memory keys per device, as the JAX record's: a hand-built mesh
   function's bytes a position against the analytic ones; on (1, 1) every
   smoke cell's per-device peak equal to the whole mesh's, on (2, 4) at
@@ -34,22 +40,36 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = ((1, 1), (2, 4))
+# the train cells whose compiled HLO's collectives the (2, 4) subprocess reads on a (2, 1) mesh
+DATA_PARALLEL = ((2, 1), (("xdeepfm", "train_batch"), ("tinyllama-1.1b", "train_4k")))
 
 
 def jax_main(out_path, ms):
     """The JAX flop count of every smoke cell on an ``Auto`` mesh of shape
-    ``ms``."""
+    ``ms``; on (2, 4) also the wire bytes by kind of :data:`DATA_PARALLEL`'s
+    cells, compiled on its mesh of the first devices."""
     import jax
 
-    from repro.launch import flopcount as jfc, programs as jprograms
+    from repro.launch import flopcount as jfc, programs as jprograms, roofline as jroof
 
     auto = (jax.sharding.AxisType.Auto,) * 2
-    out = {}
+    out = {"flops": {}, "traffic": {}}
     mesh = jax.make_mesh(ms, ("data", "model"), axis_types=auto)
     for arch, shape in jprograms.all_cells():
         prog = jprograms.build(arch, shape, mesh, smoke=True)
         with mesh:
-            out[f"{arch}:{shape}:{ms[0]}x{ms[1]}"] = jfc.count(prog.fn, *prog.in_specs).flops
+            out["flops"][f"{arch}:{shape}:{ms[0]}x{ms[1]}"] = jfc.count(prog.fn,
+                                                                        *prog.in_specs).flops
+    dp, cells = DATA_PARALLEL
+    if ms == (2, 4):
+        mesh = jax.make_mesh(dp, ("data", "model"), axis_types=auto,
+                             devices=jax.devices()[:dp[0] * dp[1]])
+        for arch, shape in cells:
+            prog = jprograms.build(arch, shape, mesh, smoke=True)
+            with mesh:
+                hlo = jax.jit(prog.fn, in_shardings=prog.in_shardings).lower(
+                    *prog.in_specs).compile().as_text()
+            out["traffic"][f"{arch}:{shape}:{dp[0]}x{dp[1]}"] = jroof.hlo_traffic(hlo)
     with open(out_path, "w") as f:
         json.dump(out, f)
 
@@ -98,13 +118,15 @@ def jax_counts(tmp_path_factory):
                                   text=True)
              for ms in MESHES}  # one process a mesh, both started now
 
-    def get():
+    def get(what="flops"):
+        """``"flops"``: every cell's flop count; ``"traffic"``: the
+        data-parallel cells' wire bytes by kind."""
         counts = {}
         for ms, proc in procs.items():
             out, err = proc.communicate(timeout=400)
             assert proc.returncode == 0, f"JAX side failed:\n{out[-3000:]}\n{err[-3000:]}"
             with open(tmp / f"{ms[0]}x{ms[1]}.json") as f:
-                counts.update(json.load(f))
+                counts.update(json.load(f)[what])
         return counts
 
     return get
@@ -338,3 +360,27 @@ def test_seq_sp_lowers_the_per_device_peak(tmp_path):
     B, S = 2, 64  # the smoke programs' batch
     want = 4 * (1 - 1 / ms[1]) * (B // ms[0]) * S * cfg.d_model * 2
     assert 0.75 * want <= gap[6] - gap[2] <= 1.25 * want, (gap, want)
+
+
+def test_data_parallel_step_wire_like_the_jax_hlo(tmp_path, jax_counts):
+    """(2, 1): every parameter replicated over the two data positions.  The
+    smoke xDeepFM step all-reduces its gradients (247,048 B, 1x a device)
+    and its loss (4 B): within 16 B of the JAX HLO's all-reduce, the only
+    kind either reads.  The smoke tinyllama step reads its gradients'
+    419,072 B and the loss's f32 sum and int64 label count; the JAX
+    ``hlo_traffic`` reads the same but for the stacked ``layers``' 353,280
+    B (and an int32 count): it leaves out the backward layer loop, whose
+    body's tuple parameter ``roofline._COMP_HDR_RE`` does not match."""
+    ms, _ = DATA_PARALLEL
+    want = jax_counts("traffic")
+    got = {}
+    for arch, shape in DATA_PARALLEL[1]:
+        rec = dryrun.run_cell(arch, shape, ms, str(tmp_path), smoke=True, verbose=False)
+        assert rec["ok"], rec.get("traceback")
+        got[arch] = rec["coll_detail"], want[f"{arch}:{shape}:{ms[0]}x{ms[1]}"]
+    port, jax_side = got["xdeepfm"]
+    assert abs(port["all-reduce"] - jax_side["all-reduce"]) <= 16, (port, jax_side)
+    assert port["all-gather"] == port["reduce-scatter"] == 0
+    assert all(jax_side[k] == 0 for k in jax_side if k not in ("mem", "all-reduce"))
+    port, jax_side = got["tinyllama-1.1b"]
+    assert port["all-reduce"] - jax_side["all-reduce"] == 353_280 + 4, (port, jax_side)
