@@ -5478,6 +5478,11 @@ DRY_LAYOUT_CELL = ("tinyllama-1.1b", "train_4k", (2, 4))  # 16: the full config,
 # 16: the largest share by which the two layouts' collective terms may differ (ring bytes are
 # equal but for seq_sp's embedding all-gather)
 DRY_LAYOUT_COLLECTIVE_GAP = 0.10
+# 16: the same cell on the single-pod production mesh (launch.mesh.make_production_mesh), run
+# with the shortcut (each class of data-parallel positions once), and the most times the
+# (2, 4) run's seconds it may take
+DRY_PRODUCTION_MESH = (32, 8)
+DRY_PRODUCTION_SLOWDOWN = 3.0
 
 
 def _wire_text(detail: dict) -> str:
@@ -5491,7 +5496,8 @@ def dry_layouts(card: str) -> dict:
     None): per-device and whole-mesh peaks, the collective term and the
     wire bytes by kind; fails unless ``seq_sp``'s per-device peak is the
     lower and the two collective terms lie within
-    ``DRY_LAYOUT_COLLECTIVE_GAP`` of each other."""
+    ``DRY_LAYOUT_COLLECTIVE_GAP`` of each other; beside them the same cell
+    on the production mesh (:func:`dry_production`)."""
     import multiprocessing as mp
     import tempfile
     from concurrent.futures import ProcessPoolExecutor
@@ -5499,17 +5505,18 @@ def dry_layouts(card: str) -> dict:
     from repro_torch.launch import dryrun
 
     arch, shape, ms = DRY_LAYOUT_CELL
-    layouts = (("seq_sp", None), ("whole", {"seq_sp": None}))
+    layouts = (("seq_sp", None, ms), ("whole", {"seq_sp": None}, ms),
+               ("production", None, DRY_PRODUCTION_MESH))
     with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
-            len(layouts), mp_context=mp.get_context("spawn")) as pool:  # both at once
-        got = pool.map(dryrun._run_one, [(arch, shape, ms, tmp, True, False, rules)
-                                         for _, rules in layouts])
-        recs = {name: rec for (name, _), rec in zip(layouts, got)}
+            len(layouts), mp_context=mp.get_context("spawn")) as pool:  # all at once
+        got = pool.map(dryrun._run_one, [(arch, shape, m, tmp, True, False, rules, None)
+                                         for _, rules, m in layouts])
+        recs = {name: rec for (name, _, _), rec in zip(layouts, got)}
     for name, rec in recs.items():
         if not rec["ok"]:
-            fail(f"16 {arch}:{shape} {ms} {name}: {rec.get('error')}")
+            fail(f"16 {arch}:{shape} {rec['mesh']} {name}: {rec.get('error')}")
         rec["seconds"] = rec["t_build_s"] + rec["t_run_s"]
-    sp, whole = recs["seq_sp"], recs["whole"]
+    sp, whole, prod = recs["seq_sp"], recs["whole"], recs.pop("production")
     print(f"16 {arch}:{shape} full config on a {ms} meta mesh, per-device peak (the largest "
           f"position's, as the JAX record's): seq_sp {sp['peak_mem_bytes']} bytes, residual whole "
           f"{whole['peak_mem_bytes']} bytes ({whole['peak_mem_bytes'] - sp['peak_mem_bytes']} "
@@ -5527,7 +5534,33 @@ def dry_layouts(card: str) -> dict:
         fail(f"16 {arch}:{shape} {ms}: the collective terms differ by {gap:.3f} "
              f"(seq_sp {sp['t_collective']}, whole {whole['t_collective']} s; want at most "
              f"{DRY_LAYOUT_COLLECTIVE_GAP})")
+    recs["production"] = dry_production(prod, sp, card)
     return recs
+
+
+def dry_production(rec: dict, node: dict, card: str) -> dict:
+    """16: ``DRY_LAYOUT_CELL`` on ``DRY_PRODUCTION_MESH`` (run beside the
+    layouts, with the shortcut): the per-device peak, the three terms, the
+    wire bytes a device by link and the seconds; fails unless the cell is
+    ok and took at most ``DRY_PRODUCTION_SLOWDOWN`` times the seconds of
+    its run on one node (``node``, the (2, 4) record)."""
+    from repro_torch.launch import dryrun
+
+    arch, shape, ms = DRY_LAYOUT_CELL
+    links = rec["link_detail"]
+    print(f"16 {arch}:{shape} full config on the {rec['mesh']} "
+          f"production meta mesh (the shortcut: each class of data-parallel positions once), "
+          f"per-device peak {rec['peak_mem_bytes']} bytes ({rec['peak_mem_bytes'] / 1e9:.2f} GB "
+          f"against the card's 80 GB); analytic H100 SXM bounds: compute "
+          f"{rec['t_compute'] * 1e3:.2f} ms, memory {rec['t_memory'] * 1e3:.2f} ms, collective "
+          f"{rec['t_collective'] * 1e3:.2f} ms ({rec['bottleneck']}); wire bytes a device over "
+          f"NVLink {links['nvlink']:.6g}, over the network {links['network']:.6g}; dry run "
+          f"{rec['seconds']:.1f} s against {node['seconds']:.1f} s on {dryrun.mesh_name(ms)}; "
+          f"{card}", flush=True)
+    if rec["seconds"] > DRY_PRODUCTION_SLOWDOWN * node["seconds"]:
+        fail(f"16 {arch}:{shape} {rec['mesh']}: the dry run took {rec['seconds']:.1f} s, more "
+             f"than {DRY_PRODUCTION_SLOWDOWN} x the {node['seconds']:.1f} s of {ms}")
+    return rec
 
 
 # phase 17: the examples on the card, each a process of its own (small sizes)

@@ -87,6 +87,7 @@ from repro_torch.core.query import (
 )
 from repro_torch.obs import cost as obs_cost
 from repro_torch.core.sortedset import SENTINEL, IdSet
+from repro_torch.dist import collectives as col
 from repro_torch.launch.mesh import MODEL_AXIS
 
 # serve IR ops
@@ -529,12 +530,13 @@ def make_sharded_serve_step(
         if u_width > 0 and indexes is None:
             raise ValueError("sharded unbounded serve requires the replicated index")
         w = n // len(grid)
-        outs = [one_slice(shards, ServeBatch(*(a[i * w:(i + 1) * w] for a in q)), indexes, row)
-                for i, row in enumerate(grid)]
+        outs = col.each_slice(lambda i, row: one_slice(
+            shards, ServeBatch(*(a[i * w:(i + 1) * w] for a in q)), indexes, row), mesh, grid)
         if len(outs) == 1:
             return outs[0]
-        return ServeResult(**{name: torch.cat([getattr(o, name) for o in outs])
-                              for name in RESULT_FIELDS})
+        with col.once():
+            return ServeResult(**{name: torch.cat([getattr(o, name) for o in outs])
+                                  for name in RESULT_FIELDS})
 
     return step
 
@@ -570,14 +572,17 @@ def make_sharded_unbounded_scan(meta: K2Meta, mesh, cap: int):
         if n % len(grid):
             raise ValueError(f"{n} keys do not split over {len(grid)} data slices")
         w = n // len(grid)
-        slices = []
-        for i, row in enumerate(grid):
+
+        def one_slice(i, row):
             k, a = keys[i * w:(i + 1) * w], axes[i * w:(i + 1) * w]
             parts = [local(shards[pos], k.to(mesh.devices[pos]), a.to(mesh.devices[pos]))
                      for pos in row]
-            slices.append([torch.cat([p[x].to(lead, non_blocking=True) for p in parts], dim=1)
-                           for x in range(3)])
-        return tuple(torch.cat([s[x] for s in slices]) for x in range(3))
+            return [torch.cat([p[x].to(lead, non_blocking=True) for p in parts], dim=1)
+                    for x in range(3)]
+
+        slices = col.each_slice(one_slice, mesh, grid)
+        with col.once():
+            return tuple(torch.cat([s[x] for s in slices]) for x in range(3))
 
     return fn
 

@@ -25,7 +25,6 @@ one copy a (device, block) is shared by the positions that name it.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import math
 
@@ -109,10 +108,18 @@ def block_index(mesh, pos: int, axes) -> int:
     return idx
 
 
+_BLOCKS: dict = {}
+
+
 def _blocks(mesh, spec) -> list[tuple[int, ...]]:
-    """Every position's block coordinates, one a dimension of ``spec``."""
-    return [tuple(block_index(mesh, pos, axes_of(e)) for e in spec)
-            for pos in range(len(mesh.devices))]
+    """Every position's block coordinates, one a dimension of ``spec``
+    (made once a mesh and spec)."""
+    key = (id(mesh), tuple(spec))
+    got = _BLOCKS.get(key)
+    if got is None or got[0] is not mesh:
+        got = _BLOCKS[key] = (mesh, [tuple(block_index(mesh, pos, axes_of(e)) for e in spec)
+                                     for pos in range(len(mesh.devices))])
+    return got[1]
 
 
 def _block_shape(shape, mesh, spec) -> list[int]:
@@ -240,10 +247,13 @@ def holders(s: Sharded) -> dict[tuple, list[torch.Tensor]]:
     return {blk: list(ts.values()) for blk, ts in out.items()}
 
 
-def positions_holding(s: Sharded) -> dict[tuple, int]:
-    """{block coordinates: the number of mesh positions that hold that
-    block}, every position counted, on a repeated device too."""
-    return dict(collections.Counter(_blocks(s.mesh, s.spec)))
+def positions_holding(s: Sharded) -> dict[tuple, tuple[int, ...]]:
+    """{block coordinates: the mesh positions that hold that block}, in
+    order, every position counted, on a repeated device too."""
+    out: dict = {}
+    for pos, blk in enumerate(_blocks(s.mesh, s.spec)):
+        out.setdefault(blk, []).append(pos)
+    return {blk: tuple(ps) for blk, ps in out.items()}
 
 
 def map_distinct(fn, s: Sharded) -> Sharded:

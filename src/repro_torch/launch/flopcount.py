@@ -44,6 +44,7 @@ from torch.utils import flop_counter as _fc
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.dist import collectives as col
+from repro_torch.launch import lanes
 
 aten = torch.ops.aten
 
@@ -122,8 +123,9 @@ def _kind(func) -> str:
     return "move"
 
 
-def tally(c: Cost, func, args, kwargs, out) -> None:
-    """Add one op's flops and bytes to ``c``."""
+def tally(c: Cost, func, args, kwargs, out, times: int = 1) -> None:
+    """Add one op's flops and bytes to ``c``, ``times`` over (the copies a
+    shortcut dry run's op stands for, ``lanes.Lanes``)."""
     kind = _kind(func)
     if kind == "free":
         return
@@ -133,8 +135,9 @@ def tally(c: Cost, func, args, kwargs, out) -> None:
         packet = func._overloadpacket
         f = float(_VECTOR[packet](*args[:3]) if packet in _VECTOR
                   else _fc.flop_registry[packet](*args, **kwargs, out_val=out))
+        f *= times
         if packet in _WITH_SUM:
-            sum_flops = _elems(out)
+            sum_flops = _elems(out) * times
             c.flops_other += sum_flops
             c.flops += sum_flops
         dts = {t.dtype for t in _tensors(args) if t.is_floating_point()}
@@ -146,10 +149,10 @@ def tally(c: Cost, func, args, kwargs, out) -> None:
             c.flops_other += f
         c.flops += f
     elif kind == "flop":
-        n = _elems(out)
+        n = _elems(out) * times
         c.flops += n
         c.flops_other += n
-    c.bytes_naive += _bytes(args) + _bytes(out)
+    c.bytes_naive += (_bytes(args) + _bytes(out)) * times
 
 
 class _Mode(TorchDispatchMode):
@@ -170,8 +173,11 @@ _active = threading.local()
 def opaque(inputs, outputs) -> None:
     """A hand-written kernel's call under a count: its operand and result
     bytes, no flops (as the reference counts a ``pallas_call``)."""
-    for c in getattr(_active, "costs", ()):
-        c.bytes_naive += _bytes(inputs) + _bytes(outputs)
+    costs = getattr(_active, "costs", ())
+    if costs:
+        times = lanes.weight_of(list(_tensors(inputs)))
+    for c in costs:
+        c.bytes_naive += (_bytes(inputs) + _bytes(outputs)) * times
 
 
 @contextlib.contextmanager

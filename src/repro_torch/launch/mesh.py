@@ -106,6 +106,22 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], devices=None) -> Me
                 tuple(resolve_device(d) for d in devices))
 
 
+# The H100 production meshes: one DGX H100 SuperPOD scalable unit of 32 nodes of 8 NVLink
+# cards (``model`` within a node), and the same 256 cards as two pods of 16 nodes, ``pod``
+# the outer data-parallel axis over the slower links between them.  Both keep the JAX
+# package's 32 data-parallel slices, to which every shape's global batch is sized.
+PRODUCTION_SHAPES = {False: ((32, 8), ("data", MODEL_AXIS)),
+                     True: ((2, 16, 8), ("pod", "data", MODEL_AXIS))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The single-pod (32, 8) ("data", "model") or the multi-pod (2, 16, 8)
+    ("pod", "data", "model") mesh of 256 cards over ``devices``; the
+    default asks for 256 visible CUDA cards (:func:`make_mesh`)."""
+    shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
+    return make_mesh(shape, axes, devices)
+
+
 def dp_axes(mesh: Mesh) -> tuple[str, ...]:
     """Every mesh axis that is not 'model' (the data-parallel axes)."""
     return tuple(a for a in mesh.axis_names if a != MODEL_AXIS)

@@ -6,12 +6,15 @@ Three terms per (arch x shape x mesh), in seconds a step:
     compute    = bf16 product flops / PEAK_BF16
                  + (f32 product flops + other flops) / PEAK_F32, a device
     memory     = bytes_naive a device / HBM_BW
-    collective = wire bytes a device / NVLINK_BW
+    collective = NVLink wire bytes a device / NVLINK_BW
+                 + network wire bytes a device / NETWORK_BW
 
 The flops and bytes come from ``flopcount`` (the whole program, divided
 by the chips; the reference's uniform-sharding assumption), the wire bytes
 from ``dist.collectives.WIRE`` (ring factors: all-reduce ``2(g-1)/g``,
-all-gather and reduce-scatter ``(g-1)/g``).  Eager PyTorch fuses nothing,
+all-gather and reduce-scatter ``(g-1)/g``), split by the link each group
+crosses: a group within one node of ``NODE_CARDS`` cards over NVLink, one
+that spans nodes over the network (``collectives.link``).  Eager PyTorch fuses nothing,
 so ``bytes_naive`` is the traffic the port really makes, not an upper
 bound.  These are analytic bounds for the card, not measurements.
 
@@ -19,17 +22,25 @@ The constants (NVIDIA H100 SXM5 datasheet): HBM3 3.35 TB/s; 989 TFLOP/s
 dense bf16 / f16 on the tensor cores; 67 TFLOP/s f32 on the CUDA cores
 (the port's f32 products do not use TF32); 67 T/s of 32-bit integer or
 logic operations (the k²-tree kernels' bit tests); NVLink 900 GB/s a card.
+A node is a DGX H100 (NVIDIA DGX H100 user guide / SuperPOD reference
+architecture): 8 cards on NVLink, and one ConnectX-7 NDR InfiniBand port
+of 400 Gb/s a card to the network between nodes, 50 GB/s each way, so
+100 GB/s on NVLINK_BW's convention (900 GB/s is NVLink 4's both
+directions, 450 each way).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.dist.collectives import NODE_CARDS  # noqa: F401 (a node's cards)
+
 HBM_BW = 3.35e12  # bytes/s
 PEAK_BF16 = 989e12  # flop/s, dense, tensor cores
 PEAK_F32 = 67e12  # flop/s, CUDA cores
 PEAK_INT32 = 67e12  # 32-bit ops/s
-NVLINK_BW = 900e9  # bytes/s a card
+NVLINK_BW = 900e9  # bytes/s a card, both directions
+NETWORK_BW = 100e9  # bytes/s a card between nodes, both directions (one 400 Gb/s NDR port)
 
 
 def bound_ms(bytes_: float, ops: float = 0.0, peak: float = PEAK_INT32) -> tuple[float, str]:
@@ -54,6 +65,7 @@ class Roofline:
     peak_mem_bytes: float = 0.0
     flops_bf16_per_dev: float = 0.0
     flops_f32_per_dev: float = 0.0
+    link_detail: dict | None = None  # wire bytes a device by link; None: all over NVLink
 
     @property
     def t_compute(self) -> float:
@@ -65,8 +77,18 @@ class Roofline:
         return self.bytes_per_dev / HBM_BW
 
     @property
+    def links(self) -> dict:
+        """Wire bytes a device by link ("nvlink", "network")."""
+        if self.link_detail is None:
+            return {"nvlink": self.wire_bytes_per_dev, "network": 0.0}
+        return dict(self.link_detail)
+
+    @property
     def t_collective(self) -> float:
-        return self.wire_bytes_per_dev / NVLINK_BW
+        by = self.links
+        if not by["network"]:  # within a node: the whole count at NVLink's rate
+            return self.wire_bytes_per_dev / NVLINK_BW
+        return by["nvlink"] / NVLINK_BW + by["network"] / NETWORK_BW
 
     @property
     def bottleneck(self) -> str:
@@ -105,22 +127,25 @@ class Roofline:
             "roofline_frac": self.roofline_frac,
             "peak_mem_bytes": self.peak_mem_bytes,
             "coll_detail": self.coll_detail,
+            "link_detail": self.links,
             "flops_bf16_per_dev": self.flops_bf16_per_dev,
             "flops_f32_per_dev": self.flops_f32_per_dev,
         }
 
 
 def analyze(name: str, mesh_name: str, chips: int, cost, wire: dict, model_flops: float,
-            peak_mem_bytes: float = 0.0) -> Roofline:
+            peak_mem_bytes: float = 0.0, links: dict | None = None) -> Roofline:
     """The :class:`Roofline` of a counted program (``flopcount.Cost``) and
     the wire bytes its collectives moved (``collectives.wire_bytes()``,
-    summed over positions)."""
+    summed over positions), by link where ``links``
+    (``collectives.link_bytes()``) is given, else all over NVLink."""
     return Roofline(
         name=name, mesh=mesh_name, chips=chips,
         flops_per_dev=cost.flops / chips, bytes_per_dev=cost.bytes_naive / chips,
         wire_bytes_per_dev=sum(wire.values()) / chips, model_flops=model_flops,
         coll_detail={k: v / chips for k, v in wire.items()}, peak_mem_bytes=peak_mem_bytes,
         flops_bf16_per_dev=cost.flops_bf16 / chips, flops_f32_per_dev=cost.flops_f32 / chips,
+        link_detail=None if links is None else {k: v / chips for k, v in links.items()},
     )
 
 

@@ -287,17 +287,6 @@ class Local:
         return graph_regression_loss(out, self.g)
 
 
-def _ids(v):
-    """Identity of a per-position argument (tensors by object)."""
-    if isinstance(v, torch.Tensor):
-        return ("t", id(v))
-    if isinstance(v, (tuple, list)):
-        return tuple(_ids(x) for x in v)
-    if isinstance(v, dict):
-        return tuple((k, _ids(x)) for k, x in v.items())
-    return ("v", v)
-
-
 class OnMesh:
     """A :class:`GraphBatch` of :class:`Sharded` arrays (nodes and edges
     over the data axes, ``graph_y`` replicated): every per-node or per-edge
@@ -321,17 +310,8 @@ class OnMesh:
         self.per = per
 
     def map(self, fn, *args):
-        """``fn(*entries)`` a position; positions on one device whose
-        entries are the same objects share one call."""
-        memo: dict = {}
-        out = []
-        for pos, dev in enumerate(self.mesh.devices):
-            vals = [a[pos] for a in args]
-            key = (dev, _ids(vals))
-            if key not in memo:
-                memo[key] = fn(*vals)
-            out.append(memo[key])
-        return tuple(out)
+        """``fn(*entries)`` a position (``collectives.per_position``)."""
+        return col.per_position(fn, self.mesh, *args)
 
     def unzip(self, out, k: int):
         return tuple(tuple(o[i] for o in out) for i in range(k))
@@ -373,7 +353,7 @@ class OnMesh:
     def pmax(self, partial):
         """The elementwise maximum over the mesh (no gradient: the softmax's
         shift is a constant)."""
-        return col.pmax(tuple(t.detach() for t in partial), self.mesh, self.axes)
+        return col.pmax(self.map(torch.Tensor.detach, partial), self.mesh, self.axes)
 
     def remat(self, enabled: bool, fn, *args):
         """``fn(*args)`` recomputed in the backward as one autograd node over

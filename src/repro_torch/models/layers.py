@@ -339,21 +339,45 @@ def decode_attention_partial(q, k_cache, v_cache, *, length, start: int = 0,
     return m, p.sum(dim=-1), torch.matmul(p, v_cache.permute(0, 2, 1, 3).float())
 
 
-def combine_decode_partials(parts) -> torch.Tensor:
+def combine_decode_partials(parts, mult=None, lanes=None) -> torch.Tensor:
     """The log-sum-exp combine of :func:`decode_attention_partial`'s
     partials over the slices of S, in the given order: the attention
-    output [B, Kv·G, dh] in f32."""
-    m = parts[0][0]
-    for mi, _, _ in parts[1:]:
-        m = torch.maximum(m, mi)
+    output [B, Kv·G, dh] in f32.  ``mult`` / ``lanes``: the dry run's
+    repeated entries, entry ``i`` standing for ``mult[i]`` in a row and
+    each of its ops for that many (``dist.collectives.reduce_over``)."""
+    from repro_torch.dist import collectives as col
+
+    m = col.max_in_order([p[0] for p in parts], mult, lanes)
     l = acc = None
-    for mi, li, ai in parts:
-        w = torch.exp(mi - m)
-        l = li * w if l is None else l + li * w
-        acc = ai * w[..., None] if acc is None else acc + ai * w[..., None]
+    for i, (mi, li, ai) in enumerate(parts):
+        k = 1 if mult is None else mult[i]
+        with col.weighed(lanes, k):
+            w = torch.exp(mi - m)
+            t = li * w
+        l = _add_in_order(l, t, k, lanes)
+        with col.weighed(lanes, k):
+            t = ai * w[..., None]
+        acc = _add_in_order(acc, t, k, lanes)
+        del t
     out = acc / l[..., None]
     B, Kv, G, dh = out.shape
     return out.reshape(B, Kv * G, dh)
+
+
+combine_decode_partials.folds = True
+
+
+def _add_in_order(acc, t, k: int, lanes):
+    """``acc`` plus ``t`` added ``k`` times in a row, the first taken as
+    ``acc`` where there is none; the additions one op of their weight."""
+    if acc is None:
+        acc, k = t, k - 1
+    if k:
+        from repro_torch.dist import collectives as col
+
+        with col.weighed(lanes, k):
+            acc = acc + t
+    return acc
 
 
 # ---------------------------------------------------------------------------

@@ -294,17 +294,11 @@ def _logits_on(params, ids: Sharded, mesh) -> tuple:
     return _pp(lambda x0, lin, d: _logit(build(zip(paths, d)), x0, lin), mesh, x0, lin, dense)
 
 
-def _once_a_slice(parts, mesh) -> list:
-    """One position's entry a data slice (its first model shard), in data
-    order, on the mesh's lead device."""
-    return [parts[row[0]].to(mesh.lead) for row in mesh.grid()]
-
-
 def forward_on(cfg: XDeepFMCfg, params, ids: Sharded, *, mesh) -> torch.Tensor:
     """:func:`forward` on ``mesh``: ``params`` :class:`Sharded` by the
     program's layout, ``ids`` [B, F] split over the data axes; the logits
     [B] on the mesh's lead device."""
-    return torch.cat(_once_a_slice(_logits_on(params, ids, mesh), mesh))
+    return col.over_slices(torch.cat, _logits_on(params, ids, mesh), mesh)
 
 
 def loss_on(cfg: XDeepFMCfg, params, batch, *, mesh) -> torch.Tensor:
@@ -313,7 +307,7 @@ def loss_on(cfg: XDeepFMCfg, params, batch, *, mesh) -> torch.Tensor:
     ids, labels = batch["ids"], batch["labels"]
     logits = _logits_on(params, ids, mesh)
     sums = _pp(lambda z, y: _ctr_loss(z, y).sum(), mesh, logits, labels.parts)
-    total = col.sum_in_order(_once_a_slice(sums, mesh))
+    total = col.over_slices(col.sum_in_order, sums, mesh)
     # the all-reduce over the data slices every position would run
     col.count_over("all-reduce", total.numel() * total.element_size(), mesh, dp_axes(mesh))
     return total / ids.shape[0]
@@ -332,7 +326,7 @@ def retrieval_on(cfg: XDeepFMCfg, params, user_ids: Sharded, cand_ids: Sharded, 
     items = col.all_gather(_pp(lambda t: t[0], mesh, tables.parts), mesh,
                            axes_of(tables.spec[1]), 0)
     scores = _pp(lambda t, i, u: t[i.long()] @ u, mesh, items, cand_ids.parts, u)
-    return torch.cat(_once_a_slice(scores, mesh))
+    return col.over_slices(torch.cat, scores, mesh)
 
 
 def flops_forward(cfg: XDeepFMCfg, batch: int) -> float:

@@ -543,10 +543,8 @@ def loss_fn(cfg, params, batch: dict, *, mesh, rules=None) -> torch.Tensor:
 
     total = _pp(nll, mesh, sums, lmax, lab, labels.parts)
     count = _pp(lambda y: (y >= 0).sum(), mesh, labels.parts)
-    firsts = [row[0] for row in mesh.grid()]  # one position a data slice
-    lead = mesh.lead
-    loss = col.sum_in_order([total[p].to(lead) for p in firsts])
-    n = col.sum_in_order([count[p].to(lead) for p in firsts])
+    loss = col.over_slices(col.sum_in_order, total, mesh)  # one position a data slice
+    n = col.over_slices(col.sum_in_order, count, mesh)
     for t in (loss, n):  # each the all-reduce over the data slices every position would run
         col.count_over("all-reduce", t.numel() * t.element_size(), mesh, dp_axes(mesh))
     return loss / torch.clamp(n, min=1)

@@ -69,12 +69,12 @@ def _combined(x, grad_of: dict):
     if not isinstance(x, Sharded):
         return grad_of[id(x)]
     out = {}
-    n_pos = shd.positions_holding(x)
+    at = shd.positions_holding(x)
     for blk, held in shd.holders(x).items():
         dev = held[0].device
         grads = [grad_of[id(t)].to(dev) for t in held]
         total = grads[0] if len(grads) == 1 else col.sum_in_order(grads)
-        col.count_wire("all-reduce", total.numel() * total.element_size(), n_pos[blk])
+        col.count_wire("all-reduce", total.numel() * total.element_size(), at[blk])
         for t in held:
             out[id(t)] = total if t.device == dev else total.to(t.device)
     return Sharded(tuple(out[id(t)] for t in x.parts), x.mesh, x.spec)
